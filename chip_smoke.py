@@ -8,23 +8,35 @@ toolkit and PyTorch built for CUDA. Phases, in order; any failure exits
 non-zero and prints no result:
 
 1. card    - the card's name and power limit, from nvidia-smi;
-2. build   - every CUDA kernel of the serving path, compiled with nvcc for
-             sm_90a from the sources in the checkout;
-3. kernels - each kernel against its plain PyTorch version at the serving
-             shapes, within stated tolerances, and timed (CUDA events)
-             beside its bound, the plain version and one library call;
-4. slice   - a full-width ViT-B/14 + deformable DETR Predictor behind a
-             DynamicBatcher answers concurrent requests; every kernel of
-             the path must have launched, 12 flash launches per device
-             batch; detector_apply with the kernel against the same model
-             with plain attention (fp32 and bf16, a limit per output),
-             beside controls (the kernel with keys dropped) that must
-             fail the same check; images/s of the batch-32 forward plus
-             top-k.
+2. build   - every CUDA kernel of the port, compiled with nvcc for sm_90a
+             from the sources in the checkout, one nvcc per source at once;
+3. kernels - each kernel against its plain PyTorch version at the shapes
+             of the main paths (B=32, S=257, H=12, dh=64), bf16 and fp32,
+             all keys and kv_len=200, within stated tolerances, and timed
+             (device time from torch.profiler; CUDA events as event_ms)
+             beside its bound, the plain version and one library call:
+             the flash-attention forward (B1) and backward (B2);
+4. slice   - the serving path: a full-width ViT-B/14 + deformable DETR
+             Predictor behind a DynamicBatcher answers concurrent
+             requests; 12 forward launches per device batch;
+             detector_apply with the kernel against the same model with
+             plain attention (fp32 and bf16, a limit per output), beside
+             controls (the kernel with keys dropped) that must fail the
+             same check; images/s of the batch-32 forward plus top-k;
+5. train   - the train path: 20 full-width train steps (bf16 backbone,
+             LoRA on the last 2 blocks, fp32 decoder with dropout 0.1,
+             batch 32 with 25 GT slots) on a fixed synthetic batch; finite
+             losses that drop, frozen leaves and the non-adapted LoRA rows
+             bit-identical, 12 forward + 2 backward launches per step; the
+             loss and trainable gradients of one step with the kernels
+             against plain attention (fp32 and bf16, a limit per leaf
+             group), beside controls (the backward with keys dropped) that
+             must fail the same check; images/s of the train step.
 
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}. `--profile` adds a torch.profiler
-breakdown of the forward's device time by kernel.
+Every path is driven with the launch counts set to 0 just before it and
+read just after. The line before the last is {"kernels": [...]}; the last
+line is {"ok": true, "device": {...}}. `--profile` adds a torch.profiler
+breakdown by kernel of the serving forward and of the train step.
 """
 
 from __future__ import annotations
@@ -44,7 +56,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
-# Serving shape of the backbone's attention: ViT-B/14 at 224 px, batch 32.
+# The backbone's attention on both paths: ViT-B/14 at 224 px, batch 32.
 B, S, H, DH = 32, 257, 12, 64
 KV_MASKED = 200  # kv_len of the masked cases
 # Kernel against plain version, max abs error. bf16: both round p to bf16
@@ -76,6 +88,51 @@ MODEL_TOL = {
 CONTROLS = (S - 1, 192)
 OUTPUTS = ("pred_logits", "pred_boxes")
 REQUEST_SIZES = (8, 16, 4, 12)
+# Backward kernel against its plain version: max abs error of each of dq,
+# dk, dv over max(1, its largest magnitude). bf16: both round p and ds to
+# bf16 before their products, from fp32 values the tensor cores and the
+# plain einsums sum in other orders, so an element may round to the
+# neighbouring bf16 value; with the outputs' own rounding (2^-8) that
+# stays within two bf16 ulps of the largest gradient (measured 2.6e-3 on
+# an H100). fp32: CUDA cores against fp32 matmuls (TF32 off); measured
+# bit-identical, both sum each product in one sequential order.
+BWD_TOL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
+# Train phase: steps on the fixed batch, and the step's gradient check.
+TRAIN_STEPS = 20
+MAX_BOXES = 25
+# One step's loss and trainable gradients with the kernels, decoder
+# dropout 0, the same assignment for every run, against two references:
+# "plain attention" (attn_impl="xla": einsum forward, autograd backward)
+# and "plain backward" (the kernel forward, then the backward's plain
+# version on the card), which shares the forward's roundings and so
+# isolates the backward kernel. Per leaf group, the relative error
+# ||g - g_ref|| / ||g_ref|| (the loss: |l - l_ref| / |l_ref|). Each limit
+# lies between the sound kernels' reading and the smallest reading of a
+# faulty backward (GRAD_CONTROLS), seed 0 on an H100 under deterministic
+# algorithms (PERF.md): lora, the group the backward reaches, fp32 0 |
+# 1.2e-3 against plain backward and 1.5e-7 | 1.2e-3 against plain
+# attention; bf16 6.2e-5 | 1.7e-3 against plain backward, but 2.2e-3 |
+# 2.6e-3 against plain attention, where the forward's bf16 roundings
+# swamp a one-key fault. The decoder's and the projection's gradients do
+# not depend on the backward: they check the forward and the loss. The
+# sound kernels must pass every limit; every control must exceed one.
+GRAD_TOL = {
+    "float32": {
+        "plain attention": {"loss": 1e-5, "lora": 1e-4, "decoder": 1e-4,
+                            "projection": 1e-4},
+        "plain backward": {"loss": 1e-5, "lora": 1e-4, "decoder": 1e-4,
+                           "projection": 1e-4},
+    },
+    "bfloat16": {
+        "plain attention": {"loss": 1e-3, "lora": 0.01, "decoder": 0.01,
+                            "projection": 0.01},
+        "plain backward": {"loss": 1e-5, "lora": 3e-4, "decoder": 1e-5,
+                           "projection": 1e-5},
+    },
+}
+# Faulty backward kernels, through the same check: B2 handed a smaller
+# kv_len than its forward, so it drops the keys from this index on.
+GRAD_CONTROLS = (S - 1, 192)
 
 
 def log(msg: str) -> None:
@@ -112,17 +169,58 @@ def time_ms(fn, iters: int, warmup: int = 10, repeats: int = 5) -> float:
     return float(np.median(times))
 
 
+def device_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Device time of one call of `fn`: the summed durations of the CUDA
+    kernels it launched, from torch.profiler over `iters` calls. Gaps
+    between launches do not count, so a contended host, which stretches
+    back-to-back CUDA-event timings of short kernels, does not inflate
+    it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            dev_us = getattr(ev, "self_device_time_total", None)
+            total_us += ev.self_cuda_time_total if dev_us is None else dev_us
+    if total_us <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return total_us / 1e3 / iters
+
+
+def _bound(dtype: str, n_bytes: float, flops: float):
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 def attention_bound(dtype: str, kv_len: int):
     """(bound_ms, bound_by) of one forward at the serving shape: q, o once,
     the first kv_len rows of k, v once, the fp32 lse once; two products
     of 2 * S * kv_len * dh operations per (batch, head)."""
     item = 2 if dtype == "bfloat16" else 4
     n_bytes = (2 * S + 2 * kv_len) * B * H * DH * item + B * H * S * 4
-    flops = 4.0 * B * H * S * kv_len * DH
-    t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    return _bound(dtype, n_bytes, 4.0 * B * H * S * kv_len * DH)
+
+
+def attention_bwd_bound(dtype: str, kv_len: int):
+    """(bound_ms, bound_by) of one backward at the train shape: q and dO
+    read once, the first kv_len rows of k and v read once, the fp32 lse
+    and delta read once, dq, dk and dv written once; five products (s, dp,
+    dv, dk, dq) of 2 * S * kv_len * dh operations per (batch, head)."""
+    item = 2 if dtype == "bfloat16" else 4
+    n_bytes = ((2 * S + 2 * kv_len + 3 * S) * B * H * DH * item
+               + 2 * B * H * S * 4)
+    return _bound(dtype, n_bytes, 10.0 * B * H * S * kv_len * DH)
 
 
 def phase_build():
@@ -166,21 +264,25 @@ def phase_kernels(seed: int):
             err_o = (o.float() - o_ref.float()).abs().max().item()
             err_lse = (lse - lse_ref).abs().max().item()
             finite = bool(torch.isfinite(o).all() and torch.isfinite(lse).all())
-            ms = time_ms(lambda: fa.flash_attention_fwd(
-                q, k, v, scale=scale, kv_len=kv_len), iters=50)
-            plain_ms = time_ms(lambda: fa.flash_attention_fwd_plain(
+            def kernel():
+                fa.flash_attention_fwd(q, k, v, scale=scale, kv_len=kv_len)
+
+            ms = device_ms(kernel, iters=50)
+            event_ms = time_ms(kernel, iters=50)
+            plain_ms = device_ms(lambda: fa.flash_attention_fwd_plain(
                 q, k, v, scale=scale, kv_len=kv_len), iters=10)
             # The library yardstick: SDPA on the first kv_len keys.
             qt, kt, vt = (t.transpose(1, 2) for t in
                           (q, k[:, :kv_len], v[:, :kv_len]))
-            library_ms = time_ms(
+            library_ms = device_ms(
                 lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, scale=scale), iters=50)
             bound_ms, bound_by = attention_bound(name, kv_len)
             row = {
                 "dtype": name, "kv_len": kv_len, "shape": [B, S, H, DH],
                 "max_abs_err_o": err_o, "max_abs_err_lse": err_lse,
-                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
+                "library_ms": library_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
             }
             log("kernels: flash_attn_fwd " + json.dumps(row))
@@ -208,6 +310,106 @@ def phase_kernels(seed: int):
     if failures:
         raise AssertionError("kernel disagrees with its plain version: "
                              + "; ".join(failures))
+    return entry
+
+
+def phase_bwd_kernel(seed: int):
+    """Flash-attention backward against its plain version; returns the
+    kernel's entry of the kernels line (launches filled in later)."""
+    import torch
+    import torch.nn.functional as F
+
+    from dinov2_od_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(seed + 1)
+    scale = DH ** -0.5
+    entry = None
+    failures = []
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        # q, k, v as the three strided views of one fused qkv GEMM output,
+        # as the forward saved them.
+        qkv = torch.randn((B, S, 3 * H * DH), generator=gen).to("cuda", dtype)
+        q, k, v = (t.view(B, S, H, DH) for t in qkv.chunk(3, dim=-1))
+        do = torch.randn((B, S, H, DH), generator=gen).to("cuda", dtype)
+        for kv_len in (S, KV_MASKED):
+            o, lse = fa.flash_attention_fwd(q, k, v, scale=scale,
+                                            kv_len=kv_len)
+            delta = fa._delta(do, o, None)
+            got = fa.flash_attention_bwd(q, k, v, o, lse, do, scale=scale,
+                                         kv_len=kv_len)
+            ref = fa.flash_attention_bwd_plain(q, k, v, do, lse, delta,
+                                               scale=scale, kv_len=kv_len)
+            torch.cuda.synchronize()
+            err, abs_err = {}, {}
+            for gname, g, r in zip(("dq", "dk", "dv"), got, ref):
+                abs_err[gname] = (g.float() - r.float()).abs().max().item()
+                err[gname] = abs_err[gname] / max(
+                    1.0, r.float().abs().max().item())
+            finite = all(bool(torch.isfinite(g).all()) for g in got)
+            masked_zero = bool(not got[1][:, kv_len:].any()
+                               and not got[2][:, kv_len:].any())
+            def kernel():
+                fa._launch_bwd(q, k, v, do, lse, delta, scale, kv_len)
+
+            ms = device_ms(kernel, iters=50)
+            event_ms = time_ms(kernel, iters=50)
+            plain_ms = device_ms(lambda: fa.flash_attention_bwd_plain(
+                q, k, v, do, lse, delta, scale=scale, kv_len=kv_len),
+                iters=5)
+            # The library yardstick: SDPA forward + backward on the first
+            # kv_len keys, less SDPA forward alone.
+            qt, kt, vt = (t.transpose(1, 2).detach().clone()
+                          .requires_grad_(True)
+                          for t in (q, k[:, :kv_len], v[:, :kv_len]))
+            dot = do.transpose(1, 2)
+
+            def sdpa_fwd_bwd():
+                out = F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+                torch.autograd.grad(out, (qt, kt, vt), dot)
+
+            def sdpa_fwd():
+                with torch.no_grad():
+                    F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+
+            library_ms = (device_ms(sdpa_fwd_bwd, iters=20)
+                          - device_ms(sdpa_fwd, iters=20))
+            bound_ms, bound_by = attention_bwd_bound(name, kv_len)
+            row = {
+                "dtype": name, "kv_len": kv_len, "shape": [B, S, H, DH],
+                "max_abs_err": abs_err, "max_rel_err": err,
+                "masked_dk_dv_exactly_zero": masked_zero,
+                "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
+                "library_ms": library_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+            }
+            log("kernels: flash_attn_bwd " + json.dumps(row))
+            tol = BWD_TOL[name]
+            bad = [g for g, e in err.items() if e > tol]
+            if not finite or bad or not masked_zero:
+                failures.append(
+                    f"{name} kv_len={kv_len}: errors {err} (tol {tol}), "
+                    f"finite={finite}, masked dk/dv zero={masked_zero}")
+            if name == "bfloat16" and kv_len == S:
+                entry = {
+                    "name": "flash_attn_bwd",
+                    "route": "cuda",
+                    "source": "dinov2_od_tpu_torch/csrc/flash_attn_bwd.cu",
+                    "replaces": "dinov2_od_tpu/ops/flash_attention.py:403",
+                    "replaces_function": "_bwd_kernel_flat",
+                    "launches": 0,
+                    "launches_per_step": 0,
+                    "max_abs_err": max(abs_err.values()),
+                    "max_rel_err": max(err.values()),
+                    "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": library_ms,
+                }
+            del qt, kt, vt
+        del qkv, q, k, v, do
+    if failures:
+        raise AssertionError("backward kernel disagrees with its plain "
+                             "version: " + "; ".join(failures))
     return entry
 
 
@@ -272,15 +474,17 @@ def phase_slice(seed: int, kernels: dict, profile: bool = False):
     log(f"slice: {len(requests)} requests of {list(REQUEST_SIZES)} images "
         f"in {wall:.3f} s, {batcher.batches} batcher calls, "
         f"{device_batches} device batches, launches {counts}")
-    never = [n for n, c in counts.items() if c == 0]
-    if never:
-        raise AssertionError(f"kernels never launched on the path: {never}")
+    if counts["flash_attn_fwd"] == 0:
+        raise AssertionError("flash_attn_fwd never launched on the path")
+    if counts["flash_attn_bwd"] != 0:
+        raise AssertionError("the serving path launched the backward")
     per_forward = counts["flash_attn_fwd"] / max(device_batches, 1)
     if counts["flash_attn_fwd"] != bb.depth * device_batches:
         raise AssertionError(
             f"flash_attn_fwd launched {counts['flash_attn_fwd']} times for "
             f"{device_batches} device batches; expected {bb.depth} each")
     kernels["flash_attn_fwd"]["launches"] = counts["flash_attn_fwd"]
+    kernels["flash_attn_fwd"]["launches_serving"] = counts["flash_attn_fwd"]
     kernels["flash_attn_fwd"]["launches_per_forward"] = per_forward
 
     # Every request got its own detections: each one answered alone must
@@ -351,7 +555,281 @@ def phase_slice(seed: int, kernels: dict, profile: bool = False):
         "card": card_line(),
     }))
     if profile:
-        profile_forward(fwd, ms)
+        profile_device(fwd, ms, "serving forward")
+
+
+def _groups(params, cfg):
+    """The trainable leaves in the gradient check's groups: "lora" (the
+    adapted blocks' rows of every LoRA leaf, by (name, first row)),
+    "decoder" and, when there is one, "projection"."""
+    blocks = params["backbone"]["blocks"]
+    first = cfg.backbone.depth - cfg.backbone.lora_last_n_blocks
+    groups = {"lora": [(blocks[lin][f], first) for lin in sorted(blocks)
+                       if isinstance(blocks[lin], dict)
+                       for f in ("lora_A", "lora_B") if f in blocks[lin]],
+              "decoder": []}
+
+    def walk(t):
+        for v in t.values():
+            if isinstance(v, dict):
+                walk(v)
+            else:
+                groups["decoder"].append((v, 0))
+
+    walk(params["decoder"])
+    if "projection" in params["backbone"]:
+        groups["projection"] = [(params["backbone"]["projection"][f], 0)
+                                for f in ("kernel", "bias")]
+    return groups
+
+
+def _group_grads(loss, groups):
+    """The gradient of each group, flattened into one fp32 vector."""
+    import torch
+
+    leaves = [t for g in groups.values() for t, _ in g]
+    grads = iter(torch.autograd.grad(loss, leaves))
+    return {name: torch.cat([next(grads)[row:].reshape(-1).float()
+                             for _, row in items])
+            for name, items in groups.items()}
+
+
+@contextlib.contextmanager
+def _bwd_keys_dropped(kv_len: int):
+    """The flash backward as a faulty kernel: B2 handed a smaller kv_len
+    than its forward used, so it drops the keys from `kv_len` on."""
+    from dinov2_od_tpu_torch.ops import flash_attention as fa
+
+    sound = fa.flash_attention_bwd
+
+    def faulty(q, k, v, o, lse, do, *, scale, kv_len=None, glse2=None):
+        return sound(q, k, v, o, lse, do, scale=scale,
+                     kv_len=min(kv_len or q.shape[1], drop), glse2=glse2)
+
+    drop = kv_len
+    fa.flash_attention_bwd = faulty
+    try:
+        yield
+    finally:
+        fa.flash_attention_bwd = sound
+
+
+@contextlib.contextmanager
+def _plain_backward():
+    """The flash backward's plain version on the card, behind the kernel
+    forward: the gradient check's reference for the backward alone."""
+    from dinov2_od_tpu_torch.ops import flash_attention as fa
+
+    sound = fa.flash_attention_bwd
+
+    def plain(q, k, v, o, lse, do, *, scale, kv_len=None, glse2=None):
+        return fa.flash_attention_bwd_plain(
+            q, k, v, do, lse, fa._delta(do, o, glse2), scale=scale,
+            kv_len=kv_len)
+
+    fa.flash_attention_bwd = plain
+    try:
+        yield
+    finally:
+        fa.flash_attention_bwd = sound
+
+
+def phase_train(seed: int, kernels: dict, profile: bool = False):
+    import torch
+
+    from dinov2_od_tpu_torch.config import (
+        DataConfig, OptimConfig, TrainConfig, detector_config_for_model_name)
+    from dinov2_od_tpu_torch.data.synthetic import make_batch
+    from dinov2_od_tpu_torch.models.detector import (
+        cast_frozen_weights, init_detector_params, trainable_mask)
+    from dinov2_od_tpu_torch.ops import _build
+    from dinov2_od_tpu_torch.train.state import create_train_state
+    from dinov2_od_tpu_torch.train.step import make_train_step
+
+    det32 = detector_config_for_model_name("facebook/dinov2-base",
+                                           hidden_dim=768)
+    det = dataclasses.replace(det32, backbone=dataclasses.replace(
+        det32.backbone, dtype="bfloat16"))
+    cfg = TrainConfig(detector=det,
+                      data=DataConfig(batch_size=B, max_boxes=MAX_BOXES),
+                      optim=OptimConfig())
+    bb, dec = det.backbone, det.decoder
+    log(f"train: ViT-{bb.variant} depth {bb.depth} ({bb.seq_len} tokens) "
+        f"bf16, LoRA r={bb.lora_r} {bb.lora_mode} on the last "
+        f"{bb.lora_last_n_blocks} blocks; decoder {dec.num_layers} layers "
+        f"fp32 dropout {dec.dropout}; batch {B}, {MAX_BOXES} GT slots, "
+        f"matcher {cfg.matcher.assignment}; {cfg.optim}")
+    params = cast_frozen_weights(init_detector_params(
+        torch.Generator().manual_seed(seed), det, device="cuda"), det)
+    state = create_train_state(params, cfg.optim, det)
+    raw = make_batch(np.random.default_rng(seed), B, image_size=bb.image_size,
+                     max_boxes=MAX_BOXES)
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in raw.items()}
+    mask = trainable_mask(params, det)
+    frozen, lora_rows = [], []
+    first = bb.depth - bb.lora_last_n_blocks
+
+    def snapshot(t, m):
+        for key in t:
+            if isinstance(t[key], dict):
+                snapshot(t[key], m[key])
+            elif not m[key]:
+                frozen.append((t[key], t[key].clone()))
+            elif key in ("lora_A", "lora_B") and t[key].dim() == 3:
+                lora_rows.append((t[key], t[key][:first].clone()))
+
+    snapshot(params, mask)
+    step = make_train_step(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    # The main path: counts to 0, drive, read the counts.
+    _build.reset_launch_counts()
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        state, metrics = step(state, batch, gen)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    counts = dict(_build.launch_counts)
+    losses = torch.stack(losses).tolist()
+    log(f"train: {TRAIN_STEPS} steps, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, grad_norm {metrics['grad_norm'].item():.4f}, "
+        f"launches {counts}")
+    want = {"flash_attn_fwd": bb.depth * TRAIN_STEPS,
+            "flash_attn_bwd": bb.lora_last_n_blocks * TRAIN_STEPS}
+    if counts != want:
+        raise AssertionError(f"train launches {counts}; expected {want} "
+                             f"({bb.depth} + {bb.lora_last_n_blocks} per step)")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"non-finite train loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not drop: {losses[0]} -> "
+                             f"{losses[-1]}")
+    changed = sum(not torch.equal(t, before) for t, before in frozen)
+    changed_rows = sum(not torch.equal(t[:first], before)
+                       for t, before in lora_rows)
+    if changed or changed_rows:
+        raise AssertionError(f"{changed} frozen leaves and {changed_rows} "
+                             f"non-adapted LoRA leaves changed")
+    log(f"train: losses finite and dropping; {len(frozen)} frozen leaves "
+        f"and the non-adapted rows of {len(lora_rows)} LoRA leaves "
+        f"bit-identical")
+    fwd = kernels["flash_attn_fwd"]
+    fwd["launches"] += counts["flash_attn_fwd"]
+    fwd["launches_train"] = counts["flash_attn_fwd"]
+    fwd["launches_per_step"] = counts["flash_attn_fwd"] / TRAIN_STEPS
+    bwd = kernels["flash_attn_bwd"]
+    bwd["launches"] = counts["flash_attn_bwd"]
+    bwd["launches_per_step"] = counts["flash_attn_bwd"] / TRAIN_STEPS
+
+    # Throughput of the train step on the fixed batch.
+    ms = time_ms(lambda: step(state, batch, gen), iters=5, warmup=2,
+                 repeats=5)
+    log("train: " + json.dumps({
+        "metric": f"train step, batch {B}, bf16 backbone, {MAX_BOXES} GT "
+                  f"slots",
+        "ms_per_step": ms, "images_per_s": B / ms * 1e3,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "card": card_line(),
+    }))
+    if profile:
+        profile_device(lambda: step(state, batch, gen), ms, "train step")
+    del state, params, frozen, lora_rows
+    torch.cuda.empty_cache()
+
+    # One step's loss and gradients with the kernels against plain
+    # attention and against the plain backward, the same assignment for
+    # every run. Deterministic algorithms (the deformable gather's backward
+    # otherwise scatters with atomics), so that a reading moves only with
+    # the attention it checks; the plain backward run twice shows the
+    # floor that is left.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        _gradient_check(seed, cfg, det32, det, batch)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _gradient_check(seed, cfg, det32, det, batch):
+    import torch
+
+    from dinov2_od_tpu_torch.models.detector import (
+        cast_frozen_weights, detector_apply, init_detector_params)
+    from dinov2_od_tpu_torch.ops.losses import set_criterion
+    from dinov2_od_tpu_torch.ops.matching import hungarian_match
+    from dinov2_od_tpu_torch.train.state import create_train_state
+
+    dec = det.decoder
+    x = batch["images"]
+    gt = (batch["labels"], batch["boxes"], batch["valid"])
+    for name in ("float32", "bfloat16"):
+        c = dataclasses.replace(
+            det32 if name == "float32" else det,
+            decoder=dataclasses.replace(dec, dropout=0.0))
+        p = init_detector_params(torch.Generator().manual_seed(seed + 2), c,
+                                 device="cuda")
+        lg = torch.Generator().manual_seed(seed + 3)
+        for lin in p["backbone"]["blocks"].values():
+            if isinstance(lin, dict) and "lora_B" in lin:
+                lin["lora_B"] = (0.05 * torch.randn(
+                    lin["lora_B"].shape, generator=lg)).to("cuda")
+        if name == "bfloat16":
+            p = cast_frozen_weights(p, c)
+        create_train_state(p, cfg.optim, c)  # marks the trainable leaves
+        groups = _groups(p, c)
+        with torch.no_grad():
+            out = detector_apply(p, c, x, attn_impl="xla")
+        match = hungarian_match(out["pred_logits"], out["pred_boxes"], *gt)
+
+        def loss_grads(impl):
+            o = detector_apply(p, c, x, attn_impl=impl)
+            loss = set_criterion(o["pred_logits"], o["pred_boxes"], *gt,
+                                 num_classes=dec.num_classes,
+                                 match=match)["loss"]
+            return loss.detach(), _group_grads(loss, groups)
+
+        refs = {"plain attention": loss_grads("xla")}
+        with _plain_backward():
+            refs["plain backward"] = loss_grads("auto")
+            again = loss_grads("auto")
+        floor = {g: ((again[1][g] - refs["plain backward"][1][g]).norm()
+                     / refs["plain backward"][1][g].norm()).item()
+                 for g in again[1]}
+        log(f"train: gradients {name} plain backward run twice: rel err "
+            + ", ".join(f"{g} {e:.4g}" for g, e in floor.items()))
+        runs = {"kernel": loss_grads("auto")}
+        for kv_len in GRAD_CONTROLS:
+            with _bwd_keys_dropped(kv_len):
+                runs[f"control kv_len={kv_len}"] = loss_grads("auto")
+        verdicts = {}
+        for run, (loss, grads) in runs.items():
+            finite = bool(torch.isfinite(loss)) and all(
+                bool(torch.isfinite(g).all()) for g in grads.values())
+            failed = [] if finite else ["non-finite"]
+            for ref_name, (ref_loss, ref) in refs.items():
+                tol = GRAD_TOL[name][ref_name]
+                err = {"loss": abs((loss - ref_loss) / ref_loss).item()}
+                for g in grads:
+                    err[g] = ((grads[g] - ref[g]).norm()
+                              / ref[g].norm()).item()
+                over = [g for g in err if err[g] > tol[g]]
+                failed += [f"{ref_name}: {g}" for g in over]
+                log(f"train: gradients {name} {run} vs {ref_name}: "
+                    + ", ".join(f"{g} rel err {err[g]:.4g} (tol {tol[g]})"
+                                for g in err)
+                    + f", finite={finite}, over the limit: {over or 'none'}")
+            verdicts[run] = failed
+        if verdicts["kernel"]:
+            raise AssertionError(f"train gradients {name} disagree: "
+                                 f"{verdicts['kernel']}")
+        passed = [r for r, f in verdicts.items() if r != "kernel" and not f]
+        if passed:
+            raise AssertionError(
+                f"train gradients {name}: the check passes a backward that "
+                f"drops keys ({passed}); its limits are too loose")
+        del p, groups, runs, refs
+        torch.cuda.empty_cache()
 
 
 @contextlib.contextmanager
@@ -372,24 +850,30 @@ def _keys_dropped(kv_len: int):
         vit.multi_head_attention = sound
 
 
-def profile_forward(fwd, unprofiled_ms: float, steps: int = 5,
-                    top: int = 12):
-    """Device time of `steps` forwards by CUDA kernel, from torch.profiler:
-    the largest kernels, the shares of GEMMs and of the flash kernel, and
-    the device's idle share of the unprofiled step time."""
+def profile_device(fn, unprofiled_ms: float, what: str, steps: int = 5,
+                   top: int = 12):
+    """Device time of `steps` calls of `fn` by CUDA kernel, from
+    torch.profiler: the largest kernels, the shares of GEMMs and of the
+    flash kernels, the device's idle share of the unprofiled step time,
+    and the host time of the matcher's solve per step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fwd()
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            fwd()
+            fn()
         torch.cuda.synchronize()
     rows = []
+    matcher_ms = 0.0
     for ev in prof.key_averages():
+        if ev.key == "matcher_host_solve":
+            # A host span; its GPU-side annotation is no kernel either.
+            matcher_ms = max(matcher_ms, ev.cpu_time_total / 1e3 / steps)
+            continue
         if ev.device_type != DeviceType.CUDA:
             continue
         dev_us = getattr(ev, "self_device_time_total", None)
@@ -405,25 +889,30 @@ def profile_forward(fwd, unprofiled_ms: float, steps: int = 5,
         return sum(r[0] for r in rows
                    if any(t in r[2].lower() for t in tags)) / total
 
-    log("profile: " + json.dumps({
+    log(f"profile: {what}: " + json.dumps({
         "steps": steps, "kernels_per_step": sum(r[1] for r in rows),
         "device_ms_per_step": total, "unprofiled_ms_per_step": unprofiled_ms,
         "idle_share": max(0.0, 1 - total / unprofiled_ms),
         "gemm_share": share("gemm", "nvjet", "xmma", "cutlass"),
         "flash_fwd_share": share("flash_fwd"),
+        "flash_bwd_share": share("dkdv_", "dq_bf16", "dq_f32"),
         "layer_norm_share": share("layer_norm"),
         "elementwise_share": share("elementwise", "copy"),
+        "matcher_host_ms_per_step": matcher_ms,
+        "matcher_host_share": matcher_ms / unprofiled_ms,
     }))
     for ms_step, count, name in rows[:top]:
-        log(f"profile: {ms_step:8.4f} ms/step {count:4d} calls  {name[:100]}")
+        log(f"profile: {what}: {ms_step:8.4f} ms/step {count:4d} calls  "
+            f"{name[:100]}")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also break the forward's device time down by "
-                         "kernel with torch.profiler")
+                    help="also break the serving forward's and the train "
+                         "step's device time down by kernel with "
+                         "torch.profiler")
     args = ap.parse_args(argv)
 
     import torch
@@ -441,9 +930,11 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__}, cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     phase_build()
-    entry = phase_kernels(args.seed)
-    kernels = {entry["name"]: entry}
+    kernels = {}
+    for entry in (phase_kernels(args.seed), phase_bwd_kernel(args.seed)):
+        kernels[entry["name"]] = entry
     phase_slice(args.seed, kernels, profile=args.profile)
+    phase_train(args.seed, kernels, profile=args.profile)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,10 @@
-"""Detector configuration for the PyTorch port.
+"""Detector and training configuration for the PyTorch port.
 
-Own copies of the JAX package's backbone, decoder and detector
-dataclasses (dinov2_od_tpu/config.py), restricted to the fields the
-serving path reads: the JAX package's training-only and MoE fields come
-back with the slices that read them. Train, mesh and data configs are
-not part of this package yet. The field names and defaults are the JAX
-package's, so the keyword arguments of a port config also build the JAX
-one.
+Own copies of the JAX package's dataclasses (dinov2_od_tpu/config.py),
+restricted to the fields the serving path and the train step read: the
+MoE, mesh, loader and training-loop fields come back with the slices that
+read them. The field names and defaults are the JAX package's, so the
+keyword arguments of a port config also build the JAX one.
 """
 
 from __future__ import annotations
@@ -106,11 +104,45 @@ class DecoderConfig:
     num_layers: int = 3
     num_heads: int = 8
     dim_feedforward: int = 1024
+    dropout: float = 0.1
     num_classes: int = 91
     use_deformable: bool = True
     n_points: int = 2
     tie_layer_weights: bool = False
     dtype: str = "float32"
+    # Deep supervision: in train mode every intermediate layer's output
+    # goes through the shared heads and the set criterion too.
+    aux_loss: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class MatcherConfig:
+    """Hungarian matcher costs and solver."""
+
+    cost_class: float = 1.0
+    cost_bbox: float = 5.0
+    cost_giou: float = 2.0
+    focal_alpha: float = 0.25
+    focal_gamma: float = 2.0
+    # 'jv' (exact), 'auction', or 'auto' (exact below auction_threshold
+    # padded GT slots, auction at or above it). The port solves exactly;
+    # the auction is not ported yet (ROADMAP.md).
+    assignment: str = "auto"
+    auction_threshold: int = 40
+    # Match every image with image 0's predictions, as the original
+    # PyTorch matcher's slicing bug did (for A/B studies).
+    replicate_batch0_bug: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """Set-criterion loss weights."""
+
+    weight_ce: float = 1.0
+    weight_bbox: float = 5.0
+    weight_giou: float = 2.0
+    focal_alpha: float = 0.25
+    focal_gamma: float = 2.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,6 +159,69 @@ class DetectorConfig:
                 f"hidden_dim {self.decoder.hidden_dim}; set "
                 f"backbone.target_dim to the decoder dim."
             )
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """The batch the train step is fed."""
+
+    batch_size: int = 8
+    max_boxes: int = 100  # padded GT slots per image
+    # ImageNet normalisation of uint8 feeds (train/step.py prep_images).
+    normalize: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimConfig:
+    """Adam with L2 weight decay added to the gradient, global-norm
+    clipping, an optional learning-rate schedule, EMA and the non-finite
+    step guard."""
+
+    learning_rate: float = 1e-4
+    weight_decay: float = 1e-4
+    gradient_clip_val: float = 1.0
+    # > 1 is not ported yet (ROADMAP.md) and raises.
+    gradient_accumulation_steps: int = 1
+    lr_schedule: str = "constant"  # 'constant' | 'cosine' | 'linear'
+    warmup_steps: int = 0
+    total_steps: int = 0
+    min_lr_ratio: float = 0.0
+    ema_decay: float = 0.0  # 0: no EMA of the trainable leaves
+    # Skip the whole update (params, moments, EMA) when a gradient is not
+    # finite, and report nonfinite_skip = 1.
+    skip_nonfinite: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class AugmentConfig:
+    """Train-time augmentation. Not ported yet (ROADMAP.md): an enabled
+    augmentation makes the train step raise."""
+
+    hflip_prob: float = 0.0
+    color_jitter: float = 0.0
+    scale_jitter: float = 0.0
+
+    @property
+    def enabled(self) -> bool:
+        return (self.hflip_prob > 0 or self.color_jitter > 0
+                or self.scale_jitter > 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """What the train step reads."""
+
+    detector: DetectorConfig = DetectorConfig()
+    data: DataConfig = DataConfig()
+    optim: OptimConfig = OptimConfig()
+    matcher: MatcherConfig = MatcherConfig()
+    loss: LossConfig = LossConfig()
+    augment: AugmentConfig = AugmentConfig()
+    # Rematerialisation of backbone blocks: not ported yet (ROADMAP.md).
+    use_remat: bool = False
+    # Auxiliary layers reuse the final layer's assignment instead of
+    # solving their own.
+    share_aux_match: bool = False
 
 
 def lightweight_detector_config(
@@ -166,6 +261,7 @@ def detector_config_for_model_name(
     num_layers: int = 3,
     num_heads: int = 8,
     dim_feedforward: int = 1024,
+    dropout: float = 0.1,
     use_deformable: bool = True,
     n_points: int = 2,
     lora_r: int = 2,
@@ -194,6 +290,7 @@ def detector_config_for_model_name(
             num_layers=num_layers,
             num_heads=num_heads,
             dim_feedforward=dim_feedforward,
+            dropout=dropout,
             num_classes=num_classes,
             use_deformable=use_deformable,
             n_points=n_points,

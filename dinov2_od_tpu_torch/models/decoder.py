@@ -1,17 +1,19 @@
 """DETR decoder: learned object queries + (standard | deformable) layers
-(counterpart of dinov2_od_tpu/models/decoder.py), deterministic forward.
+(counterpart of dinov2_od_tpu/models/decoder.py).
 
 Layers are stacked on a leading axis as in the JAX param tree and run as
 a Python loop. Post-norm residual blocks (LayerNorm eps 1e-5) with a ReLU
 FFN; the self-attention always takes the plain einsum path ('xla'), as in
 the JAX package. Heads: class logits Linear and a 2-layer box MLP with
-sigmoid, both fp32. Train mode (dropout, aux_outputs) comes with the
-training slice.
+sigmoid, both fp32. Train mode (deterministic=False with a generator)
+drops the residual branches, the FFN hidden layer and the self-attention
+probabilities, each with its own draw, and returns `aux_outputs` when
+`aux_loss` is set.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -25,6 +27,7 @@ from ..ops.deformable import (
 )
 from .layers import (
     compute_dtype,
+    dropout,
     index_params,
     layer_norm,
     layernorm_init,
@@ -83,24 +86,35 @@ def init_decoder_params(gen: torch.Generator, cfg: DecoderConfig,
     }
 
 
-def _attention_block(tgt, memory, p: Params, num_heads: int):
+def _attention_block(tgt, memory, p: Params, num_heads: int,
+                     drop_rate: float = 0.0,
+                     generator: Optional[torch.Generator] = None):
     """Multi-head attention of tgt over memory (memory is tgt for the
-    self-attention), plain einsum path."""
+    self-attention), plain einsum path, with probability dropout when a
+    generator is given."""
     b, q, d = tgt.shape
     s = memory.shape[1]
     dh = d // num_heads
     qh = linear(tgt, p["q"]).reshape(b, q, num_heads, dh)
     kh = linear(memory, p["k"]).reshape(b, s, num_heads, dh)
     vh = linear(memory, p["v"]).reshape(b, s, num_heads, dh)
-    out = multi_head_attention(qh, kh, vh, impl="xla").reshape(b, q, d)
+    out = multi_head_attention(qh, kh, vh, impl="xla", dropout_rate=drop_rate,
+                               generator=generator).reshape(b, q, d)
     return linear(out, p["out"])
 
 
 def _layer_apply(tgt, memory, lp: Params, cfg: DecoderConfig,
-                 spatial_shape: Tuple[int, int]):
+                 spatial_shape: Tuple[int, int],
+                 generator: Optional[torch.Generator], deterministic: bool):
     """One post-norm decoder layer."""
-    sa = _attention_block(tgt, tgt, lp["self_attn"], cfg.num_heads)
-    tgt = layer_norm(tgt + sa, lp["ln1"], eps=1e-5)
+    dr = cfg.dropout
+    gen = None if deterministic else generator
+
+    def drop(x):
+        return dropout(x, dr, gen, deterministic)
+
+    sa = _attention_block(tgt, tgt, lp["self_attn"], cfg.num_heads, dr, gen)
+    tgt = layer_norm(tgt + drop(sa), lp["ln1"], eps=1e-5)
 
     if cfg.use_deformable:
         ref = torch.sigmoid(linear(tgt, lp["ref_proj"]))  # [B, Q, 2]
@@ -110,11 +124,11 @@ def _layer_apply(tgt, memory, lp: Params, cfg: DecoderConfig,
         )
     else:
         ca = _attention_block(tgt, memory, lp["cross_attn"], cfg.num_heads)
-    tgt = layer_norm(tgt + ca, lp["ln2"], eps=1e-5)
+    tgt = layer_norm(tgt + drop(ca), lp["ln2"], eps=1e-5)
 
-    h = torch.relu(linear(tgt, lp["fc1"]))
+    h = drop(torch.relu(linear(tgt, lp["fc1"])))
     h = linear(h, lp["fc2"])
-    return layer_norm(tgt + h, lp["ln3"], eps=1e-5)
+    return layer_norm(tgt + drop(h), lp["ln3"], eps=1e-5)
 
 
 def decoder_apply(
@@ -122,33 +136,42 @@ def decoder_apply(
     cfg: DecoderConfig,
     memory: torch.Tensor,
     *,
+    generator: Optional[torch.Generator] = None,
     deterministic: bool = True,
-) -> Dict[str, torch.Tensor]:
+) -> Dict[str, Any]:
     """Decode object queries against backbone features.
 
     Args:
       memory: [B, S, D] backbone features.
+      generator: dropout's random source (on memory's device); train-mode
+        dropout needs it and deterministic=False.
 
     Returns:
       {"pred_logits": [B, Q, num_classes], "pred_boxes": [B, Q, 4] cxcywh
-       in [0, 1]}, both fp32.
+       in [0, 1]}, both fp32, plus "aux_outputs" (a list of such dicts for
+      layers 0..L-2) when cfg.aux_loss and not deterministic.
     """
-    if not deterministic:
-        raise NotImplementedError(
-            "train-mode decoding (dropout, aux_outputs) comes with the "
-            "training slice (ROADMAP.md)"
-        )
     b, s, d = memory.shape
     memory = memory.to(compute_dtype(cfg.dtype))
     spatial_shape = factor_spatial_shape(s)
     tgt = params["query_embed"][None].to(memory.dtype).expand(
         b, cfg.num_queries, d
     )
+    collect = cfg.aux_loss and not deterministic
+    inter = []
     for i in range(cfg.num_layers):
         tgt = _layer_apply(tgt, memory, index_params(params["layers"], i), cfg,
-                           spatial_shape)
+                           spatial_shape, generator, deterministic)
+        if collect and i < cfg.num_layers - 1:
+            inter.append(tgt)
 
-    logits = linear(tgt, params["class_embed"])
-    h = torch.relu(linear(tgt, params["bbox_mlp"]["fc1"]))
-    boxes = torch.sigmoid(linear(h, params["bbox_mlp"]["fc2"]))
-    return {"pred_logits": logits.float(), "pred_boxes": boxes.float()}
+    def heads(x):
+        logits = linear(x, params["class_embed"])
+        h = torch.relu(linear(x, params["bbox_mlp"]["fc1"]))
+        boxes = torch.sigmoid(linear(h, params["bbox_mlp"]["fc2"]))
+        return {"pred_logits": logits.float(), "pred_boxes": boxes.float()}
+
+    out = heads(tgt)
+    if collect:
+        out["aux_outputs"] = [heads(x) for x in inter]
+    return out

@@ -1,11 +1,14 @@
 """The composed detector: DINOv2 backbone -> DETR decoder (counterpart of
 dinov2_od_tpu/models/detector.py), with the serving-time param
-transforms: LoRA folding and bf16 storage of the frozen backbone weights.
+transforms (LoRA folding and bf16 storage of the frozen backbone weights)
+and the trainability policy: the decoder, the backbone projection and the
+LoRA factors of the last `lora_last_n_blocks` blocks train; everything
+else is frozen.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -36,17 +39,61 @@ def detector_apply(
     cfg: DetectorConfig,
     pixel_values: torch.Tensor,
     *,
+    generator: Optional[torch.Generator] = None,
     deterministic: bool = True,
     attn_impl: str = "auto",
-) -> Dict[str, torch.Tensor]:
+) -> Dict[str, Any]:
     """Full forward pass on pixel_values [B, H, W, 3] (NHWC).
 
-    Returns {"pred_logits": [B, Q, C], "pred_boxes": [B, Q, 4]}."""
+    `generator` (on the params' device) drives the decoder's dropout when
+    deterministic is False. Returns {"pred_logits": [B, Q, C],
+    "pred_boxes": [B, Q, 4]}, plus "aux_outputs" in train mode when the
+    decoder's aux_loss is set."""
     features = backbone_apply(
         params["backbone"], cfg.backbone, pixel_values, attn_impl=attn_impl
     )
     return decoder_apply(params["decoder"], cfg.decoder, features,
-                         deterministic=deterministic)
+                         generator=generator, deterministic=deterministic)
+
+
+def _map_with_path(fn, tree: Params, path=()) -> Params:
+    return {k: (_map_with_path(fn, v, path + (k,)) if isinstance(v, dict)
+                else fn(path + (k,), v))
+            for k, v in tree.items()}
+
+
+def trainable_mask(params: Params, cfg: DetectorConfig) -> Params:
+    """The param tree with True at trainable leaves: every decoder leaf,
+    the backbone projection and the backbone's stacked LoRA leaves (their
+    non-adapted block rows are zeroed by `lora_block_multiplier`)."""
+    del cfg  # the policy reads only the tree (MoE raises in the backbone)
+
+    def mark(path, leaf):
+        if path[0] == "decoder":
+            return True
+        return path[0] == "backbone" and (
+            "projection" in path or path[-1] in ("lora_A", "lora_B"))
+
+    return _map_with_path(mark, params)
+
+
+def lora_block_multiplier(params: Params, cfg: DetectorConfig) -> Params:
+    """Per-leaf multiplier, broadcastable against the leaf: for every
+    stacked lora_A / lora_B leaf a tensor that is 1 for the last
+    `lora_last_n_blocks` rows and 0 for the earlier blocks; the float 1.0
+    for every other leaf, which a caller may skip."""
+    depth = cfg.backbone.depth
+    first = max(0, depth - cfg.backbone.lora_last_n_blocks)
+
+    def mult(path, leaf):
+        if path[0] == "backbone" and path[-1] in ("lora_A", "lora_B"):
+            m = torch.zeros((depth,) + (1,) * (leaf.dim() - 1),
+                            dtype=leaf.dtype, device=leaf.device)
+            m[first:] = 1.0
+            return m
+        return 1.0
+
+    return _map_with_path(mult, params)
 
 
 def fold_detector_lora(params: Params, cfg: DetectorConfig) -> Params:

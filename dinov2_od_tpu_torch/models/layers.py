@@ -12,7 +12,7 @@ initial values across, since the two frameworks' generators differ.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -133,6 +133,19 @@ def layer_norm(x: torch.Tensor, p: Params, eps: float = 1e-6) -> torch.Tensor:
         x.float(), (x.shape[-1],), p["scale"].float(), p["bias"].float(), eps
     )
     return y.to(x.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator],
+            deterministic: bool) -> torch.Tensor:
+    """Inverted dropout: keep each element with probability 1 - rate and
+    scale it by 1/(1 - rate). Identity when deterministic, at rate 0 or
+    without a generator (on x's device) to draw the mask from."""
+    if deterministic or rate == 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
 
 
 def fold_lora(p: Params, alpha: float) -> Params:

@@ -1,5 +1,5 @@
 """DINOv2 ViT backbone with LoRA adapters (counterpart of
-dinov2_od_tpu/models/vit.py), forward only.
+dinov2_od_tpu/models/vit.py).
 
 The param tree is the JAX package's: per-block leaves stacked on a
 leading depth axis, linear kernels `[in, out]`, the patch embedding an
@@ -8,7 +8,11 @@ HWIO `[p, p, 3, D]` kernel used as a `(py, px, c)`-ordered patch GEMM.
 - Patchify as reshape + GEMM (stride == kernel size).
 - Pre-norm blocks with LayerScale; q/k/v as one fused `[D, 3D]` GEMM whose
   output the attention kernel reads in place through three strided views.
-- Blocks below the last `lora_last_n_blocks` skip the LoRA compute.
+- The block loop splits at the LoRA boundary, as the JAX package's does:
+  blocks below the last `lora_last_n_blocks` have nothing to train, so
+  they run under `torch.no_grad()` (the counterpart of JAX's
+  stop_gradient: no stored activations, no attention backward) and skip
+  the LoRA compute; the adapted suffix runs with autograd.
 - No sequence padding: the attention kernel masks its own ragged edge.
 
 The dense `mlp` and `swiglu` FFNs are ported; MoE, int8 and pipeline
@@ -196,13 +200,21 @@ def backbone_apply(
     x = torch.cat([cls, x], dim=1)
     x = x + params["pos_embed"].to(dtype)
 
-    # Blocks below the last `lora_last_n_blocks` run without their LoRA
-    # factors (zero by construction there).
-    first_adapted = max(0, cfg.depth - cfg.lora_last_n_blocks)
-    for i in range(cfg.depth):
-        active = i >= first_adapted and cfg.lora_last_n_blocks > 0
-        x = _block_apply(x, index_params(params["blocks"], i), cfg, attn_impl,
-                         active)
+    # The prefix below the last `lora_last_n_blocks` blocks runs without
+    # autograd and without its LoRA factors (zero by construction there).
+    k = max(0, cfg.depth - cfg.lora_last_n_blocks)
+    if 0 < k < cfg.depth:
+        with torch.no_grad():
+            for i in range(k):
+                x = _block_apply(x, index_params(params["blocks"], i), cfg,
+                                 attn_impl, False)
+        for i in range(k, cfg.depth):
+            x = _block_apply(x, index_params(params["blocks"], i), cfg,
+                             attn_impl, True)
+    else:
+        for i in range(cfg.depth):
+            x = _block_apply(x, index_params(params["blocks"], i), cfg,
+                             attn_impl, cfg.lora_last_n_blocks > 0)
 
     x = layer_norm(x, params["ln_f"])
     if "projection" in params:

@@ -49,10 +49,11 @@ def params_from_numpy(tree: Mapping[str, Any], device="cuda"):
 
 def params_to_numpy(tree):
     """The port's param tree as nested dicts of numpy arrays (bf16 leaves
-    as fp32)."""
+    as fp32), copied: later in-place updates of the tensors do not reach
+    them."""
     if isinstance(tree, Mapping):
         return {k: params_to_numpy(v) for k, v in tree.items()}
     t = tree.detach().cpu()
     if t.dtype == torch.bfloat16:
         t = t.float()
-    return t.numpy()
+    return np.array(t.numpy(), copy=True)

@@ -87,13 +87,16 @@ def test_log2_lse_and_masked_keys():
 def test_cpu_tensor_takes_plain_version():
     _build.reset_launch_counts()
     _, (q, k, v) = _qkv(1, 2, 21, 2, "bfloat16")
+    q.requires_grad_(True)
     o = fa.flash_attention(q, k, v, scale=0.125, kv_len=17)
     o_plain, _ = fa.flash_attention_fwd_plain(q, k, v, scale=0.125,
                                               kv_len=17)
     out = multi_head_attention(q, k, v, impl="flash")
+    o.float().sum().backward()  # the backward's plain version
     assert torch.equal(o, o_plain)
     assert out.shape == q.shape
-    assert _build.launch_counts == {"flash_attn_fwd": 0}
+    assert q.grad is not None and q.grad.shape == q.shape
+    assert _build.launch_counts == {"flash_attn_fwd": 0, "flash_attn_bwd": 0}
 
 
 def test_strided_views_of_fused_qkv():
@@ -132,8 +135,10 @@ def test_unsupported_inputs_raise():
         fa.flash_attention(q, k[:, :5], v[:, :5], scale=0.125)
     with pytest.raises(NotImplementedError):
         multi_head_attention(q, k, v, impl="ring")
-    with pytest.raises(NotImplementedError):
-        multi_head_attention(q, k, v, dropout_rate=0.1)
+    # The flash kernel never materialises the probabilities to drop.
+    with pytest.raises(ValueError, match="dropout"):
+        multi_head_attention(q, k, v, impl="flash", dropout_rate=0.1,
+                             generator=torch.Generator())
     with pytest.raises(NotImplementedError):
         multi_head_attention(q, k, v, tp_axis="model")
 

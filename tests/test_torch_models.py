@@ -384,10 +384,17 @@ def test_unported_options_raise(monkeypatch):
                                          ffn_type_override="moe"))
     with pytest.raises(NotImplementedError):
         init_detector_params(torch.Generator(), moe, device="cpu")
-    tree, _, _ = _trees()
-    with pytest.raises(NotImplementedError):
-        decoder_apply(params_from_numpy(tree["decoder"], device="cpu"),
-                      pc.decoder, torch.zeros(1, 16, 64), deterministic=False)
+    # Train-mode decoding is ported; the train step's unported options
+    # raise.
+    from dinov2_od_tpu_torch.train.step import make_train_step
+
+    for train in (pcfg.TrainConfig(detector=pc, use_remat=True),
+                  pcfg.TrainConfig(detector=pc, optim=pcfg.OptimConfig(
+                      gradient_accumulation_steps=2)),
+                  pcfg.TrainConfig(detector=pc, augment=pcfg.AugmentConfig(
+                      hflip_prob=0.5))):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            make_train_step(train)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         init_detector_params(torch.Generator(), pc)
