@@ -1,10 +1,12 @@
 """PyTorch/CUDA port of dinov2_od_tpu: DINOv2 + deformable DETR detection.
 
 Its serving path (backbone, decoder, device-side top-k, Predictor and the
-HTTP server) runs on an NVIDIA H100; the backbone's self-attention goes
-through a hand-written CUDA flash-attention kernel
-(csrc/flash_attn_fwd.cu), built with nvcc at first use. Imports torch and
-numpy only; Pillow is imported where files or bytes are decoded.
+HTTP server, in bf16 or int8 W8A8) and its train step run on an NVIDIA
+H100; the backbone's self-attention goes through hand-written CUDA
+flash-attention kernels (csrc/flash_attn_fwd.cu, csrc/flash_attn_bwd.cu)
+and its int8 fc2 through a fused quantize + int8 GEMM kernel
+(csrc/int8_gemm.cu), built with nvcc at first use. Imports torch and
+numpy, scipy for the matcher; Pillow where files or bytes are decoded.
 Entry points run on the CUDA card unless the caller passes device="cpu".
 """
 

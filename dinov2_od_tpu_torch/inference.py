@@ -10,9 +10,11 @@
   has one shape.
 - Post-processing (sigmoid, top-k, rescale) runs on the device; one
   compact [B, K, 6] tensor comes back per batch.
+- `quantize="int8"` serves W8A8 (models/quantize.py): LoRA is folded,
+  then the backbone's block linears are quantized, in the JAX order.
 
-Loading an Orbax checkpoint (`from_checkpoint` in the JAX package) and
-`quantize="int8"` are not ported yet (ROADMAP.md).
+Loading an Orbax checkpoint (`from_checkpoint` in the JAX package) is not
+ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from .config import DetectorConfig
 from .evaluation.postprocess import format_detections, select_topk_detections
 from .models.detector import detector_apply, fold_detector_lora
 from .models.layers import resolve_device
+from .models.quantize import quantize_detector_int8
 
 # ImageNet normalisation (the JAX package's data/coco.py values).
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
@@ -100,15 +103,13 @@ class Predictor:
         JAX tree into one). device: CUDA unless the caller asks for the
         CPU; raises when CUDA is asked for and absent."""
         self.device = resolve_device(device)
-        if quantize == "int8":
-            raise NotImplementedError(
-                "int8 serving is not ported yet (ROADMAP.md)"
-            )
-        if quantize is not None:
+        if quantize not in (None, "int8"):
             raise ValueError(f"unknown quantize mode: {quantize!r}")
         params = _to_device(params, self.device)
         if fold_lora:
             params = fold_detector_lora(params, cfg)
+        if quantize == "int8":  # raises on unfolded LoRA
+            params = quantize_detector_int8(params, cfg)
         self.params = params
         self.cfg = cfg
         self.batch_size = batch_size

@@ -17,6 +17,8 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from .quantize import int8_linear
+
 Params = Dict[str, torch.Tensor]
 
 
@@ -109,10 +111,8 @@ def lora_init(gen, in_dim: int, out_dim: int, r: int, device) -> Params:
 # ---------------------------------------------------------------------------
 
 def linear(x: torch.Tensor, p: Params) -> torch.Tensor:
-    if "kernel_q" in p:
-        raise NotImplementedError(
-            "int8 serving params are not ported yet (see ROADMAP.md)"
-        )
+    if "kernel_q" in p:  # int8 params (models/quantize.py)
+        return int8_linear(x, p)
     return x @ p["kernel"].to(x.dtype) + p["bias"].to(x.dtype)
 
 

@@ -15,8 +15,12 @@ HWIO `[p, p, 3, D]` kernel used as a `(py, px, c)`-ordered patch GEMM.
   the LoRA compute; the adapted suffix runs with autograd.
 - No sequence padding: the attention kernel masks its own ragged edge.
 
-The dense `mlp` and `swiglu` FFNs are ported; MoE, int8 and pipeline
-parallelism raise NotImplementedError (ROADMAP.md).
+- int8 params (models/quantize.py) are dispatched on "kernel_q": q/k/v as
+  one int8 GEMM whose output the attention kernel reads in place, and
+  `prefix_int8` quantizes the no-grad prefix's linears inside the step.
+
+The dense `mlp` and `swiglu` FFNs are ported; MoE raises
+NotImplementedError (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from .layers import (
     torch_linear_init,
     trunc_normal_init,
 )
+from .quantize import int8_qkv, quantize_blocks
 
 Params = Dict[str, Any]
 
@@ -48,10 +53,6 @@ def _check_supported(cfg: BackboneConfig) -> None:
     if cfg.ffn_type not in ("mlp", "swiglu"):
         raise NotImplementedError(
             f"ffn_type={cfg.ffn_type!r} is not ported yet (ROADMAP.md: MoE)"
-        )
-    if cfg.prefix_int8:
-        raise NotImplementedError(
-            "prefix_int8 is not ported yet (ROADMAP.md: int8 serving)"
         )
 
 
@@ -112,7 +113,7 @@ def _eff_kernel(p: Params, alpha: float, dtype, mode: str) -> torch.Tensor:
 
 
 def _maybe_lora(x, p: Params, cfg: BackboneConfig, active: bool = True):
-    if not active:
+    if "kernel_q" in p or not active:  # int8: LoRA folded by contract
         return linear(x, p)
     if cfg.lora_mode == "fold" and "lora_A" in p:
         w = _eff_kernel(p, cfg.lora_alpha, x.dtype, "fold")
@@ -120,11 +121,10 @@ def _maybe_lora(x, p: Params, cfg: BackboneConfig, active: bool = True):
     return lora_linear(x, p, cfg.lora_alpha)
 
 
-def _attention(x, bp: Params, cfg: BackboneConfig, attn_impl: str,
-               lora_active: bool):
-    b, n, d = x.shape
-    h = cfg.num_heads
-    dh = d // h
+def _qkv(x, bp: Params, cfg: BackboneConfig, lora_active: bool):
+    """q, k and v as one `[B, N, 3D]` buffer from one fused GEMM."""
+    if "kernel_q" in bp["q"]:  # int8 params: LoRA folded by contract
+        return int8_qkv(x, bp)
     alpha = cfg.lora_alpha
     mode = cfg.lora_mode if lora_active else "skip"
     names = ("q", "k", "v")
@@ -137,8 +137,16 @@ def _attention(x, bp: Params, cfg: BackboneConfig, attn_impl: str,
         a_qkv = torch.cat([bp[p]["lora_A"] for p in names], dim=1)
         b_diag = torch.block_diag(*[bp[p]["lora_B"] for p in names])
         qkv = qkv + alpha * ((x @ a_qkv.to(x.dtype)) @ b_diag.to(x.dtype))
+    return qkv
+
+
+def _attention(x, bp: Params, cfg: BackboneConfig, attn_impl: str,
+               lora_active: bool):
+    b, n, d = x.shape
+    h = cfg.num_heads
+    qkv = _qkv(x, bp, cfg, lora_active)
     # Three strided [B, N, H, dh] views of the one qkv buffer.
-    q, k, v = (t.view(b, n, h, dh) for t in qkv.chunk(3, dim=-1))
+    q, k, v = (t.view(b, n, h, d // h) for t in qkv.chunk(3, dim=-1))
     out = multi_head_attention(q, k, v, impl=attn_impl).reshape(b, n, d)
     return _maybe_lora(out, bp["proj"], cfg, lora_active)
 
@@ -205,8 +213,14 @@ def backbone_apply(
     k = max(0, cfg.depth - cfg.lora_last_n_blocks)
     if 0 < k < cfg.depth:
         with torch.no_grad():
+            prefix = params["blocks"]
+            if cfg.prefix_int8:
+                # The prefix is pure inference, so the W8A8 scheme applies
+                # in training too: its six linears quantize here, from the
+                # stacked (possibly bf16) kernels of the first k blocks.
+                prefix = quantize_blocks(index_params(prefix, slice(0, k)))
             for i in range(k):
-                x = _block_apply(x, index_params(params["blocks"], i), cfg,
+                x = _block_apply(x, index_params(prefix, i), cfg,
                                  attn_impl, False)
         for i in range(k, cfg.depth):
             x = _block_apply(x, index_params(params["blocks"], i), cfg,

@@ -20,7 +20,8 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
 SOURCES = {"flash_attn_fwd": "flash_attn_fwd.cu",
-           "flash_attn_bwd": "flash_attn_bwd.cu"}
+           "flash_attn_bwd": "flash_attn_bwd.cu",
+           "int8_gemm": "int8_gemm.cu"}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -14,7 +14,8 @@ copy that changes no shape:
 Nested dicts map to nested dicts and arrays to tensors. bf16 arrays (the
 `bfloat16` numpy dtype that JAX arrays carry) become bf16 tensors;
 `params_to_numpy` returns them as fp32 arrays (exact), since numpy itself
-has no bf16.
+has no bf16. An int8 tree (models/quantize.py: int8 `kernel_q`, fp32
+`w_scale`) crosses with its dtypes kept, both ways.
 """
 
 from __future__ import annotations

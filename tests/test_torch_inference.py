@@ -174,8 +174,12 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(bridged, monkeypatch):
         Predictor(params_from_numpy(tree, device="cpu"), pc)
     with pytest.raises(RuntimeError, match="CUDA"):
         init_detector_params(torch.Generator(), pc)
-    with pytest.raises(NotImplementedError):
+    # int8 serving quantizes after folding; unfolded LoRA raises.
+    with pytest.raises(ValueError, match="fold_detector_lora"):
         Predictor(params_from_numpy(tree, device="cpu"), pc, quantize="int8",
+                  fold_lora=False, device="cpu")
+    with pytest.raises(ValueError, match="quantize mode"):
+        Predictor(params_from_numpy(tree, device="cpu"), pc, quantize="int4",
                   device="cpu")
 
 
