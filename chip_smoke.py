@@ -18,6 +18,13 @@ non-zero and prints no result:
              S=257, H=12, dh=64, bf16 and fp32, all keys and kv_len=200;
              the fused quantize + int8 GEMM (B6) at the fc2 shapes of
              INT8_CASES, with a control (a K tile dropped) that must fail;
+             the long-sequence forward (B5f) and backward (B5b) at
+             BHSD_CASES (ViT-L/560: B=8, S=1601, H=16, all keys and
+             kv_len=1500; Sq=50 over Sk=1601; 3 heads at 257 tokens), bf16
+             and fp32, each with a control (a key tile dropped) that must
+             fail, timed at ViT-L/560 beside B1 and B2 at the same shape,
+             SDPA, and `_scaled_dot_product_flash_attention` as the lse
+             variant's (B3's) yardstick;
 4. slice   - the bf16 serving path: a full-width ViT-B/14 + deformable
              DETR Predictor behind a DynamicBatcher answers concurrent
              requests; 12 forward launches per device batch;
@@ -43,7 +50,19 @@ non-zero and prints no result:
              (prefix_int8): 10 steps with the same checks, 12 B1, 2 B2 and
              10 B6 launches per step; one step's loss and gradients against
              B6's plain version, with a control that must fail; images/s
-             beside the bf16 step's.
+             beside the bf16 step's;
+8. large   - the long-sequence serving path: a full-width ViT-L/14 at
+             560 px (1601 tokens) + deformable DETR Predictor (batch 8)
+             behind a DynamicBatcher answers concurrent requests; 24 B5f
+             and no B1 launches per device batch; detector_apply with the
+             kernels against plain attention (fp32 and bf16), beside
+             controls (keys dropped) that must fail; images/s of the
+             batch-8 forward plus top-k;
+9. large train - 10 full-width train steps of that model at batch 8 (bf16
+             backbone, LoRA r=2 on the last 2 blocks): the train phase's
+             checks, 24 B5f + 2 B5b and no B1/B2 launches per step, the
+             gradient check against plain attention and B5b's plain
+             version with controls (B5b dropping keys); images/s.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after. The line before the last is {"kernels": [...]}; the last
@@ -180,6 +199,70 @@ INT8_TRAIN_STEPS = 10
 INT8_GRAD_TOL = {"loss": 1e-6, "lora": 1e-5, "decoder": 1e-5,
                  "projection": 1e-5}
 
+# The long-sequence configuration: ViT-L/14 at 560 px (1601 tokens) +
+# deformable DETR, detector_config_for_model_name("facebook/dinov2-large",
+# hidden_dim=768, image_size=560) as bench.py:60-62 builds it with
+# BENCH_MODEL=large BENCH_IMAGE_SIZE=560, at the JAX package's ViT-L batch
+# of 8 (BENCH.md). At 1601 tokens the family choice (`_flat_eligible`)
+# refuses the flat kernels, so its attention runs B5f and B5b.
+LARGE_MODEL, LARGE_IMAGE, LARGE_BATCH = "facebook/dinov2-large", 560, 8
+LS, LH = 1601, 16  # its attention: 1601 tokens, 16 heads of 64
+# BHSD kernel cases (batch, Sq, Sk, heads, kv_len): ViT-L/560 with all keys
+# and with the keys from 1500 on masked; a cross shape (50 queries, the
+# decoder's count, over 1601 keys); ViT-B's 3 head-local heads under
+# 4-way tensor parallelism at 257 tokens, batch 32 (a B4 shape, which the
+# BHSD pair computes too). Tolerances: TOL and BWD_TOL, for the reasons
+# given there (B5f's online softmax rounds p as B1's does); B5b's dq is
+# summed over key tiles by fp32 atomics in a varying order, a few fp32 ulps
+# that stay far inside BWD_TOL's bf16 ulps.
+BHSD_CASES = ((LARGE_BATCH, LS, LS, LH, LS), (LARGE_BATCH, LS, LS, LH, 1500),
+              (LARGE_BATCH, 50, LS, LH, LS), (B, S, S, 3, S))
+LARGE_REQUEST_SIZES = (3, 5, 2, 6)
+# detector_apply of the large model with the kernels against plain
+# attention, max abs error per output, each limit set like MODEL_TOL
+# between the sound kernels' reading and the controls'. Controls: the
+# backbone's attention with the keys from 1600 on (the ragged last key
+# tile: one key) or from 1536 on (the last full tile too) dropped. Seed 0
+# on an H100 (PERF.md), sound | 1600 | 1536: fp32 logits 2.9e-5 |
+# 0.038 | 0.30, boxes 2.7e-6 | 3.3e-3 | 0.036; bf16 logits 0.149 | 0.183 |
+# 0.332, boxes 9.8e-3 | 0.0127 | 0.036. In bf16 every one of the 24 blocks
+# rounds its activations, and that noise (0.149) swamps a one-key fault
+# (0.183) as it swamps any reference that does not round bit for bit as
+# the kernel does; so bf16 holds the 1536 control only, and the one-key
+# fault is caught by the kernel phase (BHSD_CASES' controls) and by fp32.
+LARGE_MODEL_TOL = {
+    "float32": {"pred_logits": 1e-3, "pred_boxes": 1e-4},
+    "bfloat16": {"pred_logits": 0.25, "pred_boxes": 0.025},
+}
+LARGE_CONTROLS = {"float32": (LS - 1, 1536), "bfloat16": (1536,)}
+LARGE_TRAIN_STEPS = 10
+# One large train step's loss and gradients against plain attention and
+# against B5b's plain version, per leaf group as GRAD_TOL, each limit set
+# between the sound kernels' reading and the controls' (B5b handed a
+# smaller kv_len than its forward: 1600 | 1536). Seed 0 on an H100
+# (PERF.md), relative error of the adapted LoRA gradients, sound |
+# 1600 | 1536: fp32 vs plain attention 5.3e-7 | 3.7e-4 | 0.024, vs plain
+# backward 4.2e-8 | 3.7e-4 | 0.024; bf16 vs plain attention 4.9e-3 |
+# 4.8e-3 | 0.024 (the forward's bf16 roundings through 24 blocks swamp a
+# one-key fault there, and move the decoder's gradients by 1.5e-2), vs
+# plain backward 2.9e-4 | 1.2e-3 | 0.024 (B5b's dq atomics add their
+# run-to-run order on top of the bf16 roundings both share).
+LARGE_GRAD_TOL = {
+    "float32": {
+        "plain attention": {"loss": 1e-5, "lora": 1e-4, "decoder": 1e-4,
+                            "projection": 1e-4},
+        "plain backward": {"loss": 1e-5, "lora": 1e-4, "decoder": 1e-4,
+                           "projection": 1e-4},
+    },
+    "bfloat16": {
+        "plain attention": {"loss": 1e-3, "lora": 0.015, "decoder": 0.03,
+                            "projection": 0.015},
+        "plain backward": {"loss": 1e-5, "lora": 6e-4, "decoder": 1e-5,
+                           "projection": 1e-5},
+    },
+}
+LARGE_GRAD_CONTROLS = (LS - 1, 1536)
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -215,12 +298,12 @@ def time_ms(fn, iters: int, warmup: int = 10, repeats: int = 5) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, iters: int, warmup: int = 3) -> float:
+def device_ms(fn, iters: int, warmup: int = 3, only: str = "") -> float:
     """Device time of one call of `fn`: the summed durations of the CUDA
-    kernels it launched, from torch.profiler over `iters` calls. Gaps
-    between launches do not count, so a contended host, which stretches
-    back-to-back CUDA-event timings of short kernels, does not inflate
-    it."""
+    kernels it launched (those whose name holds `only`, if given), from
+    torch.profiler over `iters` calls. Gaps between launches do not count,
+    so a contended host, which stretches back-to-back CUDA-event timings
+    of short kernels, does not inflate it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -234,7 +317,7 @@ def device_ms(fn, iters: int, warmup: int = 3) -> float:
         torch.cuda.synchronize()
     total_us = 0.0
     for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA:
+        if ev.device_type == DeviceType.CUDA and only in ev.key:
             dev_us = getattr(ev, "self_device_time_total", None)
             total_us += ev.self_cuda_time_total if dev_us is None else dev_us
     if total_us <= 0:
@@ -249,24 +332,29 @@ def _bound(dtype: str, n_bytes: float, flops: float):
                                        else "operations")
 
 
-def attention_bound(dtype: str, kv_len: int):
-    """(bound_ms, bound_by) of one forward at the serving shape: q, o once,
-    the first kv_len rows of k, v once, the fp32 lse once; two products
-    of 2 * S * kv_len * dh operations per (batch, head)."""
+def attention_bound(dtype: str, kv_len: int, b: int = B, sq: int = S,
+                    h: int = H):
+    """(bound_ms, bound_by) of one forward (the serving shape unless
+    given): q, o once, the first kv_len rows of k, v once, the fp32 lse
+    once; two products of 2 * Sq * kv_len * dh operations per (batch,
+    head)."""
     item = 2 if dtype == "bfloat16" else 4
-    n_bytes = (2 * S + 2 * kv_len) * B * H * DH * item + B * H * S * 4
-    return _bound(dtype, n_bytes, 4.0 * B * H * S * kv_len * DH)
+    n_bytes = (2 * sq + 2 * kv_len) * b * h * DH * item + b * h * sq * 4
+    return _bound(dtype, n_bytes, 4.0 * b * h * sq * kv_len * DH)
 
 
-def attention_bwd_bound(dtype: str, kv_len: int):
-    """(bound_ms, bound_by) of one backward at the train shape: q and dO
-    read once, the first kv_len rows of k and v read once, the fp32 lse
-    and delta read once, dq, dk and dv written once; five products (s, dp,
-    dv, dk, dq) of 2 * S * kv_len * dh operations per (batch, head)."""
+def attention_bwd_bound(dtype: str, kv_len: int, b: int = B, sq: int = S,
+                        sk: int = S, h: int = H):
+    """(bound_ms, bound_by) of one backward (the train shape unless
+    given): q and dO read once, the first kv_len rows of k and v read
+    once, the fp32 lse and delta read once, dq, dk and dv written once
+    (the function's bytes: a kernel's own scratch, such as B5b's fp32 dq,
+    is not counted); five products (s, dp, dv, dk, dq) of 2 * Sq * kv_len
+    * dh operations per (batch, head)."""
     item = 2 if dtype == "bfloat16" else 4
-    n_bytes = ((2 * S + 2 * kv_len + 3 * S) * B * H * DH * item
-               + 2 * B * H * S * 4)
-    return _bound(dtype, n_bytes, 10.0 * B * H * S * kv_len * DH)
+    n_bytes = ((3 * sq + 2 * kv_len + 2 * sk) * b * h * DH * item
+               + 2 * b * h * sq * 4)
+    return _bound(dtype, n_bytes, 10.0 * b * h * sq * kv_len * DH)
 
 
 def phase_build():
@@ -459,10 +547,17 @@ def phase_bwd_kernel(seed: int):
     return entry
 
 
-def _requests(seed: int, image_size: int):
+def _requests(seed: int, image_size: int, sizes=REQUEST_SIZES):
     rng = np.random.default_rng(seed)
     return [[rng.uniform(size=(image_size, image_size, 3)).astype(np.float32)
-             for _ in range(n)] for n in REQUEST_SIZES]
+             for _ in range(n)] for n in sizes]
+
+
+def _counts(**launches) -> dict:
+    """Launch counts of every kernel: the given ones, 0 for the rest."""
+    from dinov2_od_tpu_torch.ops import _build
+
+    return {name: launches.get(name, 0) for name in _build.SOURCES}
 
 
 def _serve(predictor, requests, phase: str):
@@ -497,7 +592,8 @@ def _serve(predictor, requests, phase: str):
     device_batches = predictor.device_batches
     if errors or any(t.is_alive() for t in threads):
         raise AssertionError(f"requests failed: {errors}")
-    log(f"{phase}: {len(requests)} requests of {list(REQUEST_SIZES)} images "
+    log(f"{phase}: {len(requests)} requests of {[len(r) for r in requests]} "
+        f"images "
         f"in {wall:.3f} s, {batcher.batches} batcher calls, "
         f"{device_batches} device batches, launches {counts}")
     return counts, device_batches, results
@@ -505,7 +601,9 @@ def _serve(predictor, requests, phase: str):
 
 def _check_alone(predictor, requests, results, phase: str):
     """Every request got its own detections: each one answered alone must
-    give what the coalesced batch gave it."""
+    give what the coalesced batch gave it (scores to 1e-3, boxes to a
+    quarter pixel of a 224 px image, scaled with the image)."""
+    px_tol = 0.25 * predictor.cfg.backbone.image_size / 224
     for i, (imgs, res) in enumerate(zip(requests, results)):
         if len(res) != len(imgs):
             raise AssertionError(f"request {i}: {len(res)} results for "
@@ -516,24 +614,24 @@ def _check_alone(predictor, requests, results, phase: str):
             w = np.array([[d["score"], *d["bbox"]] for d in want])
             if g.shape != w.shape or not np.isfinite(g).all():
                 raise AssertionError(f"request {i}: bad detections")
-            # Scores to 1e-3, boxes (pixels of a 224 px image) to 0.25 px.
             if (np.abs(g[:, 0] - w[:, 0]).max() > 1e-3
-                    or np.abs(g[:, 1:] - w[:, 1:]).max() > 0.25):
+                    or np.abs(g[:, 1:] - w[:, 1:]).max() > px_tol):
                 raise AssertionError(f"request {i}: detections differ from "
                                      f"the same images run alone")
     log(f"{phase}: every request got its own detections back, all finite")
 
 
-def _serving_model(seed: int):
-    """The serving configuration (ViT-B/14 at 224 px + deformable DETR,
-    full width and depth) and its random params from `seed`, on the card:
-    (fp32 cfg, bf16-backbone cfg, params)."""
+def _serving_model(seed: int, model_name: str = "facebook/dinov2-base",
+                   image_size: int = 224):
+    """A serving configuration (ViT-B/14 at 224 px + deformable DETR unless
+    given, full width and depth) and its random params from `seed`, on
+    the card: (fp32 cfg, bf16-backbone cfg, params)."""
     import torch
 
     from dinov2_od_tpu_torch.config import detector_config_for_model_name
     from dinov2_od_tpu_torch.models.detector import init_detector_params
 
-    cfg = detector_config_for_model_name("facebook/dinov2-base")
+    cfg = detector_config_for_model_name(model_name, image_size=image_size)
     cfg16 = dataclasses.replace(
         cfg, backbone=dataclasses.replace(cfg.backbone, dtype="bfloat16"))
     params = init_detector_params(torch.Generator().manual_seed(seed), cfg,
@@ -541,12 +639,13 @@ def _serving_model(seed: int):
     return cfg, cfg16, params
 
 
-def _forward_ms(predictor, image_size: int):
-    """(ms per batch, the timed call) of the batch-32 forward plus top-k."""
+def _forward_ms(predictor, image_size: int, batch: int = 32):
+    """(ms per batch, the timed call) of the forward plus top-k."""
     import torch
 
-    xb = torch.zeros((32, image_size, image_size, 3), device="cuda")
-    sizes = torch.full((32, 2), image_size, device="cuda", dtype=torch.int32)
+    xb = torch.zeros((batch, image_size, image_size, 3), device="cuda")
+    sizes = torch.full((batch, 2), image_size, device="cuda",
+                       dtype=torch.int32)
 
     def fwd():
         with torch.inference_mode():
@@ -666,6 +765,229 @@ def phase_int8_kernel(seed: int):
     return entry
 
 
+def _bhsd_inputs(gen, b, sq, sk, h, dtype):
+    """q, k, v and dO on the card; q, k, v as the three strided views of
+    one fused qkv GEMM output where Sq == Sk, as the backbone hands them
+    over."""
+    import torch
+
+    if sq == sk:
+        qkv = torch.randn((b, sq, 3 * h * DH), generator=gen).to("cuda",
+                                                                  dtype)
+        q, k, v = (t.view(b, sq, h, DH) for t in qkv.chunk(3, dim=-1))
+    else:
+        q = torch.randn((b, sq, h, DH), generator=gen).to("cuda", dtype)
+        k, v = (torch.randn((b, sk, h, DH), generator=gen).to("cuda", dtype)
+                for _ in range(2))
+    do = torch.randn((b, sq, h, DH), generator=gen).to("cuda", dtype)
+    return q, k, v, do
+
+
+def _grad_errs(got, ref):
+    """(max abs error over max(1, largest magnitude), max abs error) of
+    each of dq, dk, dv."""
+    rel, err = {}, {}
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        err[name] = (g.float() - r.float()).abs().max().item()
+        rel[name] = err[name] / max(1.0, r.float().abs().max().item())
+    return rel, err
+
+
+def _last_tile_dropped(kv_len: int) -> int:
+    """kv_len less its last 64-key tile (ragged or full)."""
+    return ((kv_len - 1) // 64) * 64
+
+
+def _time_bhsd(q, k, v, do, o, lse, kv_len, name):
+    """Times of B5f and B5b at one shape beside their bounds, their plain
+    versions, the library's attention and the flat kernels B1 and B2 on
+    the same inputs. Returns (forward row, backward row)."""
+    import torch
+    import torch.nn.functional as F
+
+    from dinov2_od_tpu_torch.ops import flash_attention as fa
+
+    scale = DH ** -0.5
+    b, sq, h, _ = q.shape
+    sk = k.shape[1]
+    delta = fa._delta(do, o, None)
+    args = (q, k, v, do, lse, delta, scale, kv_len)
+    qt, kt, vt = (t.transpose(1, 2) for t in
+                  (q, k[:, :kv_len], v[:, :kv_len]))
+
+    def fwd():
+        fa.flash_attention_bhsd_fwd(q, k, v, scale=scale, kv_len=kv_len)
+
+    def bwd():
+        fa._launch_bhsd_bwd(*args, sq)
+
+    fbound, fby = attention_bound(name, kv_len, b, sq, h)
+    frow = {
+        "ms": device_ms(fwd, iters=20), "event_ms": time_ms(fwd, iters=20),
+        "plain_ms": device_ms(lambda: fa.flash_attention_bhsd_fwd_plain(
+            q, k, v, scale=scale, kv_len=kv_len), iters=3, warmup=1),
+        # The library yardstick: SDPA on the first kv_len keys.
+        "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, scale=scale), iters=20),
+        "bound_ms": fbound, "bound_by": fby,
+    }
+    bbound, bby = attention_bwd_bound(name, kv_len, b, sq, sk, h)
+    qg, kg, vg = (t.detach().clone().requires_grad_(True)
+                  for t in (qt, kt, vt))
+    dot = do.transpose(1, 2)
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+        torch.autograd.grad(out, (qg, kg, vg), dot)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+
+    brow = {
+        # The wrapper's whole device time (dq scratch zeroed, B5b, dq cast)
+        # and B5b's own.
+        "ms": device_ms(bwd, iters=10),
+        "kernel_ms": device_ms(bwd, iters=10, only="bhsd_bwd"),
+        "event_ms": time_ms(bwd, iters=10),
+        "plain_ms": device_ms(lambda: fa.flash_attention_bhsd_bwd_plain(
+            q, k, v, do, lse, delta, scale=scale, kv_len=kv_len),
+            iters=2, warmup=1),
+        "library_ms": (device_ms(sdpa_fwd_bwd, iters=10)
+                       - device_ms(sdpa_fwd, iters=10)),
+        "bound_ms": bbound, "bound_by": bby,
+    }
+    if sq == sk:  # the flat kernels take any self-attention length
+        frow["b1_ms"] = device_ms(lambda: fa.flash_attention_fwd(
+            q, k, v, scale=scale, kv_len=kv_len), iters=20)
+        brow["b2_ms"] = device_ms(lambda: fa._launch_bwd(*args), iters=10)
+    return frow, brow
+
+
+def _lse_library_ms(gen, b, s, h):
+    """B3's yardstick: one PyTorch call that returns attention and its
+    logsumexp, `_scaled_dot_product_flash_attention`, bf16 [B, H, S, 64],
+    with the bound of the kernel B3 rides at that shape."""
+    import torch
+
+    q, k, v = (torch.randn((b, h, s, DH), generator=gen).to(
+        "cuda", torch.bfloat16) for _ in range(3))
+    ms = device_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+        q, k, v, scale=DH ** -0.5), iters=20)
+    bound_ms, bound_by = attention_bound("bfloat16", s, b, s, h)
+    return {"shape": [b, s, h, DH], "library_ms": ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def phase_bhsd_kernels(seed: int):
+    """B5f and B5b against their plain versions at BHSD_CASES, each with a
+    control that must fail the same check, and timed at ViT-L/560; returns
+    the two kernels' entries of the kernels line (launches filled in
+    later)."""
+    import torch
+
+    from dinov2_od_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(seed + 5)
+    scale = DH ** -0.5
+    entries = {}
+    failures = []
+    for b, sq, sk, h, kv_len in BHSD_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            q, k, v, do = _bhsd_inputs(gen, b, sq, sk, h, dtype)
+            o, lse = fa.flash_attention_bhsd_fwd(q, k, v, scale=scale,
+                                                 kv_len=kv_len)
+            o_ref, lse_ref = fa.flash_attention_bhsd_fwd_plain(
+                q, k, v, scale=scale, kv_len=kv_len)
+            delta = fa._delta(do, o, None)
+            got = fa.flash_attention_bhsd_bwd(q, k, v, o, lse, do,
+                                              scale=scale, kv_len=kv_len)
+            again = fa.flash_attention_bhsd_bwd(q, k, v, o, lse, do,
+                                                scale=scale, kv_len=kv_len)
+            ref = fa.flash_attention_bhsd_bwd_plain(
+                q, k, v, do, lse, delta, scale=scale, kv_len=kv_len)
+            # Controls: each kernel handed a smaller kv_len than the check.
+            ctl_len = _last_tile_dropped(kv_len)
+            o_c, lse_c = fa.flash_attention_bhsd_fwd(q, k, v, scale=scale,
+                                                     kv_len=ctl_len)
+            got_c = fa.flash_attention_bhsd_bwd(q, k, v, o, lse, do,
+                                                scale=scale, kv_len=ctl_len)
+            torch.cuda.synchronize()
+            err_o = (o.float() - o_ref.float()).abs().max().item()
+            err_lse = (lse - lse_ref).abs().max().item()
+            ctl_o = (o_c.float() - o_ref.float()).abs().max().item()
+            ctl_lse = (lse_c - lse_ref).abs().max().item()
+            rel, err = _grad_errs(got, ref)
+            ctl_rel, _ = _grad_errs(got_c, ref)
+            finite = all(bool(torch.isfinite(t).all())
+                         for t in (o, lse, *got))
+            masked_zero = bool(not got[1][:, kv_len:].any()
+                               and not got[2][:, kv_len:].any())
+            tol, btol = TOL[name], BWD_TOL[name]
+            row = {
+                "dtype": name, "shape": [b, sq, sk, h, DH], "kv_len": kv_len,
+                "max_abs_err_o": err_o, "max_abs_err_lse": err_lse,
+                "bwd_max_rel_err": rel, "bwd_max_abs_err": err,
+                "masked_dk_dv_exactly_zero": masked_zero,
+                # dq's atomics: two runs of B5b on the same inputs.
+                "dq_run_to_run_max_abs": (got[0].float() - again[0].float())
+                .abs().max().item(),
+                "dk_dv_run_to_run_equal": bool(torch.equal(got[1], again[1])
+                                               and torch.equal(got[2],
+                                                               again[2])),
+                "control_kv_len": ctl_len, "control_err_o": ctl_o,
+                "control_err_lse": ctl_lse, "control_bwd_rel_err": ctl_rel,
+            }
+            fwd_ok = finite and err_o <= tol["o"] and err_lse <= tol["lse"]
+            bwd_ok = finite and max(rel.values()) <= btol and masked_zero
+            if not fwd_ok:
+                failures.append(f"B5f {name} {row['shape']} kv_len={kv_len}: "
+                                f"o {err_o:.3g}, lse {err_lse:.3g}, "
+                                f"finite={finite}")
+            if not bwd_ok:
+                failures.append(f"B5b {name} {row['shape']} kv_len={kv_len}: "
+                                f"{rel} (tol {btol}), masked zero "
+                                f"{masked_zero}, finite={finite}")
+            if ctl_o <= tol["o"] and ctl_lse <= tol["lse"]:
+                failures.append(f"B5f {name} {row['shape']}: the control "
+                                f"(kv_len {ctl_len}) passes the check")
+            if max(ctl_rel.values()) <= btol:
+                failures.append(f"B5b {name} {row['shape']}: the control "
+                                f"(kv_len {ctl_len}) passes the check")
+            if (b, sq, sk, h, kv_len) == BHSD_CASES[0]:
+                frow, brow = _time_bhsd(q, k, v, do, o, lse, kv_len, name)
+                row["fwd_timing"], row["bwd_timing"] = frow, brow
+                if name == "bfloat16":
+                    common = {"route": "cuda", "launches": 0,
+                              "shape": [b, sq, h, DH], "dtype": name}
+                    entries["flash_attn_bhsd_fwd"] = {
+                        "name": "flash_attn_bhsd_fwd", **common,
+                        "source": "dinov2_od_tpu_torch/csrc/"
+                                  "flash_attn_bhsd_fwd.cu",
+                        "replaces": "dinov2_od_tpu/ops/flash_attention.py:99",
+                        "replaces_function": "_fwd_kernel",
+                        "max_abs_err": err_o, **frow}
+                    entries["flash_attn_bhsd_bwd"] = {
+                        "name": "flash_attn_bhsd_bwd", **common,
+                        "source": "dinov2_od_tpu_torch/csrc/"
+                                  "flash_attn_bhsd_bwd.cu",
+                        "replaces": "dinov2_od_tpu/ops/flash_attention.py:138",
+                        "replaces_function": "_dkv_kernel",
+                        "max_abs_err": max(err.values()),
+                        "max_rel_err": max(rel.values()), **brow}
+            log("kernels: flash_attn_bhsd " + json.dumps(row))
+            del q, k, v, do, o, lse, got, again, ref, o_c, got_c, o_ref
+            torch.cuda.empty_cache()
+    for b, s, h in ((B, S, H), (LARGE_BATCH, LS, LH)):
+        log("kernels: flash_attention_lse yardstick " + json.dumps(
+            _lse_library_ms(gen, b, s, h)))
+    if failures:
+        raise AssertionError("BHSD kernels disagree with their plain "
+                             "versions: " + "; ".join(failures))
+    return entries
+
+
 def phase_slice(seed: int, kernels: dict, profile: bool = False) -> float:
     """The bf16 serving path; returns its images/s."""
     import torch
@@ -686,8 +1008,7 @@ def phase_slice(seed: int, kernels: dict, profile: bool = False) -> float:
     requests = _requests(seed, bb.image_size)
 
     counts, device_batches, results = _serve(predictor, requests, "slice")
-    want = {"flash_attn_fwd": bb.depth * device_batches, "flash_attn_bwd": 0,
-            "int8_gemm": 0}
+    want = _counts(flash_attn_fwd=bb.depth * device_batches)
     if counts != want or device_batches == 0:
         raise AssertionError(f"serving launches {counts} for "
                              f"{device_batches} device batches; expected "
@@ -742,8 +1063,8 @@ def _check_model(what: str, ref_name: str, runs: dict, ref: dict, tol: dict,
     exceed one. Returns the sound run's readings."""
     import torch
 
-    readings = {}
-    for run, out in runs.items():
+    verdicts = {}
+    for run, out in runs.items():  # every reading logged, then judged
         err = {key: metric(out[key], ref[key]) for key in OUTPUTS}
         finite = all(bool(torch.isfinite(out[key]).all()) for key in OUTPUTS)
         failed = [k for k in OUTPUTS if err[k] > tol[k]]
@@ -751,15 +1072,16 @@ def _check_model(what: str, ref_name: str, runs: dict, ref: dict, tol: dict,
             + ", ".join(f"{k} {metric_name} {err[k]:.4g} (tol {tol[k]})"
                         for k in OUTPUTS)
             + f", finite={finite}, over the limit: {failed or 'none'}")
-        if run == "kernel":
-            readings = err
-            if not finite or failed:
-                raise AssertionError(f"{what} disagrees with {ref_name}")
-        elif not failed:
-            raise AssertionError(
-                f"{what}: the check against {ref_name} passes a faulty "
-                f"kernel ({run}); its limits are too loose")
-    return readings
+        verdicts[run] = (err, finite, failed)
+    err, finite, failed = verdicts.pop("kernel")
+    if not finite or failed:
+        raise AssertionError(f"{what} disagrees with {ref_name}")
+    passed = [run for run, (_, _, f) in verdicts.items() if not f]
+    if passed:
+        raise AssertionError(
+            f"{what}: the check against {ref_name} passes a faulty "
+            f"kernel ({passed}); its limits are too loose")
+    return err
 
 
 @contextlib.contextmanager
@@ -805,8 +1127,8 @@ def phase_int8_serving(seed: int, kernels: dict, bf16_ips: float,
     requests = _requests(seed, bb.image_size)
     counts, device_batches, results = _serve(predictor, requests,
                                              "int8 serving")
-    want = {"flash_attn_fwd": bb.depth * device_batches, "flash_attn_bwd": 0,
-            "int8_gemm": bb.depth * device_batches}
+    want = _counts(flash_attn_fwd=bb.depth * device_batches,
+                   int8_gemm=bb.depth * device_batches)
     if counts != want or device_batches == 0:
         raise AssertionError(f"int8 serving launches {counts} for "
                              f"{device_batches} device batches; expected "
@@ -887,47 +1209,52 @@ def _group_grads(loss, groups):
 
 
 @contextlib.contextmanager
-def _bwd_keys_dropped(kv_len: int):
-    """The flash backward as a faulty kernel: B2 handed a smaller kv_len
-    than its forward used, so it drops the keys from `kv_len` on."""
+def _backwards_as(make):
+    """Both flash backwards (flat B2 and BHSD B5b, which `_FlashAttention`
+    looks up at call time) replaced by make(sound wrapper, plain version)
+    for the gradient check."""
     from dinov2_od_tpu_torch.ops import flash_attention as fa
 
-    sound = fa.flash_attention_bwd
-
-    def faulty(q, k, v, o, lse, do, *, scale, kv_len=None, glse2=None):
-        return sound(q, k, v, o, lse, do, scale=scale,
-                     kv_len=min(kv_len or q.shape[1], drop), glse2=glse2)
-
-    drop = kv_len
-    fa.flash_attention_bwd = faulty
+    pairs = {"flash_attention_bwd": fa.flash_attention_bwd_plain,
+             "flash_attention_bhsd_bwd": fa.flash_attention_bhsd_bwd_plain}
+    sound = {name: getattr(fa, name) for name in pairs}
+    for name, plain in pairs.items():
+        setattr(fa, name, make(sound[name], plain))
     try:
         yield
     finally:
-        fa.flash_attention_bwd = sound
+        for name, fn in sound.items():
+            setattr(fa, name, fn)
 
 
-@contextlib.contextmanager
+def _bwd_keys_dropped(drop: int):
+    """The flash backward as a faulty kernel: B2 or B5b handed a smaller
+    kv_len than its forward used, so it drops the keys from `drop` on."""
+    def make(sound, plain):
+        def faulty(q, k, v, o, lse, do, *, scale, kv_len=None, glse2=None):
+            return sound(q, k, v, o, lse, do, scale=scale,
+                         kv_len=min(kv_len or k.shape[1], drop), glse2=glse2)
+        return faulty
+
+    return _backwards_as(make)
+
+
 def _plain_backward():
     """The flash backward's plain version on the card, behind the kernel
     forward: the gradient check's reference for the backward alone."""
     from dinov2_od_tpu_torch.ops import flash_attention as fa
 
-    sound = fa.flash_attention_bwd
+    def make(sound, plain):
+        def run(q, k, v, o, lse, do, *, scale, kv_len=None, glse2=None):
+            return plain(q, k, v, do, lse, fa._delta(do, o, glse2),
+                         scale=scale, kv_len=kv_len)
+        return run
 
-    def plain(q, k, v, o, lse, do, *, scale, kv_len=None, glse2=None):
-        return fa.flash_attention_bwd_plain(
-            q, k, v, do, lse, fa._delta(do, o, glse2), scale=scale,
-            kv_len=kv_len)
-
-    fa.flash_attention_bwd = plain
-    try:
-        yield
-    finally:
-        fa.flash_attention_bwd = sound
+    return _backwards_as(make)
 
 
 def _drive_train(seed: int, det, steps: int, want_per_step: dict,
-                 phase: str, profile: bool):
+                 phase: str, profile: bool, batch_size: int = B):
     """The train main path: `steps` full-width steps on a fixed synthetic
     batch with the launch counts set to 0 before and read after, held to
     `want_per_step` launches; finite losses that drop, frozen leaves and
@@ -944,20 +1271,22 @@ def _drive_train(seed: int, det, steps: int, want_per_step: dict,
     from dinov2_od_tpu_torch.train.step import make_train_step
 
     cfg = TrainConfig(detector=det,
-                      data=DataConfig(batch_size=B, max_boxes=MAX_BOXES),
+                      data=DataConfig(batch_size=batch_size,
+                                      max_boxes=MAX_BOXES),
                       optim=OptimConfig())
     bb, dec = det.backbone, det.decoder
     log(f"{phase}: ViT-{bb.variant} depth {bb.depth} ({bb.seq_len} tokens) "
         f"bf16, LoRA r={bb.lora_r} {bb.lora_mode} on the last "
         f"{bb.lora_last_n_blocks} blocks, prefix_int8={bb.prefix_int8}; "
         f"decoder {dec.num_layers} layers fp32 dropout {dec.dropout}; batch "
-        f"{B}, {MAX_BOXES} GT slots, matcher {cfg.matcher.assignment}; "
+        f"{batch_size}, {MAX_BOXES} GT slots, matcher "
+        f"{cfg.matcher.assignment}; "
         f"{cfg.optim}")
     params = cast_frozen_weights(init_detector_params(
         torch.Generator().manual_seed(seed), det, device="cuda"), det)
     state = create_train_state(params, cfg.optim, det)
-    raw = make_batch(np.random.default_rng(seed), B, image_size=bb.image_size,
-                     max_boxes=MAX_BOXES)
+    raw = make_batch(np.random.default_rng(seed), batch_size,
+                     image_size=bb.image_size, max_boxes=MAX_BOXES)
     batch = {k: torch.from_numpy(v).to("cuda") for k, v in raw.items()}
     mask = trainable_mask(params, det)
     frozen, lora_rows = [], []
@@ -977,6 +1306,7 @@ def _drive_train(seed: int, det, steps: int, want_per_step: dict,
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
     # The main path: counts to 0, drive, read the counts.
+    torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
     losses = []
     for _ in range(steps):
@@ -1009,9 +1339,9 @@ def _drive_train(seed: int, det, steps: int, want_per_step: dict,
     # Throughput of the train step on the fixed batch.
     ms = time_ms(lambda: step(state, batch, gen), iters=5, warmup=2,
                  repeats=5)
-    ips = B / ms * 1e3
+    ips = batch_size / ms * 1e3
     log(f"{phase}: " + json.dumps({
-        "metric": f"train step, batch {B}, bf16 backbone, "
+        "metric": f"train step, batch {batch_size}, bf16 backbone, "
                   f"prefix_int8={bb.prefix_int8}, {MAX_BOXES} GT slots",
         "ms_per_step": ms, "images_per_s": ips,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -1024,13 +1354,14 @@ def _drive_train(seed: int, det, steps: int, want_per_step: dict,
     return cfg, batch, counts, ips
 
 
-def _train_dets(**backbone):
-    """The train configuration: ViT-B/14 + deformable DETR with a bf16
-    backbone, and the same in fp32 for the gradient check."""
+def _train_dets(model_name: str = "facebook/dinov2-base",
+                image_size: int = 224, **backbone):
+    """A train configuration (ViT-B/14 + deformable DETR unless given)
+    with a bf16 backbone, and the same in fp32 for the gradient check."""
     from dinov2_od_tpu_torch.config import detector_config_for_model_name
 
-    det32 = detector_config_for_model_name("facebook/dinov2-base",
-                                           hidden_dim=768)
+    det32 = detector_config_for_model_name(model_name, hidden_dim=768,
+                                           image_size=image_size)
     det32 = dataclasses.replace(det32, backbone=dataclasses.replace(
         det32.backbone, **backbone))
     det = dataclasses.replace(det32, backbone=dataclasses.replace(
@@ -1046,8 +1377,8 @@ def phase_train(seed: int, kernels: dict, profile: bool = False) -> float:
     bb = det.backbone
     cfg, batch, counts, ips = _drive_train(
         seed, det, TRAIN_STEPS,
-        {"flash_attn_fwd": bb.depth, "flash_attn_bwd": bb.lora_last_n_blocks,
-         "int8_gemm": 0}, "train", profile)
+        _counts(flash_attn_fwd=bb.depth,
+                flash_attn_bwd=bb.lora_last_n_blocks), "train", profile)
     fwd = kernels["flash_attn_fwd"]
     fwd["launches"] += counts["flash_attn_fwd"]
     fwd["launches_train"] = counts["flash_attn_fwd"]
@@ -1083,8 +1414,9 @@ def phase_prefix_int8_train(seed: int, kernels: dict, bf16_ips: float,
     prefix = bb.depth - bb.lora_last_n_blocks
     cfg, batch, counts, ips = _drive_train(
         seed, det, INT8_TRAIN_STEPS,
-        {"flash_attn_fwd": bb.depth, "flash_attn_bwd": bb.lora_last_n_blocks,
-         "int8_gemm": prefix}, "prefix-int8 train", profile)
+        _counts(flash_attn_fwd=bb.depth,
+                flash_attn_bwd=bb.lora_last_n_blocks, int8_gemm=prefix),
+        "prefix-int8 train", profile)
     log("prefix-int8 train: " + json.dumps({
         "images_per_s": ips, "bf16_train_images_per_s": bf16_ips}))
     for name in ("flash_attn_fwd", "flash_attn_bwd", "int8_gemm"):
@@ -1101,6 +1433,102 @@ def phase_prefix_int8_train(seed: int, kernels: dict, bf16_ips: float,
         _int8_gradient_check(seed, cfg, det, batch)
     finally:
         torch.use_deterministic_algorithms(False)
+
+
+def phase_large_serving(seed: int, kernels: dict, profile: bool = False):
+    """The long-sequence serving path: a ViT-L/14 560 px Predictor
+    (batch 8) behind a DynamicBatcher, on B5f."""
+    import torch
+
+    from dinov2_od_tpu_torch.inference import Predictor, prepare_images
+    from dinov2_od_tpu_torch.models.detector import (
+        cast_frozen_weights, detector_apply, fold_detector_lora)
+
+    cfg, cfg16, params = _serving_model(seed, LARGE_MODEL, LARGE_IMAGE)
+    bb = cfg.backbone
+    log(f"large serving: ViT-{bb.variant} hidden {bb.hidden_dim} depth "
+        f"{bb.depth} heads {bb.num_heads} {bb.image_size} px ({bb.seq_len} "
+        f"tokens), projection to {bb.target_dim}; decoder "
+        f"{cfg.decoder.num_layers} layers dim {cfg.decoder.hidden_dim}; "
+        f"batch {LARGE_BATCH}")
+    predictor = Predictor(cast_frozen_weights(params, cfg16), cfg16,
+                          device="cuda", batch_size=LARGE_BATCH)
+    requests = _requests(seed, bb.image_size, LARGE_REQUEST_SIZES)
+    counts, device_batches, results = _serve(predictor, requests,
+                                             "large serving")
+    want = _counts(flash_attn_bhsd_fwd=bb.depth * device_batches)
+    if counts != want or device_batches == 0:
+        raise AssertionError(f"large serving launches {counts} for "
+                             f"{device_batches} device batches; expected "
+                             f"{want} ({bb.depth} B5f launches each)")
+    fwd = kernels["flash_attn_bhsd_fwd"]
+    fwd["launches"] += counts["flash_attn_bhsd_fwd"]
+    fwd["launches_large_serving"] = counts["flash_attn_bhsd_fwd"]
+    fwd["launches_per_forward"] = (counts["flash_attn_bhsd_fwd"]
+                                   / device_batches)
+    _check_alone(predictor, requests, results, "large serving")
+
+    # detector_apply with B5f against plain attention, one batch of 8.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    images = [im for r in requests for im in r][:LARGE_BATCH]
+    pixels, _ = prepare_images(images, bb.image_size, normalize=True)
+    x = torch.from_numpy(pixels).to("cuda")
+    folded = fold_detector_lora(params, cfg)
+    for name, c, p in (("float32", cfg, folded),
+                       ("bfloat16", cfg16, cast_frozen_weights(folded, cfg16))):
+        with torch.inference_mode():
+            ref = detector_apply(p, c, x, attn_impl="xla")
+            runs = {"kernel": detector_apply(p, c, x, attn_impl="auto")}
+            for kv_len in LARGE_CONTROLS[name]:
+                with _keys_dropped(kv_len):
+                    runs[f"control kv_len={kv_len}"] = detector_apply(
+                        p, c, x, attn_impl="auto")
+        _check_model(f"large serving: detector_apply {name}",
+                     "plain attention", runs, ref, LARGE_MODEL_TOL[name],
+                     _max_abs, "max abs err")
+        del ref, runs
+    ms, fwd_call = _forward_ms(predictor, bb.image_size, LARGE_BATCH)
+    log("large serving: " + json.dumps({
+        "metric": f"batch-{LARGE_BATCH} forward + top-k, ViT-L/14 "
+                  f"{bb.image_size} px, bf16 backbone",
+        "ms_per_batch": ms, "images_per_s": LARGE_BATCH / ms * 1e3,
+        "card": card_line(),
+    }))
+    if profile:
+        profile_device(fwd_call, ms, "large serving forward")
+    del predictor, params, folded
+    torch.cuda.empty_cache()
+
+
+def phase_large_train(seed: int, kernels: dict, profile: bool = False):
+    """The long-sequence train step: ViT-L/14 at 560 px, batch 8, on B5f
+    and B5b."""
+    import torch
+
+    det32, det = _train_dets(LARGE_MODEL, LARGE_IMAGE)
+    bb = det.backbone
+    cfg, batch, counts, ips = _drive_train(
+        seed, det, LARGE_TRAIN_STEPS,
+        _counts(flash_attn_bhsd_fwd=bb.depth,
+                flash_attn_bhsd_bwd=bb.lora_last_n_blocks),
+        "large train", profile, batch_size=LARGE_BATCH)
+    for name in ("flash_attn_bhsd_fwd", "flash_attn_bhsd_bwd"):
+        k = kernels[name]
+        k["launches"] += counts[name]
+        k["launches_large_train"] = counts[name]
+        k["launches_per_step"] = counts[name] / LARGE_TRAIN_STEPS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        _gradient_check(seed, cfg, det32, det, batch, LARGE_GRAD_TOL,
+                        LARGE_GRAD_CONTROLS, "large train")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del batch
+    torch.cuda.empty_cache()
 
 
 def _step_loss_grads(seed, cfg, c, batch):
@@ -1184,7 +1612,12 @@ def _int8_gradient_check(seed, cfg, det, batch):
     torch.cuda.empty_cache()
 
 
-def _gradient_check(seed, cfg, det32, det, batch):
+def _gradient_check(seed, cfg, det32, det, batch, tols=GRAD_TOL,
+                    controls=GRAD_CONTROLS, phase="train"):
+    """One step's loss and trainable gradients with the kernels against
+    plain attention and the plain backward, fp32 and bf16, each limit in
+    `tols`, beside controls (the backward dropping the keys from each of
+    `controls` on) that must fail the same check."""
     import torch
 
     for name in ("float32", "bfloat16"):
@@ -1197,11 +1630,11 @@ def _gradient_check(seed, cfg, det32, det, batch):
             refs["plain backward"] = loss_grads("auto")
             again = loss_grads("auto")
         floor = _grad_errors(again, refs["plain backward"])
-        log(f"train: gradients {name} plain backward run twice: rel err "
+        log(f"{phase}: gradients {name} plain backward run twice: rel err "
             + ", ".join(f"{g} {e:.4g}" for g, e in floor.items()
                         if g != "loss"))
         runs = {"kernel": loss_grads("auto")}
-        for kv_len in GRAD_CONTROLS:
+        for kv_len in controls:
             with _bwd_keys_dropped(kv_len):
                 runs[f"control kv_len={kv_len}"] = loss_grads("auto")
         verdicts = {}
@@ -1210,22 +1643,22 @@ def _gradient_check(seed, cfg, det32, det, batch):
                 bool(torch.isfinite(g).all()) for g in result[1].values())
             failed = [] if finite else ["non-finite"]
             for ref_name, ref in refs.items():
-                tol = GRAD_TOL[name][ref_name]
+                tol = tols[name][ref_name]
                 err = _grad_errors(result, ref)
                 over = [g for g in err if err[g] > tol[g]]
                 failed += [f"{ref_name}: {g}" for g in over]
-                log(f"train: gradients {name} {run} vs {ref_name}: "
+                log(f"{phase}: gradients {name} {run} vs {ref_name}: "
                     + ", ".join(f"{g} rel err {err[g]:.4g} (tol {tol[g]})"
                                 for g in err)
                     + f", finite={finite}, over the limit: {over or 'none'}")
             verdicts[run] = failed
         if verdicts["kernel"]:
-            raise AssertionError(f"train gradients {name} disagree: "
+            raise AssertionError(f"{phase} gradients {name} disagree: "
                                  f"{verdicts['kernel']}")
         passed = [r for r, f in verdicts.items() if r != "kernel" and not f]
         if passed:
             raise AssertionError(
-                f"train gradients {name}: the check passes a backward that "
+                f"{phase} gradients {name}: the check passes a backward that "
                 f"drops keys ({passed}); its limits are too loose")
         del loss_grads, runs, refs
         torch.cuda.empty_cache()
@@ -1293,8 +1726,8 @@ def profile_device(fn, unprofiled_ms: float, what: str, steps: int = 5,
         "device_ms_per_step": total, "unprofiled_ms_per_step": unprofiled_ms,
         "idle_share": max(0.0, 1 - total / unprofiled_ms),
         "gemm_share": share("gemm", "nvjet", "xmma", "cutlass"),
-        "flash_fwd_share": share("flash_fwd"),
-        "flash_bwd_share": share("dkdv_", "dq_bf16", "dq_f32"),
+        "flash_fwd_share": share("flash_fwd", "bhsd_fwd"),
+        "flash_bwd_share": share("dkdv_", "dq_bf16", "dq_f32", "bhsd_bwd"),
         "int8_gemm_share": share("int8_gemm_kernel"),
         "layer_norm_share": share("layer_norm"),
         "elementwise_share": share("elementwise", "copy"),
@@ -1334,11 +1767,14 @@ def main(argv=None) -> int:
     for entry in (phase_kernels(args.seed), phase_bwd_kernel(args.seed),
                   phase_int8_kernel(args.seed)):
         kernels[entry["name"]] = entry
+    kernels.update(phase_bhsd_kernels(args.seed))
     serving_ips = phase_slice(args.seed, kernels, profile=args.profile)
     phase_int8_serving(args.seed, kernels, serving_ips, profile=args.profile)
     train_ips = phase_train(args.seed, kernels, profile=args.profile)
     phase_prefix_int8_train(args.seed, kernels, train_ips,
                             profile=args.profile)
+    phase_large_serving(args.seed, kernels, profile=args.profile)
+    phase_large_train(args.seed, kernels, profile=args.profile)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

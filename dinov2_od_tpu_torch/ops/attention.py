@@ -6,11 +6,14 @@ dinov2_od_tpu/ops/attention.py).
   as in the JAX package.
 - 'flash': flash attention (ops/flash_attention.py), differentiable: the
   CUDA kernels on a CUDA tensor, their plain versions on a CPU tensor.
-  It never materialises the probabilities, so it cannot drop them.
-- 'auto': 'flash' on a CUDA tensor for every self-attention the kernel
-  supports (head dim 64, any sequence length: it masks its own ragged
-  edge) when nothing is dropped, else 'xla' — on the CPU always 'xla',
-  as JAX takes XLA off the TPU.
+  It picks the kernel family by shape as the JAX package does (flat B1/B2
+  for self-attention up to 1536 tokens with paired heads, BHSD B5f/B5b
+  otherwise). It never materialises the probabilities, so it cannot drop
+  them.
+- 'auto': 'flash' on a CUDA tensor for every attention the kernels
+  support (head dim 64, any sequence lengths, Sq != Sk included: they
+  mask their own ragged edges) when nothing is dropped, else 'xla' — on
+  the CPU always 'xla', as JAX takes XLA off the TPU.
 
 Ring attention and tensor-parallel head sharding are not ported yet
 (ROADMAP.md) and raise.
@@ -47,8 +50,8 @@ def _xla_attention(q, k, v, scale: float, dropout_rate: float = 0.0,
 def _flash_eligible(q, k) -> bool:
     return (
         q.device.type == "cuda"
-        and q.shape == k.shape
         and q.shape[-1] == HEAD_DIM
+        and k.shape[-1] == HEAD_DIM
     )
 
 

@@ -2,9 +2,19 @@
 their plain versions.
 
 Counterpart of dinov2_od_tpu/ops/flash_attention.py (`flash_attention`,
-`flash_attention_lse`, the flat forward kernel `_fwd_kernel_flat` and the
-flat backward kernel `_bwd_kernel_flat`). The forward's math is the TPU
-kernel's:
+`flash_attention_lse` and their two kernel families). The JAX wrapper
+picks a family by shape (`_flat_eligible`), and so does this one:
+
+- flat: self-attention whose whole [S, S] logits fit the TPU kernel's
+  VMEM (S <= 1536) with heads that pair into 128-lane groups. The TPU
+  kernels `_fwd_kernel_flat` / `_bwd_kernel_flat` become B1 / B2
+  (csrc/flash_attn_fwd.cu, csrc/flash_attn_bwd.cu).
+- BHSD: everything else (long sequences such as ViT-L/14 at 560 px, 1601
+  tokens; Sq != Sk; head counts with no 128-lane pairing). The TPU kernels
+  `_fwd_kernel` / `_dkv_kernel` become B5f / B5b
+  (csrc/flash_attn_bhsd_fwd.cu, csrc/flash_attn_bhsd_bwd.cu).
+
+Both families compute one function, the TPU kernels' math:
 
 - q is scaled by `scale * log2(e)` in its own dtype and the softmax is
   taken in base 2;
@@ -12,7 +22,7 @@ kernel's:
   stays finite);
 - the probabilities are rounded to the input dtype before both the p.v
   product and the row sum, which accumulate in fp32;
-- the lse is kept in log2 space (m + log2 l), fp32, `[B, H, S]`.
+- the lse is kept in log2 space (m + log2 l), fp32, `[B, H, Sq]`.
 
 The backward recomputes p = exp2(s - lse) from the saved q, k and lse
 and takes delta = rowsum(fp32(dO) * fp32(o)) per head from torch ops
@@ -24,20 +34,27 @@ exact in it (1/8 at head dim 64):
 - ds = p * (dp - delta * scale);
 - dk = ds(dt)^T q with the unscaled q, dq = ds(dt) k, fp32 sums cast to
   dt at the end;
-- keys at or past kv_len have p = 0, so their dk and dv are exactly 0.
+- keys at or past kv_len have p = 0, so their dk and dv are exactly 0;
+  query rows at or past q_len (the BHSD kernel's row mask) have p = 0.
 
-`flash_attention_fwd` and `flash_attention_bwd` launch the kernels
-(csrc/flash_attn_fwd.cu, csrc/flash_attn_bwd.cu) for a CUDA tensor and
-run `flash_attention_fwd_plain` / `flash_attention_bwd_plain`, the same
-math in torch ops, for a CPU tensor. A CUDA tensor never falls back to a
-plain version: the wrapper launches the kernel or raises.
-`flash_attention` and `flash_attention_lse` are differentiable through
-`_FlashAttention`, whose backward is `flash_attention_bwd`.
+The public layout is `[B, S, H, dh]` in and out for both families; the
+kernels read q, k, v (and dO) through their strides, so the three slices
+of the backbone's fused qkv GEMM output are read in place and no
+transpose is materialised.
+
+`flash_attention_fwd` / `flash_attention_bwd` (flat) and
+`flash_attention_bhsd_fwd` / `flash_attention_bhsd_bwd` launch the kernels
+for a CUDA tensor and run the plain versions, the same math in torch ops,
+for a CPU tensor. A CUDA tensor never falls back to a plain version: the
+wrapper launches the kernel or raises. `flash_attention` and
+`flash_attention_lse` are differentiable through `_FlashAttention`, whose
+backward takes the forward's family.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -46,11 +63,40 @@ from . import _build
 
 _KERNEL = "flash_attn_fwd"
 _BWD_KERNEL = "flash_attn_bwd"
+_BHSD_KERNEL = "flash_attn_bhsd_fwd"
+_BHSD_BWD_KERNEL = "flash_attn_bhsd_bwd"
 _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
 NEG_INF = -1e30
-HEAD_DIM = 64  # the only head width the kernel is built for
+HEAD_DIM = 64  # the only head width the kernels are built for
 _DTYPES = (torch.bfloat16, torch.float32)
+
+# The JAX package's family choice (dinov2_od_tpu/ops/flash_attention.py
+# `_LANE`, `_SUBLANE`, `_round_up`, `_flat_group`, `_flat_eligible`),
+# copied so the port routes every shape to the same family.
+_LANE = 128
+_SUBLANE = 16
+_FLAT_LOGITS_LIMIT = 18 * 2**20  # 2 fp32 [S_pad, S_pad] logits tiles
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _flat_group(dh: int) -> int:
+    """Heads per flat lane block: smallest g with (g * dh) % 128 == 0."""
+    return _LANE // math.gcd(dh, _LANE)
+
+
+def _flat_eligible(q, k) -> bool:
+    """Self-attention whose heads pair into 128-lane groups and whose two
+    fp32 [S_pad, S_pad] logits tiles fit 18 MiB (S <= 1536): the flat
+    family (B1/B2); anything else takes the BHSD family (B5f/B5b)."""
+    _, sq, h, dh = q.shape
+    if sq != k.shape[1] or h % _flat_group(dh):
+        return False
+    s_pad = _round_up(sq, _SUBLANE)
+    return 2 * s_pad * s_pad * 4 <= _FLAT_LOGITS_LIMIT
 
 
 def _rounded(x: float, dtype: torch.dtype) -> float:
@@ -64,12 +110,18 @@ def _qscale(scale: float, dtype: torch.dtype) -> float:
     return _rounded(scale * _LOG2E, dtype)
 
 
-def _check(q, k, v, kv_len: Optional[int]) -> int:
-    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
+def _check(q, k, v, kv_len: Optional[int], self_attention: bool) -> int:
+    """Shapes, dtypes and devices both families take; returns kv_len.
+    q is [B, Sq, H, dh], k and v [B, Sk, H, dh] (Sq == Sk for the flat
+    family)."""
+    if (q.dim() != 4 or k.dim() != 4 or k.shape != v.shape
+            or q.shape[0] != k.shape[0] or q.shape[2:] != k.shape[2:]
+            or (self_attention and q.shape != k.shape)):
+        kind = ("self-attention q, k, v of one shape" if self_attention
+                else "q [B, Sq, H, dh] and k, v [B, Sk, H, dh]")
         raise ValueError(
-            "flash attention takes self-attention q, k, v of one shape "
-            f"[B, S, H, dh]; got {tuple(q.shape)}, {tuple(k.shape)}, "
-            f"{tuple(v.shape)}"
+            f"flash attention takes {kind}; got {tuple(q.shape)}, "
+            f"{tuple(k.shape)}, {tuple(v.shape)}"
         )
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
         raise TypeError(
@@ -78,22 +130,16 @@ def _check(q, k, v, kv_len: Optional[int]) -> int:
         )
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must lie on one device")
-    s = q.shape[1]
-    kv_len = s if kv_len is None else int(kv_len)
-    if not 1 <= kv_len <= s:
-        raise ValueError(f"kv_len must lie in [1, {s}]; got {kv_len}")
+    sk = k.shape[1]
+    kv_len = sk if kv_len is None else int(kv_len)
+    if not 1 <= kv_len <= sk:
+        raise ValueError(f"kv_len must lie in [1, {sk}]; got {kv_len}")
     return kv_len
 
 
-def flash_attention_fwd_plain(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
-    kv_len: Optional[int] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's math in torch ops, on any device.
-
-    Returns o `[B, S, H, dh]` in q's dtype and the log2-space lse
-    `[B, H, S]` in fp32."""
-    kv_len = _check(q, k, v, kv_len)
+def _fwd_math(q, k, v, scale: float, kv_len: int):
+    """The forward kernels' math in torch ops: o `[B, Sq, H, dh]` in q's
+    dtype and the log2 lse `[B, H, Sq]` in fp32."""
     dt = q.dtype
     qs = (q.float() * _qscale(scale, dt)).to(dt)
     s = torch.einsum("bqhd,bkhd->bhqk", qs.float(), k.float())
@@ -108,8 +154,31 @@ def flash_attention_fwd_plain(
     return o.to(dt), lse2
 
 
+def flash_attention_fwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
+    kv_len: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B1's math in torch ops, on any device: self-attention o
+    `[B, S, H, dh]` in q's dtype and the log2 lse `[B, H, S]` in fp32."""
+    kv_len = _check(q, k, v, kv_len, self_attention=True)
+    return _fwd_math(q, k, v, scale, kv_len)
+
+
+def flash_attention_bhsd_fwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
+    kv_len: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B5f's math in torch ops, on any device: q `[B, Sq, H, dh]`, k and v
+    `[B, Sk, H, dh]`; o `[B, Sq, H, dh]` in q's dtype and the log2 lse
+    `[B, H, Sq]` in fp32. The same rules as the flat forward: the TPU
+    kernel `_fwd_kernel` computes the flat kernel's function over a
+    q block."""
+    kv_len = _check(q, k, v, kv_len, self_attention=False)
+    return _fwd_math(q, k, v, scale, kv_len)
+
+
 def _check_launch(**tensors) -> None:
-    """What both kernels need of their [B, S, H, 64] operands."""
+    """What every flash kernel needs of its [B, S, H, 64] operands."""
     b, _, h, dh = next(iter(tensors.values())).shape
     if dh != HEAD_DIM:
         raise ValueError(f"the kernel takes head_dim {HEAD_DIM}; got {dh}")
@@ -126,18 +195,34 @@ def _check_launch(**tensors) -> None:
             )
 
 
+def _bound(name: str, argtypes):
+    """The loaded library of kernel `name` and its entry point `name`,
+    with the C signature set once."""
+    lib = _build.load(name)
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+    return lib, fn
+
+
+def _raise_on(lib, name: str, rc: int) -> None:
+    if rc != 0:
+        msg = getattr(lib, f"{name}_error_string")(rc).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} ({rc})")
+
+
+_P, _I, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_longlong)
+
+
 def _launch(q, k, v, scale: float, kv_len: int):
     b, s, h, dh = q.shape
     _check_launch(q=q, k=k, v=v)
-    lib = _build.load(_KERNEL)
-    fn = lib.flash_attn_fwd
-    if fn.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float,
-                       ll, ll, ll, ll, ll, ll, ll, ll, ll, p]
-        fn.restype = ctypes.c_int
-        lib.flash_attn_fwd_error_string.argtypes = [i]
-        lib.flash_attn_fwd_error_string.restype = ctypes.c_char_p
+    lib, fn = _bound(_KERNEL, [_P] * 5 + [_I] * 6 + [_F] + [_LL] * 9 + [_P])
     o = torch.empty((b, s, h, dh), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -148,36 +233,76 @@ def _launch(q, k, v, scale: float, kv_len: int):
             kv_len, _qscale(scale, q.dtype),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], stream,
         )
-    if rc != 0:
-        msg = lib.flash_attn_fwd_error_string(rc).decode()
-        raise RuntimeError(f"flash_attn_fwd launch failed: {msg} ({rc})")
+    _raise_on(lib, _KERNEL, rc)
     _build.launch_counts[_KERNEL] += 1
     return o, lse
+
+
+def _launch_bhsd(q, k, v, scale: float, kv_len: int):
+    b, sq, h, dh = q.shape
+    sk = k.shape[1]
+    _check_launch(q=q, k=k, v=v)
+    lib, fn = _bound(_BHSD_KERNEL,
+                     [_P] * 5 + [_I] * 7 + [_F] + [_LL] * 9 + [_P])
+    o = torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), int(q.dtype == torch.bfloat16), b, sq, sk, h,
+            dh, kv_len, _qscale(scale, q.dtype),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], stream,
+        )
+    _raise_on(lib, _BHSD_KERNEL, rc)
+    _build.launch_counts[_BHSD_KERNEL] += 1
+    return o, lse
+
+
+def _device_or_raise(q) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash-attention kernel for {q.device}")
 
 
 def flash_attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
     kv_len: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """o `[B, S, H, dh]` and the log2 lse `[B, H, S]` of self-attention.
+    """o `[B, S, H, dh]` and the log2 lse `[B, H, S]` of self-attention,
+    flat family (B1).
 
     q, k, v may be strided views (e.g. the three slices of one fused qkv
     GEMM output) as long as their last dim is contiguous. A CUDA tensor
     launches the kernel; a CPU tensor takes the plain version."""
-    kv_len = _check(q, k, v, kv_len)
+    kv_len = _check(q, k, v, kv_len, self_attention=True)
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, scale=scale, kv_len=kv_len)
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash-attention kernel for {q.device}")
+    _device_or_raise(q)
     return _launch(q, k, v, scale, kv_len)
+
+
+def flash_attention_bhsd_fwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
+    kv_len: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """o `[B, Sq, H, dh]` and the log2 lse `[B, H, Sq]`, BHSD family (B5f):
+    q `[B, Sq, H, dh]`, k and v `[B, Sk, H, dh]`, any Sq and Sk, strided
+    views with a contiguous last dim. A CUDA tensor launches the kernel; a
+    CPU tensor takes the plain version."""
+    kv_len = _check(q, k, v, kv_len, self_attention=False)
+    if q.device.type == "cpu":
+        return flash_attention_bhsd_fwd_plain(q, k, v, scale=scale,
+                                              kv_len=kv_len)
+    _device_or_raise(q)
+    return _launch_bhsd(q, k, v, scale, kv_len)
 
 
 def _delta(do: torch.Tensor, o: torch.Tensor,
            glse2: Optional[torch.Tensor]) -> torch.Tensor:
-    """delta [B, H, S] fp32 = rowsum(fp32(dO) * fp32(o)) per head, less
-    the cotangent glse2 [B, H, S] of the log2 lse, folded in as JAX does
-    (dinov2_od_tpu/ops/flash_attention.py:527-533): d lse2 / d s is
-    p * scale * log2(e), so delta - glse2 * log2(e) adds exactly the
+    """delta [B, H, Sq] fp32 = rowsum(fp32(dO) * fp32(o)) per head, less
+    the cotangent glse2 [B, H, Sq] of the log2 lse, folded in as JAX does
+    (dinov2_od_tpu/ops/flash_attention.py:527-533, :745-753): d lse2 / d s
+    is p * scale * log2(e), so delta - glse2 * log2(e) adds exactly the
     lse's share to ds, and dv does not depend on the lse."""
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
     if glse2 is not None:
@@ -185,26 +310,18 @@ def _delta(do: torch.Tensor, o: torch.Tensor,
     return delta.contiguous()
 
 
-def flash_attention_bwd_plain(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
-    lse: torch.Tensor, delta: torch.Tensor, *, scale: float,
-    kv_len: Optional[int] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The backward kernel's math in torch ops, on any device.
-
-    Args:
-      q, k, v, do: [B, S, H, dh] in one dtype.
-      lse: the forward's log2 lse [B, H, S] fp32.
-      delta: [B, H, S] fp32 (`_delta`).
-
-    Returns dq, dk, dv [B, S, H, dh] in q's dtype."""
-    kv_len = _check(q, k, v, kv_len)
+def _bwd_math(q, k, v, do, lse, delta, scale: float, kv_len: int,
+              q_len: int):
+    """The backward kernels' math in torch ops: dq `[B, Sq, H, dh]`, dk and
+    dv `[B, Sk, H, dh]`, in q's dtype."""
     dt = q.dtype
     qs = (q.float() * _qscale(scale, dt)).to(dt)
     s = torch.einsum("bqhd,bkhd->bhqk", qs.float(), k.float())
     p = torch.exp2(s - lse[..., None])
     if kv_len < k.shape[1]:
         p[..., kv_len:] = 0.0
+    if q_len < q.shape[1]:
+        p[:, :, q_len:] = 0.0
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).float(), do.float())
     dos = (do.float() * _rounded(scale, dt)).to(dt)
     dp = torch.einsum("bqhd,bkhd->bhqk", dos.float(), v.float())
@@ -215,22 +332,61 @@ def flash_attention_bwd_plain(
     return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
+def flash_attention_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, *, scale: float,
+    kv_len: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """B2's math in torch ops, on any device.
+
+    Args:
+      q, k, v, do: [B, S, H, dh] in one dtype.
+      lse: the forward's log2 lse [B, H, S] fp32.
+      delta: [B, H, S] fp32 (`_delta`).
+
+    Returns dq, dk, dv [B, S, H, dh] in q's dtype."""
+    kv_len = _check(q, k, v, kv_len, self_attention=True)
+    return _bwd_math(q, k, v, do, lse, delta, scale, kv_len, q.shape[1])
+
+
+def flash_attention_bhsd_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, *, scale: float,
+    kv_len: Optional[int] = None, q_len: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """B5b's math (the TPU kernel `_dkv_kernel`'s) in torch ops, on any
+    device.
+
+    Args:
+      q, do: [B, Sq, H, dh]; k, v: [B, Sk, H, dh]; one dtype.
+      lse: the forward's log2 lse [B, H, Sq] fp32.
+      delta: [B, H, Sq] fp32 (`_delta`).
+      kv_len: keys at or past it get p = 0 (exactly zero dk, dv).
+      q_len: query rows at or past it get p = 0 (exactly zero dq, and
+        nothing of theirs reaches dk, dv).
+
+    Returns dq [B, Sq, H, dh], dk, dv [B, Sk, H, dh] in q's dtype."""
+    kv_len = _check(q, k, v, kv_len, self_attention=False)
+    sq = q.shape[1]
+    q_len = sq if q_len is None else int(q_len)
+    if not 1 <= q_len <= sq:
+        raise ValueError(f"q_len must lie in [1, {sq}]; got {q_len}")
+    return _bwd_math(q, k, v, do, lse, delta, scale, kv_len, q_len)
+
+
+def _check_rows(b: int, h: int, sq: int, **tensors) -> None:
+    for name, t in tensors.items():
+        if (t.shape != (b, h, sq) or t.dtype != torch.float32
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous fp32 [B, H, Sq]")
+
+
 def _launch_bwd(q, k, v, do, lse, delta, scale: float, kv_len: int):
     b, s, h, dh = q.shape
     _check_launch(q=q, k=k, v=v, do=do)
-    for name, t in (("lse", lse), ("delta", delta)):
-        if (t.shape != (b, h, s) or t.dtype != torch.float32
-                or not t.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous fp32 [B, H, S]")
-    lib = _build.load(_BWD_KERNEL)
-    fn = lib.flash_attn_bwd
-    if fn.argtypes is None:
-        p, i, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                       ctypes.c_longlong)
-        fn.argtypes = ([p] * 9 + [i] * 6 + [f, f, f] + [ll] * 12 + [p])
-        fn.restype = ctypes.c_int
-        lib.flash_attn_bwd_error_string.argtypes = [i]
-        lib.flash_attn_bwd_error_string.restype = ctypes.c_char_p
+    _check_rows(b, h, s, lse=lse, delta=delta)
+    lib, fn = _bound(_BWD_KERNEL,
+                     [_P] * 9 + [_I] * 6 + [_F] * 3 + [_LL] * 12 + [_P])
     dq = torch.empty((b, s, h, dh), dtype=q.dtype, device=q.device)
     dk = torch.empty_like(dq)
     dv = torch.empty_like(dq)
@@ -245,11 +401,40 @@ def _launch_bwd(q, k, v, do, lse, delta, scale: float, kv_len: int):
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *do.stride()[:3], stream,
         )
-    if rc != 0:
-        msg = lib.flash_attn_bwd_error_string(rc).decode()
-        raise RuntimeError(f"flash_attn_bwd launch failed: {msg} ({rc})")
+    _raise_on(lib, _BWD_KERNEL, rc)
     _build.launch_counts[_BWD_KERNEL] += 1
     return dq, dk, dv
+
+
+def _launch_bhsd_bwd(q, k, v, do, lse, delta, scale: float, kv_len: int,
+                     q_len: int):
+    """B5b. dq is summed over key tiles by fp32 atomic adds into a zeroed
+    fp32 scratch, so its low bits may differ from run to run; the scratch
+    is cast to q's dtype once here (for fp32 it is dq itself)."""
+    b, sq, h, dh = q.shape
+    sk = k.shape[1]
+    _check_launch(q=q, k=k, v=v, do=do)
+    _check_rows(b, h, sq, lse=lse, delta=delta)
+    lib, fn = _bound(_BHSD_BWD_KERNEL,
+                     [_P] * 9 + [_I] * 8 + [_F] * 3 + [_LL] * 12 + [_P])
+    dq_acc = torch.zeros((b, sq, h, dh), dtype=torch.float32,
+                         device=q.device)
+    dk = torch.empty((b, sk, h, dh), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), int(q.dtype == torch.bfloat16),
+            b, sq, sk, h, dh, kv_len, q_len, _qscale(scale, q.dtype),
+            _rounded(scale, q.dtype), float(scale),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *do.stride()[:3], stream,
+        )
+    _raise_on(lib, _BHSD_BWD_KERNEL, rc)
+    _build.launch_counts[_BHSD_BWD_KERNEL] += 1
+    return dq_acc.to(q.dtype), dk, dv
 
 
 def flash_attention_bwd(
@@ -257,31 +442,52 @@ def flash_attention_bwd(
     lse: torch.Tensor, do: torch.Tensor, *, scale: float,
     kv_len: Optional[int] = None, glse2: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """dq, dk, dv of self-attention from the forward's q, k, v, o and log2
-    lse `[B, H, S]`, the output cotangent dO and, optionally, the
-    cotangent `glse2` `[B, H, S]` of the log2 lse. A CUDA tensor launches
-    the kernel; a CPU tensor takes the plain version."""
-    kv_len = _check(q, k, v, kv_len)
+    """dq, dk, dv of self-attention, flat family (B2), from the forward's
+    q, k, v, o and log2 lse `[B, H, S]`, the output cotangent dO and,
+    optionally, the cotangent `glse2` `[B, H, S]` of the log2 lse. A CUDA
+    tensor launches the kernel; a CPU tensor takes the plain version."""
+    kv_len = _check(q, k, v, kv_len, self_attention=True)
     delta = _delta(do, o, glse2)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, do, lse, delta,
                                          scale=scale, kv_len=kv_len)
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash-attention kernel for {q.device}")
+    _device_or_raise(q)
     if do.stride(3) != 1:
         do = do.contiguous()
     return _launch_bwd(q, k, v, do, lse, delta, scale, kv_len)
 
 
+def flash_attention_bhsd_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, *, scale: float,
+    kv_len: Optional[int] = None, glse2: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """dq `[B, Sq, H, dh]`, dk, dv `[B, Sk, H, dh]`, BHSD family (B5b),
+    from the forward's q, k, v, o and log2 lse `[B, H, Sq]`, dO and,
+    optionally, the lse cotangent `glse2` `[B, H, Sq]`. A CUDA tensor
+    launches the kernel; a CPU tensor takes the plain version."""
+    kv_len = _check(q, k, v, kv_len, self_attention=False)
+    delta = _delta(do, o, glse2)
+    if q.device.type == "cpu":
+        return flash_attention_bhsd_bwd_plain(q, k, v, do, lse, delta,
+                                              scale=scale, kv_len=kv_len)
+    _device_or_raise(q)
+    if do.stride(3) != 1:
+        do = do.contiguous()
+    return _launch_bhsd_bwd(q, k, v, do, lse, delta, scale, kv_len,
+                            q.shape[1])
+
+
 class _FlashAttention(torch.autograd.Function):
-    """o and the log2 lse from `flash_attention_fwd`; the backward is
-    `flash_attention_bwd`, looked up at call time."""
+    """o and the log2 lse from the flat or the BHSD forward; the backward
+    takes the same family, its function looked up at call time."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, kv_len):
-        o, lse2 = flash_attention_fwd(q, k, v, scale=scale, kv_len=kv_len)
+    def forward(ctx, q, k, v, scale, kv_len, flat):
+        fwd = flash_attention_fwd if flat else flash_attention_bhsd_fwd
+        o, lse2 = fwd(q, k, v, scale=scale, kv_len=kv_len)
         ctx.save_for_backward(q, k, v, o, lse2)
-        ctx.scale, ctx.kv_len = scale, kv_len
+        ctx.scale, ctx.kv_len, ctx.flat = scale, kv_len, flat
         ctx.set_materialize_grads(False)
         return o, lse2
 
@@ -290,36 +496,50 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, o, lse2 = ctx.saved_tensors
         if do is None:
             do = torch.zeros_like(o)
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse2, do,
-                                         scale=ctx.scale, kv_len=ctx.kv_len,
-                                         glse2=glse2)
-        return dq, dk, dv, None, None
+        bwd = flash_attention_bwd if ctx.flat else flash_attention_bhsd_bwd
+        dq, dk, dv = bwd(q, k, v, o, lse2, do, scale=ctx.scale,
+                         kv_len=ctx.kv_len, glse2=glse2)
+        return dq, dk, dv, None, None, None
+
+
+def _family(q, k, v, kv_len, flat: Optional[bool]):
+    """(kv_len, flat): the JAX wrapper's choice when `flat` is None."""
+    kv_len = _check(q, k, v, kv_len, self_attention=False)
+    if flat is None:
+        flat = _flat_eligible(q, k)
+    elif flat:
+        _check(q, k, v, kv_len, self_attention=True)
+    return kv_len, bool(flat)
 
 
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
-    kv_len: Optional[int] = None,
+    kv_len: Optional[int] = None, flat: Optional[bool] = None,
 ) -> torch.Tensor:
-    """Fused self-attention, `[B, S, H, dh]` in and out; differentiable."""
-    kv_len = _check(q, k, v, kv_len)
-    return _FlashAttention.apply(q, k, v, scale, kv_len)[0]
+    """Fused attention, `[B, Sq, H, dh]` q and `[B, Sk, H, dh]` k, v in,
+    `[B, Sq, H, dh]` out; differentiable. `flat` forces (True) or forbids
+    (False) the flat family; None chooses as the JAX package does."""
+    kv_len, flat = _family(q, k, v, kv_len, flat)
+    return _FlashAttention.apply(q, k, v, scale, kv_len, flat)[0]
 
 
 def flash_attention_lse(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
-    kv_len: Optional[int] = None,
+    kv_len: Optional[int] = None, flat: Optional[bool] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Attention plus its natural-log lse `[B, S, H]` (fp32), as the JAX
+    """Attention plus its natural-log lse `[B, Sq, H]` (fp32), as the JAX
     `flash_attention_lse` returns them; differentiable in both (autograd
-    turns the natural-log cotangent into the log2 one the kernel
-    takes)."""
-    kv_len = _check(q, k, v, kv_len)
-    o, lse2 = _FlashAttention.apply(q, k, v, scale, kv_len)
+    turns the natural-log cotangent into the log2 one the kernels
+    take)."""
+    kv_len, flat = _family(q, k, v, kv_len, flat)
+    o, lse2 = _FlashAttention.apply(q, k, v, scale, kv_len, flat)
     return o, lse2.transpose(1, 2) * _LN2
 
 
 __all__ = [
-    "HEAD_DIM", "NEG_INF", "flash_attention", "flash_attention_bwd",
+    "HEAD_DIM", "NEG_INF", "flash_attention", "flash_attention_bhsd_bwd",
+    "flash_attention_bhsd_bwd_plain", "flash_attention_bhsd_fwd",
+    "flash_attention_bhsd_fwd_plain", "flash_attention_bwd",
     "flash_attention_bwd_plain", "flash_attention_fwd",
     "flash_attention_fwd_plain", "flash_attention_lse",
 ]

@@ -131,8 +131,9 @@ def test_unsupported_inputs_raise():
         fa.flash_attention(q.half(), k.half(), v.half(), scale=0.125)
     with pytest.raises(ValueError):
         fa.flash_attention(q, k, v, scale=0.125, kv_len=9)
+    # Sq != Sk takes the BHSD family; the flat one is self-attention only.
     with pytest.raises(ValueError):
-        fa.flash_attention(q, k[:, :5], v[:, :5], scale=0.125)
+        fa.flash_attention(q, k[:, :5], v[:, :5], scale=0.125, flat=True)
     with pytest.raises(NotImplementedError):
         multi_head_attention(q, k, v, impl="ring")
     # The flash kernel never materialises the probabilities to drop.
@@ -173,17 +174,19 @@ def test_kernel_matches_plain_on_card(dtype, kv_len):
 @pytest.mark.gpu
 @pytest.mark.parametrize("s", [17, 257])
 def test_auto_takes_kernel_at_any_length_on_card(s):
-    """'auto' sends every head-dim-64 self-attention on the card to the
-    kernel, short sequences included (17 tokens: a 56 px image)."""
+    """'auto' sends every head-dim-64 self-attention on the card to a
+    kernel, short sequences included (17 tokens: a 56 px image): 2 heads
+    pair into the flat B1, 3 heads take the BHSD B5f, as in JAX."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    _, (q, k, v) = _qkv(2, 2, s, 3, "float32")
-    q, k, v = q.cuda(), k.cuda(), v.cuda()
-    before = _build.launch_counts["flash_attn_fwd"]
-    out = multi_head_attention(q, k, v, impl="auto")
-    ref = multi_head_attention(q.cpu(), k.cpu(), v.cpu(), impl="flash")
-    assert _build.launch_counts["flash_attn_fwd"] == before + 1
-    assert (out.cpu() - ref).abs().max().item() <= 1e-5
+    for h, name in ((2, "flash_attn_fwd"), (3, "flash_attn_bhsd_fwd")):
+        _, (q, k, v) = _qkv(2, 2, s, h, "float32")
+        q, k, v = q.cuda(), k.cuda(), v.cuda()
+        before = dict(_build.launch_counts)
+        out = multi_head_attention(q, k, v, impl="auto")
+        ref = multi_head_attention(q.cpu(), k.cpu(), v.cpu(), impl="flash")
+        assert _build.launch_counts == {**before, name: before[name] + 1}
+        assert (out.cpu() - ref).abs().max().item() <= 1e-5
 
 
 @pytest.mark.gpu
