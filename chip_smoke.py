@@ -24,7 +24,13 @@ non-zero and prints no result:
              and fp32, each with a control (a key tile dropped) that must
              fail, timed at ViT-L/560 beside B1 and B2 at the same shape,
              SDPA, and `_scaled_dot_product_flash_attention` as the lse
-             variant's (B3's) yardstick;
+             variant's (B3's) yardstick; the all-heads forward (B4f) and
+             backward (B4b) at ALLHEADS_CASES (ViT-B's 3 heads a rank
+             under 4-way tensor parallelism, B=32, S=257, all keys and
+             kv_len=200; Sq=50 over Sk=1601; S 1024 and S 640, the
+             routing edges), bf16 and fp32, each with a control that must
+             fail, B4b's three gradients bit-equal from run to run, timed
+             at the TP shape beside B5f/B5b and SDPA;
 4. slice   - the bf16 serving path: a full-width ViT-B/14 + deformable
              DETR Predictor behind a DynamicBatcher answers concurrent
              requests; 12 forward launches per device batch;
@@ -63,6 +69,19 @@ non-zero and prints no result:
              checks, 24 B5f + 2 B5b and no B1/B2 launches per step, the
              gradient check against plain attention and B5b's plain
              version with controls (B5b dropping keys); images/s.
+10. tp      - the train step under Megatron tensor parallelism on a
+             ('data', 'model') mesh of 1 x 4: four ranks, processes on the
+             one card in a gloo process group (host-staged collectives),
+             each holding its shard of the full-width ViT-B/14 detector
+             drawn in the parent; the TP eval forward (fp32 and bf16)
+             against one process's with controls (keys dropped); one TP
+             step's loss and gathered gradients against one process's,
+             with controls that must fail (B4b dropping keys; the LoRA
+             factors' partial gradients not summed over the model group);
+             10 TP steps with the train phase's checks and exactly 12 B4f
+             and 2 B4b launches per rank per step, no other flash kernel.
+             Each rank's step time is printed, labelled as four ranks
+             sharing one card: it is not a tensor-parallel speed.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after. The line before the last is {"kernels": [...]}; the last
@@ -210,14 +229,40 @@ LS, LH = 1601, 16  # its attention: 1601 tokens, 16 heads of 64
 # BHSD kernel cases (batch, Sq, Sk, heads, kv_len): ViT-L/560 with all keys
 # and with the keys from 1500 on masked; a cross shape (50 queries, the
 # decoder's count, over 1601 keys); ViT-B's 3 head-local heads under
-# 4-way tensor parallelism at 257 tokens, batch 32 (a B4 shape, which the
-# BHSD pair computes too). Tolerances: TOL and BWD_TOL, for the reasons
+# 4-way tensor parallelism at 257 tokens, batch 32 (the routing sends that
+# shape to B4f/B4b, and the cross shape too; B5f and B5b, called directly,
+# take any shape and are held to their plain versions there as well, as
+# the blocked kernels JAX runs with an explicit block_q). Tolerances: TOL
+# and BWD_TOL, for the reasons
 # given there (B5f's online softmax rounds p as B1's does); B5b's dq is
 # summed over key tiles by fp32 atomics in a varying order, a few fp32 ulps
 # that stay far inside BWD_TOL's bf16 ulps.
 BHSD_CASES = ((LARGE_BATCH, LS, LS, LH, LS), (LARGE_BATCH, LS, LS, LH, 1500),
               (LARGE_BATCH, 50, LS, LH, LS), (B, S, S, 3, S))
 LARGE_REQUEST_SIZES = (3, 5, 2, 6)
+# All-heads kernel cases (batch, Sq, Sk, heads, kv_len): ViT-B/14's 3 heads
+# a rank under 4-way tensor parallelism at 257 tokens, batch 32, with all
+# keys and with the keys from 200 on masked (the TP phase's shape); the
+# cross shape (the decoder's 50 queries over ViT-L/560's 1601 keys), which
+# the JAX rule sends to B4 both ways; and a length at each routing edge:
+# S 1024, the longest self-attention the forward rule sends to B4f (its
+# backward goes to B5b), and S 640, the longest the backward rule sends to
+# B4b. Both kernels are held to their plain versions at every case.
+ALLHEADS_CASES = ((B, S, S, 3, S), (B, S, S, 3, KV_MASKED),
+                  (LARGE_BATCH, 50, LS, LH, LS), (4, 1024, 1024, 4, 1024),
+                  (4, 640, 640, 4, 600))
+# B4f against its plain version, max abs error. bf16: both take p against
+# the exact row max and round it to bf16 at the same point, so p rounds
+# apart only where the two fp32 sums of s fall on either side of a bf16
+# rounding step: l then moves by a fraction of 2^-9 of one p, the lse by
+# less than 1e-3, and o by at most one bf16 ulp where it rounds apart
+# (2^-7 for |o| in [1, 2): the limit of B5f's TOL). B5f's lse limit is 3x
+# looser, since its running max rounds p apart from the plain version's.
+# fp32: fp32 CUDA cores against fp32 matmuls (TF32 off).
+ALLHEADS_TOL = {
+    "bfloat16": {"o": 1e-2, "lse": 1e-3},
+    "float32": {"o": 1e-5, "lse": 1e-5},
+}
 # detector_apply of the large model with the kernels against plain
 # attention, max abs error per output, each limit set like MODEL_TOL
 # between the sound kernels' reading and the controls'. Controls: the
@@ -262,6 +307,47 @@ LARGE_GRAD_TOL = {
     },
 }
 LARGE_GRAD_CONTROLS = (LS - 1, 1536)
+
+# The tensor-parallel configuration: the train phase's ViT-B/14 +
+# deformable DETR (full width and depth, bf16 backbone, LoRA r=2 on the
+# last 2 blocks, fp32 decoder with dropout 0.1, batch 32 with 25 GT slots,
+# OptimConfig()) on a ('data', 'model') mesh of 1 x 4, as the JAX train CLI
+# builds it with --model_parallel 4: 12 / 4 = 3 heads a rank at 257 tokens,
+# which the flat kernels cannot pair, so every block's attention runs B4f
+# (12 a step) and the adapted blocks' backward B4b (2 a step). The card is
+# one: the four ranks are four processes on cuda:0 in a gloo process group
+# whose collectives are staged through the host. That checks the layout,
+# the collectives' placement, the kernels at their head-local shapes and
+# the numbers against one process on the same card; it measures no
+# tensor-parallel speed.
+TP = 4
+TP_STEPS = 10
+# The TP forward (eval mode, the ranks' outputs) against one process's
+# (B1), max abs error per output, each limit between the sound reading and
+# the controls' (every rank's B4f with the keys from S - 1 or 192 on
+# dropped). fp32: both sides fp32, kernels and partial sums in other
+# orders; bf16: B1's running max and B4f's exact one round p apart, and
+# the row-parallel GEMMs round their bf16 partial products before the sum,
+# so bf16 holds the 192 control only (as the large phase does).
+TP_MODEL_TOL = {
+    "float32": {"pred_logits": 1e-3, "pred_boxes": 1e-4},
+    "bfloat16": {"pred_logits": 0.15, "pred_boxes": 0.015},
+}
+TP_CONTROLS = {"float32": (S - 1, 192), "bfloat16": (192,)}
+# One TP step's loss and gathered trainable gradients (decoder dropout 0,
+# the single process's assignment) against one process's step, relative
+# error per leaf group as GRAD_TOL, each limit between the sound reading
+# and the controls': B4b handed a smaller kv_len than its forward (keys
+# from S - 1 or 192 on dropped; bf16 192 only, as above), and the step
+# without the model group's sum of the replicated LoRA factors' partial
+# gradients (lora_A of q/k/v/fc1, lora_B of proj/fc2).
+TP_GRAD_TOL = {
+    "float32": {"loss": 1e-5, "lora": 1e-4, "decoder": 1e-4,
+                "projection": 1e-4},
+    "bfloat16": {"loss": 1e-3, "lora": 0.01, "decoder": 0.03,
+                 "projection": 0.015},
+}
+TP_GRAD_CONTROLS = {"float32": (S - 1, 192), "bfloat16": (192,)}
 
 
 def log(msg: str) -> None:
@@ -988,6 +1074,174 @@ def phase_bhsd_kernels(seed: int):
     return entries
 
 
+def _time_allheads(q, k, v, do, o, lse, kv_len, name):
+    """Times of B4f and B4b at one shape beside their bounds, their plain
+    versions, B5f and B5b on the same inputs and SDPA. Returns (forward
+    row, backward row)."""
+    import torch
+    import torch.nn.functional as F
+
+    from dinov2_od_tpu_torch.ops import flash_attention as fa
+
+    scale = DH ** -0.5
+    b, sq, h, _ = q.shape
+    sk = k.shape[1]
+    delta = fa._delta(do, o, None)
+    args = (q, k, v, do, lse, delta, scale, kv_len)
+    qt, kt, vt = (t.transpose(1, 2) for t in
+                  (q, k[:, :kv_len], v[:, :kv_len]))
+
+    def fwd():
+        fa.flash_attention_allheads_fwd(q, k, v, scale=scale, kv_len=kv_len)
+
+    def bwd():
+        fa._launch_allheads_bwd(*args, sq)
+
+    fbound, fby = attention_bound(name, kv_len, b, sq, h)
+    frow = {
+        "ms": device_ms(fwd, iters=50), "event_ms": time_ms(fwd, iters=50),
+        "plain_ms": device_ms(lambda: fa.flash_attention_allheads_fwd_plain(
+            q, k, v, scale=scale, kv_len=kv_len), iters=5, warmup=1),
+        "b5f_ms": device_ms(lambda: fa.flash_attention_bhsd_fwd(
+            q, k, v, scale=scale, kv_len=kv_len), iters=50),
+        # The library yardstick: SDPA on the first kv_len keys.
+        "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, scale=scale), iters=50),
+        "bound_ms": fbound, "bound_by": fby,
+    }
+    bbound, bby = attention_bwd_bound(name, kv_len, b, sq, sk, h)
+    qg, kg, vg = (t.detach().clone().requires_grad_(True)
+                  for t in (qt, kt, vt))
+    dot = do.transpose(1, 2)
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+        torch.autograd.grad(out, (qg, kg, vg), dot)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+
+    brow = {
+        "ms": device_ms(bwd, iters=50), "event_ms": time_ms(bwd, iters=50),
+        "plain_ms": device_ms(lambda: fa.flash_attention_allheads_bwd_plain(
+            q, k, v, do, lse, delta, scale=scale, kv_len=kv_len),
+            iters=3, warmup=1),
+        # B5b's wrapper as a whole (dq scratch zeroed, kernel, dq cast).
+        "b5b_ms": device_ms(lambda: fa._launch_bhsd_bwd(*args, sq),
+                            iters=50),
+        "library_ms": (device_ms(sdpa_fwd_bwd, iters=20)
+                       - device_ms(sdpa_fwd, iters=20)),
+        "bound_ms": bbound, "bound_by": bby,
+    }
+    return frow, brow
+
+
+def phase_allheads_kernels(seed: int):
+    """B4f and B4b against their plain versions at ALLHEADS_CASES, each with
+    a control (a key tile dropped) that must fail the same check, and timed
+    at the tensor-parallel shape; returns the two kernels' entries of the
+    kernels line (launches filled in later)."""
+    import torch
+
+    from dinov2_od_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(seed + 6)
+    scale = DH ** -0.5
+    entries = {}
+    failures = []
+    for b, sq, sk, h, kv_len in ALLHEADS_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            q, k, v, do = _bhsd_inputs(gen, b, sq, sk, h, dtype)
+            o, lse = fa.flash_attention_allheads_fwd(q, k, v, scale=scale,
+                                                     kv_len=kv_len)
+            o_ref, lse_ref = fa.flash_attention_allheads_fwd_plain(
+                q, k, v, scale=scale, kv_len=kv_len)
+            delta = fa._delta(do, o, None)
+            got = fa.flash_attention_allheads_bwd(q, k, v, o, lse, do,
+                                                  scale=scale, kv_len=kv_len)
+            again = fa.flash_attention_allheads_bwd(q, k, v, o, lse, do,
+                                                    scale=scale,
+                                                    kv_len=kv_len)
+            ref = fa.flash_attention_allheads_bwd_plain(
+                q, k, v, do, lse, delta, scale=scale, kv_len=kv_len)
+            # Controls: each kernel handed a smaller kv_len than the check.
+            ctl_len = _last_tile_dropped(kv_len)
+            o_c, lse_c = fa.flash_attention_allheads_fwd(
+                q, k, v, scale=scale, kv_len=ctl_len)
+            got_c = fa.flash_attention_allheads_bwd(
+                q, k, v, o, lse, do, scale=scale, kv_len=ctl_len)
+            torch.cuda.synchronize()
+            err_o = (o.float() - o_ref.float()).abs().max().item()
+            err_lse = (lse - lse_ref).abs().max().item()
+            ctl_o = (o_c.float() - o_ref.float()).abs().max().item()
+            ctl_lse = (lse_c - lse_ref).abs().max().item()
+            rel, err = _grad_errs(got, ref)
+            ctl_rel, _ = _grad_errs(got_c, ref)
+            finite = all(bool(torch.isfinite(t).all())
+                         for t in (o, lse, *got))
+            masked_zero = bool(not got[1][:, kv_len:].any()
+                               and not got[2][:, kv_len:].any())
+            deterministic = all(torch.equal(x, y) for x, y in zip(got, again))
+            tol, btol = ALLHEADS_TOL[name], BWD_TOL[name]
+            row = {
+                "dtype": name, "shape": [b, sq, sk, h, DH], "kv_len": kv_len,
+                "routes": {"fwd": "B4f" if fa._allheads_fwd(q, k) else "B5f",
+                           "bwd": "B4b" if fa._allheads_bwd(q, k) else "B5b"},
+                "max_abs_err_o": err_o, "max_abs_err_lse": err_lse,
+                "bwd_max_rel_err": rel, "bwd_max_abs_err": err,
+                "masked_dk_dv_exactly_zero": masked_zero,
+                "dq_dk_dv_run_to_run_equal": deterministic,
+                "control_kv_len": ctl_len, "control_err_o": ctl_o,
+                "control_err_lse": ctl_lse, "control_bwd_rel_err": ctl_rel,
+            }
+            if not (finite and err_o <= tol["o"] and err_lse <= tol["lse"]):
+                failures.append(f"B4f {name} {row['shape']} kv_len={kv_len}: "
+                                f"o {err_o:.3g}, lse {err_lse:.3g}, "
+                                f"finite={finite}")
+            if not (finite and max(rel.values()) <= btol and masked_zero
+                    and deterministic):
+                failures.append(f"B4b {name} {row['shape']} kv_len={kv_len}: "
+                                f"{rel} (tol {btol}), masked zero "
+                                f"{masked_zero}, deterministic "
+                                f"{deterministic}, finite={finite}")
+            if ctl_o <= tol["o"] and ctl_lse <= tol["lse"]:
+                failures.append(f"B4f {name} {row['shape']}: the control "
+                                f"(kv_len {ctl_len}) passes the check")
+            if max(ctl_rel.values()) <= btol:
+                failures.append(f"B4b {name} {row['shape']}: the control "
+                                f"(kv_len {ctl_len}) passes the check")
+            if (b, sq, sk, h, kv_len) == ALLHEADS_CASES[0]:
+                frow, brow = _time_allheads(q, k, v, do, o, lse, kv_len, name)
+                row["fwd_timing"], row["bwd_timing"] = frow, brow
+                if name == "bfloat16":
+                    common = {"route": "cuda", "launches": 0,
+                              "shape": [b, sq, h, DH], "dtype": name}
+                    entries["flash_attn_allheads_fwd"] = {
+                        "name": "flash_attn_allheads_fwd", **common,
+                        "source": "dinov2_od_tpu_torch/csrc/"
+                                  "flash_attn_allheads_fwd.cu",
+                        "replaces": "dinov2_od_tpu/ops/flash_attention.py:231",
+                        "replaces_function": "_fwd_kernel_allheads",
+                        "max_abs_err": err_o, **frow}
+                    entries["flash_attn_allheads_bwd"] = {
+                        "name": "flash_attn_allheads_bwd", **common,
+                        "source": "dinov2_od_tpu_torch/csrc/"
+                                  "flash_attn_allheads_bwd.cu",
+                        "replaces": "dinov2_od_tpu/ops/flash_attention.py:265",
+                        "replaces_function": "_bwd_kernel_allheads",
+                        "max_abs_err": max(err.values()),
+                        "max_rel_err": max(rel.values()), **brow}
+            log("kernels: flash_attn_allheads " + json.dumps(row))
+            del q, k, v, do, o, lse, got, again, ref, o_c, got_c, o_ref
+            torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("all-heads kernels disagree with their plain "
+                             "versions: " + "; ".join(failures))
+    return entries
+
+
 def phase_slice(seed: int, kernels: dict, profile: bool = False) -> float:
     """The bf16 serving path; returns its images/s."""
     import torch
@@ -1210,12 +1464,14 @@ def _group_grads(loss, groups):
 
 @contextlib.contextmanager
 def _backwards_as(make):
-    """Both flash backwards (flat B2 and BHSD B5b, which `_FlashAttention`
-    looks up at call time) replaced by make(sound wrapper, plain version)
-    for the gradient check."""
+    """Every flash backward (flat B2, all-heads B4b and blocked B5b, which
+    `_FlashAttention` looks up at call time) replaced by make(sound
+    wrapper, plain version) for the gradient check."""
     from dinov2_od_tpu_torch.ops import flash_attention as fa
 
     pairs = {"flash_attention_bwd": fa.flash_attention_bwd_plain,
+             "flash_attention_allheads_bwd":
+                 fa.flash_attention_allheads_bwd_plain,
              "flash_attention_bhsd_bwd": fa.flash_attention_bhsd_bwd_plain}
     sound = {name: getattr(fa, name) for name in pairs}
     for name, plain in pairs.items():
@@ -1228,8 +1484,9 @@ def _backwards_as(make):
 
 
 def _bwd_keys_dropped(drop: int):
-    """The flash backward as a faulty kernel: B2 or B5b handed a smaller
-    kv_len than its forward used, so it drops the keys from `drop` on."""
+    """The flash backward as a faulty kernel: B2, B4b or B5b handed a
+    smaller kv_len than its forward used, so it drops the keys from `drop`
+    on."""
     def make(sound, plain):
         def faulty(q, k, v, o, lse, do, *, scale, kv_len=None, glse2=None):
             return sound(q, k, v, o, lse, do, scale=scale,
@@ -1265,7 +1522,7 @@ def _drive_train(seed: int, det, steps: int, want_per_step: dict,
     from dinov2_od_tpu_torch.config import DataConfig, OptimConfig, TrainConfig
     from dinov2_od_tpu_torch.data.synthetic import make_batch
     from dinov2_od_tpu_torch.models.detector import (
-        cast_frozen_weights, init_detector_params, trainable_mask)
+        cast_frozen_weights, init_detector_params)
     from dinov2_od_tpu_torch.ops import _build
     from dinov2_od_tpu_torch.train.state import create_train_state
     from dinov2_od_tpu_torch.train.step import make_train_step
@@ -1288,20 +1545,7 @@ def _drive_train(seed: int, det, steps: int, want_per_step: dict,
     raw = make_batch(np.random.default_rng(seed), batch_size,
                      image_size=bb.image_size, max_boxes=MAX_BOXES)
     batch = {k: torch.from_numpy(v).to("cuda") for k, v in raw.items()}
-    mask = trainable_mask(params, det)
-    frozen, lora_rows = [], []
-    first = bb.depth - bb.lora_last_n_blocks
-
-    def snapshot(t, m):
-        for key in t:
-            if isinstance(t[key], dict):
-                snapshot(t[key], m[key])
-            elif not m[key]:
-                frozen.append((t[key], t[key].clone()))
-            elif key in ("lora_A", "lora_B") and t[key].dim() == 3:
-                lora_rows.append((t[key], t[key][:first].clone()))
-
-    snapshot(params, mask)
+    snap = _snapshot(params, det)
     step = make_train_step(cfg)
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -1314,7 +1558,55 @@ def _drive_train(seed: int, det, steps: int, want_per_step: dict,
         losses.append(metrics["loss"])
     torch.cuda.synchronize()
     counts = dict(_build.launch_counts)
-    losses = torch.stack(losses).tolist()
+    _check_steps(phase, torch.stack(losses).tolist(), metrics, counts,
+                 want_per_step, steps, snap)
+
+    # Throughput of the train step on the fixed batch.
+    ms = time_ms(lambda: step(state, batch, gen), iters=5, warmup=2,
+                 repeats=5)
+    ips = batch_size / ms * 1e3
+    log(f"{phase}: " + json.dumps({
+        "metric": f"train step, batch {batch_size}, bf16 backbone, "
+                  f"prefix_int8={bb.prefix_int8}, {MAX_BOXES} GT slots",
+        "ms_per_step": ms, "images_per_s": ips,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "card": card_line(),
+    }))
+    if profile:
+        profile_device(lambda: step(state, batch, gen), ms, f"{phase} step")
+    del state, params, snap
+    torch.cuda.empty_cache()
+    return cfg, batch, counts, ips
+
+
+def _snapshot(params, det):
+    """Copies of the frozen leaves and of the non-adapted blocks' rows of
+    the stacked LoRA leaves, for `_check_steps`."""
+    from dinov2_od_tpu_torch.models.detector import trainable_mask
+
+    first = det.backbone.depth - det.backbone.lora_last_n_blocks
+    frozen, lora_rows = [], []
+
+    def walk(t, m):
+        for key in t:
+            if isinstance(t[key], dict):
+                walk(t[key], m[key])
+            elif not m[key]:
+                frozen.append((t[key], t[key].clone()))
+            elif key in ("lora_A", "lora_B") and t[key].dim() == 3:
+                lora_rows.append((t[key], t[key][:first].clone()))
+
+    walk(params, trainable_mask(params, det))
+    return first, frozen, lora_rows
+
+
+def _check_steps(phase, losses, metrics, counts, want_per_step, steps, snap):
+    """The train checks of a run of `steps` steps: the launch counts are
+    `want_per_step` times the steps, the losses finite and dropping, the
+    frozen leaves and the non-adapted LoRA rows bit-identical."""
+    import torch
+
+    first, frozen, lora_rows = snap
     log(f"{phase}: {steps} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
         f"grad_norm {metrics['grad_norm'].item():.4f}, launches {counts}")
     want = {name: n * steps for name, n in want_per_step.items()}
@@ -1335,23 +1627,6 @@ def _drive_train(seed: int, det, steps: int, want_per_step: dict,
     log(f"{phase}: losses finite and dropping; {len(frozen)} frozen leaves "
         f"and the non-adapted rows of {len(lora_rows)} LoRA leaves "
         f"bit-identical")
-
-    # Throughput of the train step on the fixed batch.
-    ms = time_ms(lambda: step(state, batch, gen), iters=5, warmup=2,
-                 repeats=5)
-    ips = batch_size / ms * 1e3
-    log(f"{phase}: " + json.dumps({
-        "metric": f"train step, batch {batch_size}, bf16 backbone, "
-                  f"prefix_int8={bb.prefix_int8}, {MAX_BOXES} GT slots",
-        "ms_per_step": ms, "images_per_s": ips,
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "card": card_line(),
-    }))
-    if profile:
-        profile_device(lambda: step(state, batch, gen), ms, f"{phase} step")
-    del state, params, frozen, lora_rows
-    torch.cuda.empty_cache()
-    return cfg, batch, counts, ips
 
 
 def _train_dets(model_name: str = "facebook/dinov2-base",
@@ -1682,6 +1957,350 @@ def _keys_dropped(kv_len: int):
         vit.multi_head_attention = sound
 
 
+def _tp_trees(seed: int, det32):
+    """The TP phase's two param trees as numpy, drawn on the CPU: the
+    train phase's init from `seed`, and the gradient check's from seed + 2
+    with every lora_B nonzero (as `_step_loss_grads` draws them)."""
+    import torch
+
+    from dinov2_od_tpu_torch.models.detector import init_detector_params
+    from dinov2_od_tpu_torch.params import params_to_numpy
+
+    train = init_detector_params(torch.Generator().manual_seed(seed), det32,
+                                 device="cpu")
+    check = init_detector_params(torch.Generator().manual_seed(seed + 2),
+                                 det32, device="cpu")
+    lg = torch.Generator().manual_seed(seed + 3)
+    for lin in check["backbone"]["blocks"].values():
+        if isinstance(lin, dict) and "lora_B" in lin:
+            lin["lora_B"] = 0.05 * torch.randn(lin["lora_B"].shape,
+                                               generator=lg)
+    return params_to_numpy(train), params_to_numpy(check)
+
+
+def _grad_tree(p, c, x, gt, match, mesh=None):
+    """(loss, masked gradient tree) of one train-mode step on fixed params
+    with a fixed assignment; under `mesh` this rank's, with the train
+    step's reductions (`reduce_gradients`)."""
+    import torch
+
+    from dinov2_od_tpu_torch.config import OptimConfig
+    from dinov2_od_tpu_torch.models.detector import detector_apply
+    from dinov2_od_tpu_torch.ops.losses import set_criterion
+    from dinov2_od_tpu_torch.parallel.collectives import reduce_gradients
+    from dinov2_od_tpu_torch.parallel.sharding import leaf_paths
+    from dinov2_od_tpu_torch.train.state import (
+        create_train_state, mask_gradients, trainable_leaves, tree_unflatten)
+
+    state = create_train_state(p, OptimConfig(), c)
+    o = detector_apply(p, c, x, deterministic=False, mesh=mesh)
+    loss = set_criterion(o["pred_logits"], o["pred_boxes"], *gt,
+                         num_classes=c.decoder.num_classes, match=match,
+                         mesh=mesh)["loss"]
+    grads = list(torch.autograd.grad(
+        loss, trainable_leaves(p, state.opt_state)))
+    if mesh is not None:
+        reduce_gradients(grads, leaf_paths(state.opt_state.mu), mesh)
+    return loss.detach(), mask_gradients(
+        tree_unflatten(state.opt_state.mu, grads), p, c)
+
+
+def _tree_groups(grads, det):
+    """A gradient tree in `_groups`' groups, each flattened to fp32 on the
+    host."""
+    import torch
+
+    from dinov2_od_tpu_torch.train.state import tree_leaves
+
+    blocks = grads["backbone"]["blocks"]
+    first = det.backbone.depth - det.backbone.lora_last_n_blocks
+    out = {"lora": [blocks[lin][f][first:] for lin in sorted(blocks)
+                    if isinstance(blocks[lin], dict)
+                    for f in ("lora_A", "lora_B")
+                    if blocks[lin].get(f) is not None],
+           "decoder": tree_leaves(grads["decoder"])}
+    if "projection" in grads["backbone"]:
+        out["projection"] = [grads["backbone"]["projection"][f]
+                             for f in ("kernel", "bias")]
+    return {name: torch.cat([g.reshape(-1).float().cpu() for g in gs])
+            for name, gs in out.items()}
+
+
+@contextlib.contextmanager
+def _lora_grads_unreduced():
+    """The train step's reduction without the model group's sum of the
+    replicated LoRA factors' partial gradients: the TP gradient check's
+    second control."""
+    from dinov2_od_tpu_torch.parallel import sharding
+
+    sound = sharding.partial_grad
+
+    def faulty(path):
+        return path[-1] not in ("lora_A", "lora_B") and sound(path)
+
+    sharding.partial_grad = faulty
+    try:
+        yield
+    finally:
+        sharding.partial_grad = sound
+
+
+def _tp_rank(rank: int, world: int, port: int, work: str, seed: int):
+    """One rank of the TP phase: a process on cuda:0 in a gloo group of
+    `world`, on a 1 x TP mesh. Reads the parent's inputs from `work`,
+    writes its results there (rank{r}.pt)."""
+    import pickle
+    from pathlib import Path
+
+    import torch
+    import torch.distributed as dist
+
+    from dinov2_od_tpu_torch.config import (
+        DataConfig, MeshConfig, OptimConfig, TrainConfig)
+    from dinov2_od_tpu_torch.models.detector import (
+        cast_frozen_weights, detector_apply)
+    from dinov2_od_tpu_torch.ops import _build
+    from dinov2_od_tpu_torch.ops.matching import MatchResult
+    from dinov2_od_tpu_torch.parallel import create_mesh, gather_params
+    from dinov2_od_tpu_torch.params import params_from_numpy
+    from dinov2_od_tpu_torch.train.state import create_train_state
+    from dinov2_od_tpu_torch.train.step import make_train_step
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        work = Path(work)
+        with open(work / "inputs.pkl", "rb") as f:
+            inp = pickle.load(f)
+        mesh_cfg = MeshConfig(model_parallel_size=TP)
+        mesh = create_mesh(TP, mesh_cfg)
+        det32, det = _train_dets()
+        batch = {k: torch.from_numpy(v).to("cuda")
+                 for k, v in inp["batch"].items()}
+        x = batch["images"]
+        gt = (batch["labels"], batch["boxes"], batch["valid"])
+        out = {}
+        for name, c in (("float32", det32), ("bfloat16", det)):
+            c = dataclasses.replace(c, decoder=dataclasses.replace(
+                c.decoder, dropout=0.0))
+            p = params_from_numpy(inp["check"], device="cuda", mesh=mesh)
+            if name == "bfloat16":
+                p = cast_frozen_weights(p, c)
+            with torch.inference_mode():
+                runs = {"kernel": detector_apply(p, c, x, mesh=mesh)}
+                for kv_len in TP_CONTROLS[name]:
+                    with _keys_dropped(kv_len):
+                        runs[f"control kv_len={kv_len}"] = detector_apply(
+                            p, c, x, mesh=mesh)
+            out[f"forward {name}"] = {
+                run: {k: o[k].float().cpu() for k in OUTPUTS}
+                for run, o in runs.items()}
+            match = MatchResult(*(t.to("cuda") for t in inp["match"][name]))
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                grads = {"kernel": _grad_tree(p, c, x, gt, match, mesh)}
+                for kv_len in TP_GRAD_CONTROLS[name]:
+                    with _bwd_keys_dropped(kv_len):
+                        grads[f"control B4b kv_len={kv_len}"] = _grad_tree(
+                            p, c, x, gt, match, mesh)
+                with _lora_grads_unreduced():
+                    grads["control LoRA factors' partial gradients not "
+                          "summed over the model group"] = _grad_tree(
+                              p, c, x, gt, match, mesh)
+            finally:
+                torch.use_deterministic_algorithms(False)
+            out[f"grads {name}"] = {
+                run: (loss.cpu(), _tree_groups(gather_params(g, mesh), c))
+                for run, (loss, g) in grads.items()}
+            del p, runs, grads
+            torch.cuda.empty_cache()
+
+        # The main path: TP_STEPS train steps, counts to 0 before and read
+        # after.
+        cfg = TrainConfig(detector=det,
+                          data=DataConfig(batch_size=B, max_boxes=MAX_BOXES),
+                          optim=OptimConfig(), mesh=mesh_cfg)
+        params = cast_frozen_weights(
+            params_from_numpy(inp["train"], device="cuda", mesh=mesh), det)
+        state = create_train_state(params, cfg.optim, det)
+        snap = _snapshot(params, det)
+        step = make_train_step(cfg, mesh)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        _build.reset_launch_counts()
+        losses = []
+        for _ in range(TP_STEPS):
+            state, metrics = step(state, batch, gen)
+            losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        counts = dict(_build.launch_counts)
+        _check_steps(f"tp rank {rank}", torch.stack(losses).tolist(),
+                     metrics, counts,
+                     _counts(flash_attn_allheads_fwd=det.backbone.depth,
+                             flash_attn_allheads_bwd=
+                             det.backbone.lora_last_n_blocks),
+                     TP_STEPS, snap)
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step(state, batch, gen)
+        torch.cuda.synchronize()
+        out["step_s"] = (time.perf_counter() - t0) / 3
+        out["counts"] = counts
+        out["losses"] = torch.stack(losses).tolist()
+        torch.save(out, work / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _judge_grads(phase: str, name: str, runs: dict, ref, tol: dict):
+    """Each run's loss and gradient groups against `ref` (relative errors,
+    `_grad_errors`): the sound run ("kernel") within every limit, each
+    control over one."""
+    import torch
+
+    verdicts = {}
+    for run, result in runs.items():
+        finite = bool(torch.isfinite(result[0])) and all(
+            bool(torch.isfinite(g).all()) for g in result[1].values())
+        err = _grad_errors(result, ref)
+        over = [g for g in err if err[g] > tol[g]]
+        verdicts[run] = over + ([] if finite else ["non-finite"])
+        log(f"{phase}: gradients {name} {run} vs one process: "
+            + ", ".join(f"{g} rel err {err[g]:.4g} (tol {tol[g]})"
+                        for g in err)
+            + f", finite={finite}, over the limit: {over or 'none'}")
+    if verdicts["kernel"]:
+        raise AssertionError(f"{phase} gradients {name} disagree: "
+                             f"{verdicts['kernel']}")
+    passed = [r for r, v in verdicts.items() if r != "kernel" and not v]
+    if passed:
+        raise AssertionError(f"{phase} gradients {name}: the check passes "
+                             f"a faulty run ({passed}); its limits are too "
+                             f"loose")
+
+
+def phase_tp(seed: int, kernels: dict):
+    """The tensor-parallel train step: ViT-B/14 on a 1 x 4 mesh, four
+    ranks sharing the card. The parent draws the params, runs one process's
+    forward and gradients on the card (B1/B2) as the references, and
+    spawns the ranks (`_tp_rank`), which run the TP forward, the gradient
+    check with its controls and TP_STEPS train steps on B4f/B4b."""
+    import pickle
+    import shutil
+    import socket
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from dinov2_od_tpu_torch.data.synthetic import make_batch
+    from dinov2_od_tpu_torch.models.detector import (
+        cast_frozen_weights, detector_apply)
+    from dinov2_od_tpu_torch.ops.matching import hungarian_match
+    from dinov2_od_tpu_torch.params import params_from_numpy
+
+    det32, det = _train_dets()
+    bb = det.backbone
+    log(f"tp: ViT-{bb.variant} depth {bb.depth} heads {bb.num_heads} "
+        f"({bb.num_heads // TP} a rank) at {bb.seq_len} tokens; mesh "
+        f"(data 1, model {TP}): {TP} processes on cuda:0, gloo, host-staged "
+        f"collectives; batch {B}, {MAX_BOXES} GT slots")
+    train_tree, check_tree = _tp_trees(seed, det32)
+    raw = make_batch(np.random.default_rng(seed), B, image_size=bb.image_size,
+                     max_boxes=MAX_BOXES)
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in raw.items()}
+    x = batch["images"]
+    gt = (batch["labels"], batch["boxes"], batch["valid"])
+
+    # One process's references on the card, the same fixed assignment for
+    # every run of a dtype.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    refs, matches = {}, {}
+    for name, c in (("float32", det32), ("bfloat16", det)):
+        c = dataclasses.replace(c, decoder=dataclasses.replace(
+            c.decoder, dropout=0.0))
+        p = params_from_numpy(check_tree, device="cuda")
+        if name == "bfloat16":
+            p = cast_frozen_weights(p, c)
+        with torch.inference_mode():
+            fwd = detector_apply(p, c, x)
+        match = hungarian_match(fwd["pred_logits"], fwd["pred_boxes"], *gt)
+        matches[name] = tuple(t.cpu() for t in match)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            loss, grads = _grad_tree(p, c, x, gt, match)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        refs[name] = ({k: fwd[k].float().cpu() for k in OUTPUTS},
+                      (loss.cpu(), _tree_groups(grads, c)))
+        del p, fwd, grads
+    torch.cuda.empty_cache()
+
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="tp_phase_", dir=root))
+    try:
+        with open(work / "inputs.pkl", "wb") as f:
+            pickle.dump({"train": train_tree, "check": check_tree, "batch": raw,
+                         "match": matches}, f)
+        del train_tree, check_tree
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        t0 = time.perf_counter()
+        mp.start_processes(_tp_rank, args=(TP, port, str(work), seed),
+                           nprocs=TP, join=True, start_method="spawn")
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(work / f"rank{r}.pt", weights_only=False)
+                 for r in range(TP)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"tp: {TP} ranks done in {wall:.1f} s")
+
+    for name in ("float32", "bfloat16"):
+        ref_fwd, ref_grads = refs[name]
+        for r, res in enumerate(ranks):
+            _check_model(f"tp: rank {r} forward {name}", "one process",
+                         res[f"forward {name}"], ref_fwd, TP_MODEL_TOL[name],
+                         _max_abs, "max abs err")
+        # Gathered gradients: every rank holds the same after the gather.
+        _judge_grads("tp", name, ranks[0][f"grads {name}"], ref_grads,
+                     TP_GRAD_TOL[name])
+        for res in ranks[1:]:
+            loss, groups = res[f"grads {name}"]["kernel"]
+            loss0, groups0 = ranks[0][f"grads {name}"]["kernel"]
+            if not all(torch.equal(groups[g], groups0[g]) for g in groups):
+                raise AssertionError("tp: the ranks' gathered gradients "
+                                     "differ")
+
+    want = _counts(flash_attn_allheads_fwd=bb.depth * TP_STEPS,
+                   flash_attn_allheads_bwd=bb.lora_last_n_blocks * TP_STEPS)
+    for r, res in enumerate(ranks):
+        if res["counts"] != want:
+            raise AssertionError(f"tp: rank {r} launches {res['counts']}; "
+                                 f"expected {want}")
+    for name, per_step in (("flash_attn_allheads_fwd", bb.depth),
+                           ("flash_attn_allheads_bwd",
+                            bb.lora_last_n_blocks)):
+        k = kernels[name]
+        k["launches"] += sum(res["counts"][name] for res in ranks)
+        k["launches_tp_train"] = [res["counts"][name] for res in ranks]
+        k["launches_per_step_per_rank"] = per_step
+    log("tp: " + json.dumps({
+        "metric": f"train step, {TP} ranks of a 1 x {TP} mesh sharing one "
+                  f"card over host-staged gloo collectives: not a "
+                  f"tensor-parallel speed",
+        "losses_rank0": ranks[0]["losses"],
+        "s_per_step_per_rank": [res["step_s"] for res in ranks],
+        "card": card_line(),
+    }))
+
+
 def profile_device(fn, unprofiled_ms: float, what: str, steps: int = 5,
                    top: int = 12):
     """Device time of `steps` calls of `fn` by CUDA kernel, from
@@ -1726,8 +2345,9 @@ def profile_device(fn, unprofiled_ms: float, what: str, steps: int = 5,
         "device_ms_per_step": total, "unprofiled_ms_per_step": unprofiled_ms,
         "idle_share": max(0.0, 1 - total / unprofiled_ms),
         "gemm_share": share("gemm", "nvjet", "xmma", "cutlass"),
-        "flash_fwd_share": share("flash_fwd", "bhsd_fwd"),
-        "flash_bwd_share": share("dkdv_", "dq_bf16", "dq_f32", "bhsd_bwd"),
+        "flash_fwd_share": share("flash_fwd", "bhsd_fwd", "allheads_fwd"),
+        "flash_bwd_share": share("dkdv_", "dq_bf16", "dq_f32", "bhsd_bwd",
+                                 "allheads_bwd"),
         "int8_gemm_share": share("int8_gemm_kernel"),
         "layer_norm_share": share("layer_norm"),
         "elementwise_share": share("elementwise", "copy"),
@@ -1768,6 +2388,7 @@ def main(argv=None) -> int:
                   phase_int8_kernel(args.seed)):
         kernels[entry["name"]] = entry
     kernels.update(phase_bhsd_kernels(args.seed))
+    kernels.update(phase_allheads_kernels(args.seed))
     serving_ips = phase_slice(args.seed, kernels, profile=args.profile)
     phase_int8_serving(args.seed, kernels, serving_ips, profile=args.profile)
     train_ips = phase_train(args.seed, kernels, profile=args.profile)
@@ -1775,6 +2396,7 @@ def main(argv=None) -> int:
                             profile=args.profile)
     phase_large_serving(args.seed, kernels, profile=args.profile)
     phase_large_train(args.seed, kernels, profile=args.profile)
+    phase_tp(args.seed, kernels)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

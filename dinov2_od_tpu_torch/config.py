@@ -2,9 +2,9 @@
 
 Own copies of the JAX package's dataclasses (dinov2_od_tpu/config.py),
 restricted to the fields the serving path and the train step read: the
-MoE, mesh, loader and training-loop fields come back with the slices that
-read them. The field names and defaults are the JAX package's, so the
-keyword arguments of a port config also build the JAX one.
+MoE, loader and training-loop fields come back with the slices that read
+them. The field names and defaults are the JAX package's, so the keyword
+arguments of a port config also build the JAX one.
 """
 
 from __future__ import annotations
@@ -208,6 +208,44 @@ class AugmentConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Process mesh layout: 'data' is the data-parallel axis, 'model' the
+    Megatron tensor-parallel one (parallel/sharding.py). Context and
+    pipeline parallelism and FSDP are not ported yet (ROADMAP.md): setting
+    any of their fields raises."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    context_axis: str = "context"
+    stage_axis: str = "stage"
+    model_parallel_size: int = 1
+    context_parallel_size: int = 0
+    pipeline_parallel_size: int = 0
+    context_parallel: bool = False
+    pipeline_parallel: bool = False
+    pipeline_microbatches: int = 0
+    fsdp: bool = False
+    pipeline_chunks: int = 1
+
+    def __post_init__(self):
+        unported = {
+            "context parallelism": (self.context_parallel
+                                    or self.context_parallel_size > 0),
+            "pipeline parallelism": (self.pipeline_parallel
+                                     or self.pipeline_parallel_size > 0
+                                     or self.pipeline_microbatches > 0
+                                     or self.pipeline_chunks != 1),
+            "FSDP": self.fsdp,
+        }
+        for what, asked in unported.items():
+            if asked:
+                raise NotImplementedError(
+                    f"{what} is not ported to PyTorch yet (ROADMAP.md)")
+        if self.model_parallel_size < 1:
+            raise ValueError("model_parallel_size must be >= 1")
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """What the train step reads."""
 
@@ -217,6 +255,7 @@ class TrainConfig:
     matcher: MatcherConfig = MatcherConfig()
     loss: LossConfig = LossConfig()
     augment: AugmentConfig = AugmentConfig()
+    mesh: MeshConfig = MeshConfig()
     # Rematerialisation of backbone blocks: not ported yet (ROADMAP.md).
     use_remat: bool = False
     # Auxiliary layers reuse the final layer's assignment instead of

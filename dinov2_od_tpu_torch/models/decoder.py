@@ -9,6 +9,13 @@ sigmoid, both fp32. Train mode (deterministic=False with a generator)
 drops the residual branches, the FFN hidden layer and the self-attention
 probabilities, each with its own draw, and returns `aux_outputs` when
 `aux_loss` is set.
+
+Under a mesh (parallel/) the layers split as the JAX rules split them:
+attention q/k/v column-parallel and out row-parallel (the rank's
+`num_heads / tp` heads), the deformable value projection column-parallel
+and output row-parallel, the FFN and the box MLP column then row. Dropout
+masks over a split activation are drawn whole and sliced (`keep_mask`),
+so a tensor-parallel step drops what a single process would.
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ from ..ops.deformable import (
     factor_spatial_shape,
     init_deformable_params,
 )
+from ..parallel.collectives import copy_to_model
+from ..parallel.sharding import model_size
 from .layers import (
     compute_dtype,
     dropout,
@@ -32,6 +41,7 @@ from .layers import (
     layer_norm,
     layernorm_init,
     linear,
+    row_linear,
     stack_params,
     torch_linear_init,
     xavier_linear_init,
@@ -88,32 +98,39 @@ def init_decoder_params(gen: torch.Generator, cfg: DecoderConfig,
 
 def _attention_block(tgt, memory, p: Params, num_heads: int,
                      drop_rate: float = 0.0,
-                     generator: Optional[torch.Generator] = None):
+                     generator: Optional[torch.Generator] = None, mesh=None):
     """Multi-head attention of tgt over memory (memory is tgt for the
     self-attention), plain einsum path, with probability dropout when a
     generator is given."""
     b, q, d = tgt.shape
     s = memory.shape[1]
-    dh = d // num_heads
-    qh = linear(tgt, p["q"]).reshape(b, q, num_heads, dh)
-    kh = linear(memory, p["k"]).reshape(b, s, num_heads, dh)
-    vh = linear(memory, p["v"]).reshape(b, s, num_heads, dh)
-    out = multi_head_attention(qh, kh, vh, impl="xla", dropout_rate=drop_rate,
-                               generator=generator).reshape(b, q, d)
-    return linear(out, p["out"])
+    tp = model_size(mesh)
+    h, dh = num_heads // tp, d // num_heads
+    x = copy_to_model(tgt, mesh)
+    mem = x if memory is tgt else copy_to_model(memory, mesh)
+    qh = linear(x, p["q"]).reshape(b, q, h, dh)
+    kh = linear(mem, p["k"]).reshape(b, s, h, dh)
+    vh = linear(mem, p["v"]).reshape(b, s, h, dh)
+    out = multi_head_attention(
+        qh, kh, vh, impl="xla", dropout_rate=drop_rate, generator=generator,
+        mesh=mesh, tp_axis=mesh.cfg.model_axis if tp > 1 else None,
+    ).reshape(b, q, h * dh)
+    return row_linear(out, p["out"], mesh)
 
 
 def _layer_apply(tgt, memory, lp: Params, cfg: DecoderConfig,
                  spatial_shape: Tuple[int, int],
-                 generator: Optional[torch.Generator], deterministic: bool):
+                 generator: Optional[torch.Generator], deterministic: bool,
+                 mesh=None):
     """One post-norm decoder layer."""
     dr = cfg.dropout
     gen = None if deterministic else generator
 
-    def drop(x):
-        return dropout(x, dr, gen, deterministic)
+    def drop(x, shard_dim=None):
+        return dropout(x, dr, gen, deterministic, mesh, shard_dim)
 
-    sa = _attention_block(tgt, tgt, lp["self_attn"], cfg.num_heads, dr, gen)
+    sa = _attention_block(tgt, tgt, lp["self_attn"], cfg.num_heads, dr, gen,
+                          mesh)
     tgt = layer_norm(tgt + drop(sa), lp["ln1"], eps=1e-5)
 
     if cfg.use_deformable:
@@ -121,13 +138,16 @@ def _layer_apply(tgt, memory, lp: Params, cfg: DecoderConfig,
         ca = deformable_attention(
             tgt, ref, memory, spatial_shape,
             DeformableParams(**lp["deform"]), cfg.num_heads, cfg.n_points,
+            mesh=mesh,
         )
     else:
-        ca = _attention_block(tgt, memory, lp["cross_attn"], cfg.num_heads)
+        ca = _attention_block(tgt, memory, lp["cross_attn"], cfg.num_heads,
+                              mesh=mesh)
     tgt = layer_norm(tgt + drop(ca), lp["ln2"], eps=1e-5)
 
-    h = drop(torch.relu(linear(tgt, lp["fc1"])))
-    h = linear(h, lp["fc2"])
+    h = linear(copy_to_model(tgt, mesh), lp["fc1"])
+    h = drop(torch.relu(h), shard_dim=-1)
+    h = row_linear(h, lp["fc2"], mesh)
     return layer_norm(tgt + drop(h), lp["ln3"], eps=1e-5)
 
 
@@ -138,6 +158,7 @@ def decoder_apply(
     *,
     generator: Optional[torch.Generator] = None,
     deterministic: bool = True,
+    mesh=None,
 ) -> Dict[str, Any]:
     """Decode object queries against backbone features.
 
@@ -145,6 +166,8 @@ def decoder_apply(
       memory: [B, S, D] backbone features.
       generator: dropout's random source (on memory's device); train-mode
         dropout needs it and deterministic=False.
+      mesh: a process mesh whose model axis splits the layers (params:
+        this rank's shard); None runs whole.
 
     Returns:
       {"pred_logits": [B, Q, num_classes], "pred_boxes": [B, Q, 4] cxcywh
@@ -161,14 +184,15 @@ def decoder_apply(
     inter = []
     for i in range(cfg.num_layers):
         tgt = _layer_apply(tgt, memory, index_params(params["layers"], i), cfg,
-                           spatial_shape, generator, deterministic)
+                           spatial_shape, generator, deterministic, mesh)
         if collect and i < cfg.num_layers - 1:
             inter.append(tgt)
 
     def heads(x):
         logits = linear(x, params["class_embed"])
-        h = torch.relu(linear(x, params["bbox_mlp"]["fc1"]))
-        boxes = torch.sigmoid(linear(h, params["bbox_mlp"]["fc2"]))
+        h = torch.relu(linear(copy_to_model(x, mesh),
+                              params["bbox_mlp"]["fc1"]))
+        boxes = torch.sigmoid(row_linear(h, params["bbox_mlp"]["fc2"], mesh))
         return {"pred_logits": logits.float(), "pred_boxes": boxes.float()}
 
     out = heads(tgt)

@@ -42,18 +42,23 @@ def detector_apply(
     generator: Optional[torch.Generator] = None,
     deterministic: bool = True,
     attn_impl: str = "auto",
+    mesh=None,
 ) -> Dict[str, Any]:
     """Full forward pass on pixel_values [B, H, W, 3] (NHWC).
 
     `generator` (on the params' device) drives the decoder's dropout when
-    deterministic is False. Returns {"pred_logits": [B, Q, C],
-    "pred_boxes": [B, Q, 4]}, plus "aux_outputs" in train mode when the
-    decoder's aux_loss is set."""
+    deterministic is False. Under `mesh` (parallel/) params are this
+    rank's shard (`shard_params`), pixel_values this rank's batch slice,
+    and the outputs are replicated over the model axis. Returns
+    {"pred_logits": [B, Q, C], "pred_boxes": [B, Q, 4]}, plus
+    "aux_outputs" in train mode when the decoder's aux_loss is set."""
     features = backbone_apply(
-        params["backbone"], cfg.backbone, pixel_values, attn_impl=attn_impl
+        params["backbone"], cfg.backbone, pixel_values, attn_impl=attn_impl,
+        mesh=mesh,
     )
     return decoder_apply(params["decoder"], cfg.decoder, features,
-                         generator=generator, deterministic=deterministic)
+                         generator=generator, deterministic=deterministic,
+                         mesh=mesh)
 
 
 def _map_with_path(fn, tree: Params, path=()) -> Params:

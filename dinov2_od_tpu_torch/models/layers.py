@@ -7,6 +7,11 @@ the torch defaults (nn.Linear kaiming-uniform bound; LoRA A default-init,
 B zero) and draw from an explicit `torch.Generator`; they make the port's
 own random models. The parity tests instead carry the JAX package's
 initial values across, since the two frameworks' generators differ.
+
+Under tensor parallelism (parallel/) a column-parallel linear is `linear`
+on this rank's shard after `copy_to_model`, and a row-parallel one is
+`row_linear`: the partial product summed over the model group, then the
+replicated bias.
 """
 
 from __future__ import annotations
@@ -17,6 +22,8 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel.collectives import reduce_from_model
+from ..parallel.sharding import keep_mask, model_size
 from .quantize import int8_linear
 
 Params = Dict[str, torch.Tensor]
@@ -116,6 +123,16 @@ def linear(x: torch.Tensor, p: Params) -> torch.Tensor:
     return x @ p["kernel"].to(x.dtype) + p["bias"].to(x.dtype)
 
 
+def row_linear(x: torch.Tensor, p: Params, mesh=None) -> torch.Tensor:
+    """A row-parallel linear: x holds this rank's input columns and p this
+    rank's kernel rows; the partial products summed over the model group,
+    then the replicated bias added once. `linear` without a mesh."""
+    if model_size(mesh) == 1:
+        return linear(x, p)
+    return (reduce_from_model(x @ p["kernel"].to(x.dtype), mesh)
+            + p["bias"].to(x.dtype))
+
+
 def lora_linear(x: torch.Tensor, p: Params, alpha: float) -> torch.Tensor:
     """Frozen base linear + alpha * B(A(x)); the scaling is `alpha`, not
     alpha / r."""
@@ -137,14 +154,17 @@ def layer_norm(x: torch.Tensor, p: Params, eps: float = 1e-6) -> torch.Tensor:
 
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator],
-            deterministic: bool) -> torch.Tensor:
+            deterministic: bool, mesh=None,
+            shard_dim: Optional[int] = None) -> torch.Tensor:
     """Inverted dropout: keep each element with probability 1 - rate and
     scale it by 1/(1 - rate). Identity when deterministic, at rate 0 or
-    without a generator (on x's device) to draw the mask from."""
+    without a generator (on x's device) to draw the mask from. Under a
+    mesh the mask is this rank's part of the global one (`keep_mask`);
+    `shard_dim` names a dim of x split over the model axis."""
     if deterministic or rate == 0.0 or generator is None:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = keep_mask(x.shape, keep, generator, x.device, mesh, shard_dim)
     return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
 
 

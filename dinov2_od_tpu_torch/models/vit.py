@@ -19,8 +19,15 @@ HWIO `[p, p, 3, D]` kernel used as a `(py, px, c)`-ordered patch GEMM.
   one int8 GEMM whose output the attention kernel reads in place, and
   `prefix_int8` quantizes the no-grad prefix's linears inside the step.
 
-The dense `mlp` and `swiglu` FFNs are ported; MoE raises
-NotImplementedError (ROADMAP.md).
+- Megatron tensor parallelism under a mesh (parallel/): each block's q, k,
+  v and fc1 are column-parallel (the rank's heads' q, k and v still one
+  fused GEMM), proj and fc2 row-parallel with one all-reduce each and the
+  bias added after it; attention runs on the rank's `num_heads / tp`
+  heads. LoRA follows its base linear: B sharded with a column-parallel
+  kernel, A with a row-parallel one.
+
+The dense `mlp` and `swiglu` FFNs are ported (SwiGLU not under tensor
+parallelism); MoE raises NotImplementedError (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -32,6 +39,8 @@ import torch.nn.functional as F
 
 from ..config import BackboneConfig
 from ..ops.attention import multi_head_attention
+from ..parallel.collectives import copy_to_model, reduce_from_model
+from ..parallel.sharding import model_size
 from .layers import (
     compute_dtype,
     index_params,
@@ -140,35 +149,55 @@ def _qkv(x, bp: Params, cfg: BackboneConfig, lora_active: bool):
     return qkv
 
 
+def _row_parallel(x, p: Params, cfg: BackboneConfig, active: bool, mesh):
+    """proj / fc2: `_maybe_lora` without a mesh; under one, this rank's
+    rows of the kernel and of lora_A give a partial sum (LoRA's included:
+    (x_r A_r) B summed over ranks is (x A) B), reduced over the model group
+    once, then the replicated bias."""
+    if model_size(mesh) == 1:
+        return _maybe_lora(x, p, cfg, active)
+    mode = cfg.lora_mode if active else "skip"
+    y = x @ _eff_kernel(p, cfg.lora_alpha, x.dtype, mode)
+    if mode not in ("fold", "skip") and "lora_A" in p:
+        y = y + cfg.lora_alpha * ((x @ p["lora_A"].to(x.dtype))
+                                  @ p["lora_B"].to(x.dtype))
+    return reduce_from_model(y, mesh) + p["bias"].to(x.dtype)
+
+
 def _attention(x, bp: Params, cfg: BackboneConfig, attn_impl: str,
-               lora_active: bool):
+               lora_active: bool, mesh=None):
     b, n, d = x.shape
-    h = cfg.num_heads
-    qkv = _qkv(x, bp, cfg, lora_active)
-    # Three strided [B, N, H, dh] views of the one qkv buffer.
-    q, k, v = (t.view(b, n, h, d // h) for t in qkv.chunk(3, dim=-1))
-    out = multi_head_attention(q, k, v, impl=attn_impl).reshape(b, n, d)
-    return _maybe_lora(out, bp["proj"], cfg, lora_active)
+    tp = model_size(mesh)
+    h, dh = cfg.num_heads // tp, d // cfg.num_heads
+    qkv = _qkv(copy_to_model(x, mesh), bp, cfg, lora_active)
+    # Three strided [B, N, H, dh] views of the one qkv buffer (this rank's
+    # heads under tensor parallelism).
+    q, k, v = (t.view(b, n, h, dh) for t in qkv.chunk(3, dim=-1))
+    out = multi_head_attention(
+        q, k, v, impl=attn_impl, mesh=mesh,
+        tp_axis=mesh.cfg.model_axis if tp > 1 else None,
+    ).reshape(b, n, h * dh)
+    return _row_parallel(out, bp["proj"], cfg, lora_active, mesh)
 
 
-def _ffn(x, bp: Params, cfg: BackboneConfig, lora_active: bool):
-    h = _maybe_lora(x, bp["fc1"], cfg, lora_active)
+def _ffn(x, bp: Params, cfg: BackboneConfig, lora_active: bool, mesh=None):
+    h = _maybe_lora(copy_to_model(x, mesh), bp["fc1"], cfg, lora_active)
     if cfg.ffn_type == "swiglu":
         x1, x2 = h.chunk(2, dim=-1)
         h = F.silu(x1) * x2
     else:
         h = F.gelu(h, approximate="tanh" if cfg.gelu_approximate else "none")
-    return _maybe_lora(h, bp["fc2"], cfg, lora_active)
+    return _row_parallel(h, bp["fc2"], cfg, lora_active, mesh)
 
 
 def _block_apply(x, bp: Params, cfg: BackboneConfig, attn_impl: str,
-                 lora_active: bool):
+                 lora_active: bool, mesh=None):
     """Pre-norm ViT block with LayerScale."""
     x = x + bp["ls1"].to(x.dtype) * _attention(
-        layer_norm(x, bp["ln1"]), bp, cfg, attn_impl, lora_active
+        layer_norm(x, bp["ln1"]), bp, cfg, attn_impl, lora_active, mesh
     )
     x = x + bp["ls2"].to(x.dtype) * _ffn(
-        layer_norm(x, bp["ln2"]), bp, cfg, lora_active
+        layer_norm(x, bp["ln2"]), bp, cfg, lora_active, mesh
     )
     return x
 
@@ -179,11 +208,14 @@ def backbone_apply(
     pixel_values: torch.Tensor,
     *,
     attn_impl: str = "auto",
+    mesh=None,
 ) -> torch.Tensor:
     """Run the backbone.
 
     Args:
       pixel_values: [B, H, W, 3] float images (NHWC).
+      mesh: a process mesh (parallel/) whose model axis splits the blocks
+        (params: this rank's shard, `shard_params`); None runs whole.
 
     Returns:
       [B, seq, out_dim] features; seq = patches (+1 CLS unless
@@ -191,6 +223,12 @@ def backbone_apply(
       projection to target_dim.
     """
     _check_supported(cfg)
+    if model_size(mesh) > 1 and (cfg.prefix_int8
+                                 or "kernel_q" in params["blocks"]["q"]):
+        # As the JAX package turns B6 off under TP (ops/int8_gemm.py).
+        raise NotImplementedError(
+            "int8 layers under tensor parallelism are not ported yet "
+            "(ROADMAP.md)")
     dtype = compute_dtype(cfg.dtype)
     x = pixel_values.to(dtype)
 
@@ -221,14 +259,14 @@ def backbone_apply(
                 prefix = quantize_blocks(index_params(prefix, slice(0, k)))
             for i in range(k):
                 x = _block_apply(x, index_params(prefix, i), cfg,
-                                 attn_impl, False)
+                                 attn_impl, False, mesh)
         for i in range(k, cfg.depth):
             x = _block_apply(x, index_params(params["blocks"], i), cfg,
-                             attn_impl, True)
+                             attn_impl, True, mesh)
     else:
         for i in range(cfg.depth):
             x = _block_apply(x, index_params(params["blocks"], i), cfg,
-                             attn_impl, cfg.lora_last_n_blocks > 0)
+                             attn_impl, cfg.lora_last_n_blocks > 0, mesh)
 
     x = layer_norm(x, params["ln_f"])
     if "projection" in params:

@@ -8,6 +8,11 @@ with weights from the unclipped floor; softmax weights over the points.
 The JAX package samples with a one-hot matmul because TPU gathers are
 slow; on a GPU one batched gather of the four corners is the direct form.
 Corners that clip onto the same cell accumulate in both.
+
+Under a mesh (parallel/) each rank samples its `n_heads / tp` heads: the
+value projection is column-parallel, the output projection row-parallel
+(one all-reduce), and the replicated offset and weight projections are
+sliced to the rank's heads' columns.
 """
 
 from __future__ import annotations
@@ -18,6 +23,8 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..models.layers import Params
+from ..parallel.collectives import copy_to_model, reduce_from_model
+from ..parallel.sharding import local_slice, model_size
 
 
 class DeformableParams(NamedTuple):
@@ -119,6 +126,7 @@ def deformable_attention(
     params: DeformableParams,
     n_heads: int,
     n_points: int,
+    mesh=None,
 ) -> torch.Tensor:
     """Deformable cross-attention.
 
@@ -127,20 +135,32 @@ def deformable_attention(
       reference_points: [B, Q, 2] normalized (x, y) in [0, 1].
       memory: [B, HW, D] flattened feature map.
       spatial_shape: (h, w).
+      mesh: a process mesh whose model axis splits the heads (params: this
+        rank's shard); None runs whole.
 
     Returns:
       [B, Q, D]
     """
     h, w = spatial_shape
     b, q, d = query.shape
+    tp = model_size(mesh)
     dh = d // n_heads
+    off_k, off_b = params.offsets_kernel, params.offsets_bias
+    wt_k, wt_b = params.weights_kernel, params.weights_bias
+    if tp > 1:
+        n_heads //= tp
+        query = copy_to_model(query, mesh)
+        reference_points = copy_to_model(reference_points, mesh)
+        memory = copy_to_model(memory, mesh)
+        # The replicated projections' columns of this rank's heads
+        # (head-major: head, point[, xy]).
+        off = local_slice(off_b.shape[0], mesh)
+        wt = local_slice(wt_b.shape[0], mesh)
+        off_k, off_b = off_k[:, off], off_b[off]
+        wt_k, wt_b = wt_k[:, wt], wt_b[wt]
 
-    offsets = (query @ params.offsets_kernel + params.offsets_bias).reshape(
-        b, q, n_heads, n_points, 2
-    )
-    weights = (query @ params.weights_kernel + params.weights_bias).reshape(
-        b, q, n_heads, n_points
-    )
+    offsets = (query @ off_k + off_b).reshape(b, q, n_heads, n_points, 2)
+    weights = (query @ wt_k + wt_b).reshape(b, q, n_heads, n_points)
     weights = torch.softmax(weights, dim=-1)
     values = (memory @ params.value_kernel + params.value_bias).reshape(
         b, -1, n_heads, dh
@@ -153,7 +173,8 @@ def deformable_attention(
 
     sampled = bilinear_gather(values, loc_x, loc_y, (h, w))
     out = (sampled * weights[..., None]).sum(dim=3)  # [B, Q, H, Dh]
-    return out.reshape(b, q, d) @ params.output_kernel + params.output_bias
+    out = out.reshape(b, q, n_heads * dh) @ params.output_kernel
+    return reduce_from_model(out, mesh) + params.output_bias
 
 
 def factor_spatial_shape(hw: int) -> Tuple[int, int]:

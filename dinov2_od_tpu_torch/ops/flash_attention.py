@@ -2,17 +2,26 @@
 their plain versions.
 
 Counterpart of dinov2_od_tpu/ops/flash_attention.py (`flash_attention`,
-`flash_attention_lse` and their two kernel families). The JAX wrapper
-picks a family by shape (`_flat_eligible`), and so does this one:
+`flash_attention_lse` and their kernels). The JAX wrapper picks a kernel
+by shape, and so does this one, with copies of the JAX rules:
 
-- flat: self-attention whose whole [S, S] logits fit the TPU kernel's
-  VMEM (S <= 1536) with heads that pair into 128-lane groups. The TPU
-  kernels `_fwd_kernel_flat` / `_bwd_kernel_flat` become B1 / B2
-  (csrc/flash_attn_fwd.cu, csrc/flash_attn_bwd.cu).
-- BHSD: everything else (long sequences such as ViT-L/14 at 560 px, 1601
-  tokens; Sq != Sk; head counts with no 128-lane pairing). The TPU kernels
-  `_fwd_kernel` / `_dkv_kernel` become B5f / B5b
-  (csrc/flash_attn_bhsd_fwd.cu, csrc/flash_attn_bhsd_bwd.cu).
+- flat (`_flat_eligible`): self-attention whose whole [S, S] logits fit
+  the TPU kernel's VMEM (S <= 1536) with heads that pair into 128-lane
+  groups. The TPU kernels `_fwd_kernel_flat` / `_bwd_kernel_flat` become
+  B1 / B2 (csrc/flash_attn_fwd.cu, csrc/flash_attn_bwd.cu).
+- BHSD, everything else (Sq != Sk; head counts with no 128-lane pairing,
+  such as ViT-B's 3 heads a rank under 4-way tensor parallelism; long
+  sequences such as ViT-L/14 at 560 px, 1601 tokens), splits in two as
+  `_flash_fwd` and `_bhsd_bwd_impl` split it, the forward and the backward
+  each by its own rule (`_allheads_fwd`, `_allheads_bwd`):
+  - all-heads, where a head's fp32 logits fit the TPU kernel's 8 MiB
+    budget (`_head_group`): `_fwd_kernel_allheads` /
+    `_bwd_kernel_allheads` become B4f / B4b (csrc/flash_attn_allheads_fwd.cu,
+    csrc/flash_attn_allheads_bwd.cu);
+  - blocked, where they do not: `_fwd_kernel` / `_dkv_kernel` become
+    B5f / B5b (csrc/flash_attn_bhsd_fwd.cu, csrc/flash_attn_bhsd_bwd.cu).
+  At S = 700 and one head, for example, the forward takes B4f and the
+  backward B5b, as in JAX.
 
 Both families compute one function, the TPU kernels' math:
 
@@ -42,13 +51,15 @@ kernels read q, k, v (and dO) through their strides, so the three slices
 of the backbone's fused qkv GEMM output are read in place and no
 transpose is materialised.
 
-`flash_attention_fwd` / `flash_attention_bwd` (flat) and
+`flash_attention_fwd` / `flash_attention_bwd` (flat),
+`flash_attention_allheads_fwd` / `flash_attention_allheads_bwd` and
 `flash_attention_bhsd_fwd` / `flash_attention_bhsd_bwd` launch the kernels
 for a CUDA tensor and run the plain versions, the same math in torch ops,
 for a CPU tensor. A CUDA tensor never falls back to a plain version: the
 wrapper launches the kernel or raises. `flash_attention` and
 `flash_attention_lse` are differentiable through `_FlashAttention`, whose
-backward takes the forward's family.
+backward takes the forward's family (flat or BHSD) and, inside BHSD, the
+kernel of the backward's own rule.
 """
 
 from __future__ import annotations
@@ -65,6 +76,8 @@ _KERNEL = "flash_attn_fwd"
 _BWD_KERNEL = "flash_attn_bwd"
 _BHSD_KERNEL = "flash_attn_bhsd_fwd"
 _BHSD_BWD_KERNEL = "flash_attn_bhsd_bwd"
+_ALLHEADS_KERNEL = "flash_attn_allheads_fwd"
+_ALLHEADS_BWD_KERNEL = "flash_attn_allheads_bwd"
 _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
 NEG_INF = -1e30
@@ -91,12 +104,64 @@ def _flat_group(dh: int) -> int:
 def _flat_eligible(q, k) -> bool:
     """Self-attention whose heads pair into 128-lane groups and whose two
     fp32 [S_pad, S_pad] logits tiles fit 18 MiB (S <= 1536): the flat
-    family (B1/B2); anything else takes the BHSD family (B5f/B5b)."""
+    family (B1/B2); anything else takes the BHSD family (B4f/B4b or
+    B5f/B5b)."""
     _, sq, h, dh = q.shape
     if sq != k.shape[1] or h % _flat_group(dh):
         return False
     s_pad = _round_up(sq, _SUBLANE)
     return 2 * s_pad * s_pad * 4 <= _FLAT_LOGITS_LIMIT
+
+
+# The JAX package's split inside the BHSD family (`_LOGITS_VMEM_BUDGET`,
+# `_auto_block`, `_head_group` and the conditions of `_flash_fwd` and
+# `_bhsd_bwd_impl`), copied so each shape takes the counterpart of the TPU
+# kernel JAX runs there.
+_LOGITS_VMEM_BUDGET = 8 * 2**20
+
+
+def _auto_block(s: int, other_pad: int, n_buffers: int = 2) -> int:
+    """The TPU kernels' block over `s`: single-block when n_buffers fp32
+    [block, other_pad] tiles fit 13 MiB, else the fewest equal blocks."""
+    cap = 13 * 2**20 // (4 * other_pad * n_buffers)
+    cap = max(_SUBLANE, (cap // _SUBLANE) * _SUBLANE)
+    s_pad = _round_up(s, _SUBLANE)
+    if s_pad <= cap:
+        return s_pad
+    n_blocks = -(-s_pad // cap)
+    return _round_up(-(-s_pad // n_blocks), _SUBLANE)
+
+
+def _head_group(h: int, sq_pad: int, sk_pad: int, n_buffers: int) -> int:
+    """Largest divisor of h whose n_buffers x [g, Sq, Sk] fp32 logits fit
+    the 8 MiB budget; 0 when one head does not fit."""
+    per_head = sq_pad * sk_pad * 4 * n_buffers
+    if per_head > _LOGITS_VMEM_BUDGET:
+        return 0
+    g = min(h, _LOGITS_VMEM_BUDGET // per_head)
+    while h % g:
+        g -= 1
+    return g
+
+
+def _allheads_fwd(q, k) -> bool:
+    """The BHSD forward takes the all-heads kernel (B4f), as `_flash_fwd`
+    does with no block_q, else the blocked one (B5f)."""
+    _, sq, h, _ = q.shape
+    sk_pad = _round_up(k.shape[1], _SUBLANE)
+    sq_pad = _round_up(sq, _auto_block(sq, sk_pad))
+    g = _head_group(h, sq_pad, sk_pad, n_buffers=2)
+    return g > 1 or (g == 1 and sq_pad == _round_up(sq, _SUBLANE))
+
+
+def _allheads_bwd(q, k) -> bool:
+    """The BHSD backward takes the all-heads kernel (B4b), as
+    `_bhsd_bwd_impl` does with no block_q, else the blocked one (B5b)."""
+    _, sq, h, _ = q.shape
+    sq_pad = _round_up(sq, _SUBLANE)
+    sk_pad = _round_up(k.shape[1], _auto_block(k.shape[1], sq_pad,
+                                               n_buffers=4))
+    return _head_group(h, sq_pad, sk_pad, n_buffers=5) >= 1
 
 
 def _rounded(x: float, dtype: torch.dtype) -> float:
@@ -173,6 +238,19 @@ def flash_attention_bhsd_fwd_plain(
     `[B, H, Sq]` in fp32. The same rules as the flat forward: the TPU
     kernel `_fwd_kernel` computes the flat kernel's function over a
     q block."""
+    kv_len = _check(q, k, v, kv_len, self_attention=False)
+    return _fwd_math(q, k, v, scale, kv_len)
+
+
+def flash_attention_allheads_fwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
+    kv_len: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B4f's math in torch ops, on any device: q `[B, Sq, H, dh]`, k and v
+    `[B, Sk, H, dh]`; o `[B, Sq, H, dh]` and the log2 lse `[B, H, Sq]`. The
+    TPU kernel `_fwd_kernel_allheads` computes B5f's function over a group
+    of heads, p against the exact row max, which is how the plain version
+    takes it."""
     kv_len = _check(q, k, v, kv_len, self_attention=False)
     return _fwd_math(q, k, v, scale, kv_len)
 
@@ -259,6 +337,27 @@ def _launch_bhsd(q, k, v, scale: float, kv_len: int):
     return o, lse
 
 
+def _launch_allheads(q, k, v, scale: float, kv_len: int):
+    b, sq, h, dh = q.shape
+    sk = k.shape[1]
+    _check_launch(q=q, k=k, v=v)
+    lib, fn = _bound(_ALLHEADS_KERNEL,
+                     [_P] * 5 + [_I] * 7 + [_F] + [_LL] * 9 + [_P])
+    o = torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), int(q.dtype == torch.bfloat16), b, sq, sk, h,
+            dh, kv_len, _qscale(scale, q.dtype),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], stream,
+        )
+    _raise_on(lib, _ALLHEADS_KERNEL, rc)
+    _build.launch_counts[_ALLHEADS_KERNEL] += 1
+    return o, lse
+
+
 def _device_or_raise(q) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for {q.device}")
@@ -295,6 +394,22 @@ def flash_attention_bhsd_fwd(
                                               kv_len=kv_len)
     _device_or_raise(q)
     return _launch_bhsd(q, k, v, scale, kv_len)
+
+
+def flash_attention_allheads_fwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
+    kv_len: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """o `[B, Sq, H, dh]` and the log2 lse `[B, H, Sq]` against the exact
+    row max (B4f): q `[B, Sq, H, dh]`, k and v `[B, Sk, H, dh]`, strided
+    views with a contiguous last dim. A CUDA tensor launches the kernel; a
+    CPU tensor takes the plain version."""
+    kv_len = _check(q, k, v, kv_len, self_attention=False)
+    if q.device.type == "cpu":
+        return flash_attention_allheads_fwd_plain(q, k, v, scale=scale,
+                                                  kv_len=kv_len)
+    _device_or_raise(q)
+    return _launch_allheads(q, k, v, scale, kv_len)
 
 
 def _delta(do: torch.Tensor, o: torch.Tensor,
@@ -366,12 +481,29 @@ def flash_attention_bhsd_bwd_plain(
         nothing of theirs reaches dk, dv).
 
     Returns dq [B, Sq, H, dh], dk, dv [B, Sk, H, dh] in q's dtype."""
+    kv_len, q_len = _check_bhsd_bwd(q, k, v, kv_len, q_len)
+    return _bwd_math(q, k, v, do, lse, delta, scale, kv_len, q_len)
+
+
+def flash_attention_allheads_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, *, scale: float,
+    kv_len: Optional[int] = None, q_len: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """B4b's math (the TPU kernel `_bwd_kernel_allheads`'s, which is
+    `_dkv_kernel`'s function over a group of heads) in torch ops, on any
+    device. Arguments and results as `flash_attention_bhsd_bwd_plain`."""
+    kv_len, q_len = _check_bhsd_bwd(q, k, v, kv_len, q_len)
+    return _bwd_math(q, k, v, do, lse, delta, scale, kv_len, q_len)
+
+
+def _check_bhsd_bwd(q, k, v, kv_len, q_len) -> Tuple[int, int]:
     kv_len = _check(q, k, v, kv_len, self_attention=False)
     sq = q.shape[1]
     q_len = sq if q_len is None else int(q_len)
     if not 1 <= q_len <= sq:
         raise ValueError(f"q_len must lie in [1, {sq}]; got {q_len}")
-    return _bwd_math(q, k, v, do, lse, delta, scale, kv_len, q_len)
+    return kv_len, q_len
 
 
 def _check_rows(b: int, h: int, sq: int, **tensors) -> None:
@@ -437,6 +569,34 @@ def _launch_bhsd_bwd(q, k, v, do, lse, delta, scale: float, kv_len: int,
     return dq_acc.to(q.dtype), dk, dv
 
 
+def _launch_allheads_bwd(q, k, v, do, lse, delta, scale: float, kv_len: int,
+                         q_len: int):
+    """B4b: dq, dk and dv written whole by one launch, deterministic."""
+    b, sq, h, dh = q.shape
+    sk = k.shape[1]
+    _check_launch(q=q, k=k, v=v, do=do)
+    _check_rows(b, h, sq, lse=lse, delta=delta)
+    lib, fn = _bound(_ALLHEADS_BWD_KERNEL,
+                     [_P] * 9 + [_I] * 8 + [_F] * 3 + [_LL] * 12 + [_P])
+    dq = torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, sk, h, dh), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), int(q.dtype == torch.bfloat16),
+            b, sq, sk, h, dh, kv_len, q_len, _qscale(scale, q.dtype),
+            _rounded(scale, q.dtype), float(scale),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *do.stride()[:3], stream,
+        )
+    _raise_on(lib, _ALLHEADS_BWD_KERNEL, rc)
+    _build.launch_counts[_ALLHEADS_BWD_KERNEL] += 1
+    return dq, dk, dv
+
+
 def flash_attention_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
     lse: torch.Tensor, do: torch.Tensor, *, scale: float,
@@ -478,14 +638,51 @@ def flash_attention_bhsd_bwd(
                             q.shape[1])
 
 
+def flash_attention_allheads_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, *, scale: float,
+    kv_len: Optional[int] = None, glse2: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """dq `[B, Sq, H, dh]`, dk, dv `[B, Sk, H, dh]` (B4b), from the
+    forward's q, k, v, o and log2 lse `[B, H, Sq]`, dO and, optionally, the
+    lse cotangent `glse2` `[B, H, Sq]`. A CUDA tensor launches the kernel;
+    a CPU tensor takes the plain version."""
+    kv_len = _check(q, k, v, kv_len, self_attention=False)
+    delta = _delta(do, o, glse2)
+    if q.device.type == "cpu":
+        return flash_attention_allheads_bwd_plain(q, k, v, do, lse, delta,
+                                                  scale=scale, kv_len=kv_len)
+    _device_or_raise(q)
+    if do.stride(3) != 1:
+        do = do.contiguous()
+    return _launch_allheads_bwd(q, k, v, do, lse, delta, scale, kv_len,
+                                q.shape[1])
+
+
+def _forward_fn(q, k, flat: bool):
+    if flat:
+        return flash_attention_fwd
+    return (flash_attention_allheads_fwd if _allheads_fwd(q, k)
+            else flash_attention_bhsd_fwd)
+
+
+def _backward_fn(q, k, flat: bool):
+    if flat:
+        return flash_attention_bwd
+    return (flash_attention_allheads_bwd if _allheads_bwd(q, k)
+            else flash_attention_bhsd_bwd)
+
+
 class _FlashAttention(torch.autograd.Function):
-    """o and the log2 lse from the flat or the BHSD forward; the backward
-    takes the same family, its function looked up at call time."""
+    """o and the log2 lse from the flat, all-heads or blocked forward;
+    the backward takes the flat kernel after a flat forward and, after a
+    BHSD one, the all-heads or blocked kernel by the backward's own rule;
+    each function looked up at call time."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, kv_len, flat):
-        fwd = flash_attention_fwd if flat else flash_attention_bhsd_fwd
-        o, lse2 = fwd(q, k, v, scale=scale, kv_len=kv_len)
+        o, lse2 = _forward_fn(q, k, flat)(q, k, v, scale=scale,
+                                          kv_len=kv_len)
         ctx.save_for_backward(q, k, v, o, lse2)
         ctx.scale, ctx.kv_len, ctx.flat = scale, kv_len, flat
         ctx.set_materialize_grads(False)
@@ -496,7 +693,7 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, o, lse2 = ctx.saved_tensors
         if do is None:
             do = torch.zeros_like(o)
-        bwd = flash_attention_bwd if ctx.flat else flash_attention_bhsd_bwd
+        bwd = _backward_fn(q, k, ctx.flat)
         dq, dk, dv = bwd(q, k, v, o, lse2, do, scale=ctx.scale,
                          kv_len=ctx.kv_len, glse2=glse2)
         return dq, dk, dv, None, None, None
@@ -537,7 +734,10 @@ def flash_attention_lse(
 
 
 __all__ = [
-    "HEAD_DIM", "NEG_INF", "flash_attention", "flash_attention_bhsd_bwd",
+    "HEAD_DIM", "NEG_INF", "flash_attention",
+    "flash_attention_allheads_bwd", "flash_attention_allheads_bwd_plain",
+    "flash_attention_allheads_fwd", "flash_attention_allheads_fwd_plain",
+    "flash_attention_bhsd_bwd",
     "flash_attention_bhsd_bwd_plain", "flash_attention_bhsd_fwd",
     "flash_attention_bhsd_fwd_plain", "flash_attention_bwd",
     "flash_attention_bwd_plain", "flash_attention_fwd",

@@ -3,7 +3,9 @@ pairs (counterpart of dinov2_od_tpu/ops/losses.py).
 
 Targets are padded to fixed GT slots with a validity mask; the match is a
 [B, G] query-per-GT map. Every sum is normalised by the number of valid
-GT boxes, clamped to >= 1.
+GT boxes, clamped to >= 1; under a mesh that number is summed over the
+data group first, so it counts the global batch as the JAX package's
+does.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import LossConfig, MatcherConfig
+from ..parallel.collectives import all_reduce
 from .boxes import box_cxcywh_to_xyxy, elementwise_generalized_box_iou
 from .matching import MatchResult, hungarian_match
 
@@ -78,8 +81,12 @@ def set_criterion(
     num_classes: int = 91,
     match: Optional[MatchResult] = None,
     return_match: bool = False,
+    mesh=None,
 ):
     """Match (unless `match` is given), then the weighted losses.
+
+    Under `mesh` the batch is this rank's slice and the losses are its
+    share of the global batch's (its sums over the global box count).
 
     Returns a dict of 'loss_ce', 'loss_bbox', 'loss_giou' (weighted),
     their '*_unweighted' values, 'num_boxes' and 'loss' (the weighted
@@ -87,7 +94,10 @@ def set_criterion(
     if match is None:
         match = hungarian_match(pred_logits, pred_boxes, gt_labels, gt_boxes,
                                 gt_valid, matcher_cfg)
-    num_boxes = gt_valid.float().sum().clamp(min=1.0)
+    num_boxes = gt_valid.float().sum()
+    if mesh is not None and mesh.data_size > 1:
+        num_boxes = all_reduce(num_boxes, mesh.data_group, mesh.backend)
+    num_boxes = num_boxes.clamp(min=1.0)
     ce = loss_labels(pred_logits, gt_labels, match, num_boxes, num_classes,
                      loss_cfg.focal_alpha, loss_cfg.focal_gamma)
     box = loss_boxes(pred_boxes, gt_boxes, match, num_boxes)

@@ -16,6 +16,10 @@ Nested dicts map to nested dicts and arrays to tensors. bf16 arrays (the
 `params_to_numpy` returns them as fp32 arrays (exact), since numpy itself
 has no bf16. An int8 tree (models/quantize.py: int8 `kernel_q`, fp32
 `w_scale`) crosses with its dtypes kept, both ways.
+
+Under tensor parallelism `params_from_numpy(tree, mesh=...)` gives this
+rank's shard (parallel/sharding.py `shard_params`); `gather_params` gives
+the full tree back.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 
 from .models.layers import resolve_device
+from .parallel.sharding import shard_params
 
 
 def _to_tensor(x, device) -> torch.Tensor:
@@ -36,15 +41,21 @@ def _to_tensor(x, device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True)).to(device)
 
 
-def params_from_numpy(tree: Mapping[str, Any], device="cuda"):
+def params_from_numpy(tree: Mapping[str, Any], device="cuda", mesh=None):
     """The JAX param tree (numpy or JAX arrays as leaves) as the port's
     param tree of tensors on `device` (CUDA unless the caller asks for
-    the CPU; raises when CUDA is absent)."""
+    the CPU; raises when CUDA is absent); this rank's shard of it under
+    `mesh`."""
     dev = resolve_device(device)
+    full = _from_numpy(tree, dev)
+    return full if mesh is None else shard_params(full, mesh)
+
+
+def _from_numpy(tree, dev):
     if isinstance(tree, Mapping):
-        return {k: params_from_numpy(v, dev) for k, v in tree.items()}
+        return {k: _from_numpy(v, dev) for k, v in tree.items()}
     if hasattr(tree, "_asdict"):  # a NamedTuple such as DeformableParams
-        return params_from_numpy(tree._asdict(), dev)
+        return _from_numpy(tree._asdict(), dev)
     return _to_tensor(tree, dev)
 
 

@@ -17,6 +17,11 @@ gradients before the optimizer and its updates after it
 Trees are the param dict; gradients, Adam moments and the EMA hold None
 (moments, gradients) or a scalar placeholder (EMA) at frozen leaves, which
 carry no `requires_grad` and no optimizer state.
+
+Under tensor parallelism every rank holds its shard of each tree
+(parallel/sharding.py): Adam, weight decay and the EMA are elementwise
+and run on the shards as they are; only the clip's global norm reads the
+logical tree (`global_norm` with the mesh).
 """
 
 from __future__ import annotations
@@ -29,6 +34,8 @@ import torch
 
 from ..config import DetectorConfig, OptimConfig
 from ..models.detector import lora_block_multiplier, trainable_mask
+from ..parallel.collectives import all_reduce
+from ..parallel.sharding import leaf_paths, model_size, shard_dim
 
 Params = Dict[str, Any]
 
@@ -130,10 +137,19 @@ def mask_gradients(grads: Params, params: Params,
                     grads, mult)
 
 
-def global_norm(tree: Params) -> torch.Tensor:
-    """sqrt of the sum of squares of every non-None leaf, fp32."""
+def global_norm(tree: Params, mesh=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every non-None leaf, fp32. Under a
+    mesh, of the logical tree: each sharded leaf's squares summed over the
+    model group, each replicated leaf counted once."""
     leaves = [g.float() for g in tree_leaves(tree)]
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(leaves)))
+    norms = torch.stack(torch._foreach_norm(leaves))
+    if model_size(mesh) == 1:
+        return torch.linalg.vector_norm(norms)
+    sharded = torch.tensor([shard_dim(p) is not None
+                            for p in leaf_paths(tree)], device=norms.device)
+    sq = norms.square()
+    shards = all_reduce(sq[sharded].sum(), mesh.model_group, mesh.backend)
+    return (shards + sq[~sharded].sum()).sqrt()
 
 
 def _bias_correction(decay: float, count: int) -> float:
@@ -146,15 +162,17 @@ def _bias_correction(decay: float, count: int) -> float:
 
 @torch.no_grad()
 def optimizer_update(grads: Params, opt_state: AdamState, params: Params,
-                     optim_cfg: OptimConfig) -> Tuple[Params, AdamState]:
-    """One step of the masked chain on the leaves that have moments.
+                     optim_cfg: OptimConfig,
+                     mesh=None) -> Tuple[Params, AdamState]:
+    """One step of the masked chain on the leaves that have moments (this
+    rank's shards under `mesh`, whose logical norm the clip reads).
     Returns the updates (None at frozen leaves) and the new state.
 
     Each stage runs as one multi-tensor (`torch._foreach_*`) op over all
     the trainable leaves: the same elementwise math in the same order,
     in a few launches instead of a few per leaf."""
     gs = tree_leaves(grads)  # None exactly where opt_state.mu is None
-    g_norm = global_norm(grads)
+    g_norm = global_norm(grads, mesh)
     clip = optim_cfg.gradient_clip_val
     # clip_by_global_norm: g unchanged below the maximum, else g/|g|*max.
     factor = torch.where(g_norm < clip, torch.ones_like(g_norm),

@@ -141,7 +141,10 @@ def test_unsupported_inputs_raise():
         multi_head_attention(q, k, v, impl="flash", dropout_rate=0.1,
                              generator=torch.Generator())
     with pytest.raises(NotImplementedError):
-        multi_head_attention(q, k, v, tp_axis="model")
+        multi_head_attention(q, k, v, seq_axis="model")
+    # Tensor-parallel heads are this rank's heads: attention as it is.
+    assert torch.equal(multi_head_attention(q, k, v, tp_axis="model"),
+                       multi_head_attention(q, k, v))
 
 
 @pytest.mark.gpu
@@ -176,10 +179,10 @@ def test_kernel_matches_plain_on_card(dtype, kv_len):
 def test_auto_takes_kernel_at_any_length_on_card(s):
     """'auto' sends every head-dim-64 self-attention on the card to a
     kernel, short sequences included (17 tokens: a 56 px image): 2 heads
-    pair into the flat B1, 3 heads take the BHSD B5f, as in JAX."""
+    pair into the flat B1, 3 heads take the all-heads B4f, as in JAX."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    for h, name in ((2, "flash_attn_fwd"), (3, "flash_attn_bhsd_fwd")):
+    for h, name in ((2, "flash_attn_fwd"), (3, "flash_attn_allheads_fwd")):
         _, (q, k, v) = _qkv(2, 2, s, h, "float32")
         q, k, v = q.cuda(), k.cuda(), v.cuda()
         before = dict(_build.launch_counts)

@@ -1,7 +1,9 @@
-"""The port's BHSD flash-attention family (B5f forward, B5b backward; the
-counterparts of `_fwd_kernel` and `_dkv_kernel` in dinov2_od_tpu/ops/
-flash_attention.py) against the JAX kernels run in Pallas interpret mode,
-and the port's copy of the JAX family choice. On the CPU the wrappers run
+"""The port's blocked BHSD flash-attention pair (B5f forward, B5b
+backward; the counterparts of `_fwd_kernel` and `_dkv_kernel` in
+dinov2_od_tpu/ops/flash_attention.py) against the JAX kernels run in
+Pallas interpret mode, and the port's copy of the JAX family choice (the
+all-heads pair B4f/B4b has its own file,
+tests/test_torch_flash_attention_allheads.py). On the CPU the wrappers run
 the plain versions; the `gpu`-marked test holds the CUDA kernels against
 them on the card and skips without one.
 
@@ -50,7 +52,8 @@ FWD_CASES = {
     "cross_50x300_kv250_bq48": (1, 50, 300, 1, 250, 48),
     # ViT-B's 12 heads under 4-way tensor parallelism: 3 heads, which the
     # flat kernels cannot pair -> _fwd_kernel_allheads (B4f), whose
-    # function the port's B5f computes.
+    # function B5f's plain version computes too (the port's wrapper routes
+    # the shape to B4f, as JAX does).
     "s257_h3": (1, 257, 257, 3, None, None),
 }
 
@@ -264,14 +267,19 @@ def test_family_choice_matches_jax(jax_mods, s):
 
 def test_wrapper_routes_by_family():
     """flat=None picks as JAX does; flat=True takes only self-attention;
-    the CPU takes the plain versions of the picked family and launches
-    nothing; the backward takes the forward's family."""
-    calls = {"bhsd_fwd": 0, "bhsd_bwd": 0, "fwd": 0, "bwd": 0}
+    the CPU takes the plain versions of the picked kernels and launches
+    nothing; the backward takes the forward's family (flat or BHSD) and,
+    inside BHSD, the all-heads (B4) or blocked (B5) kernel by its own
+    rule."""
+    calls = {"bhsd_fwd": 0, "bhsd_bwd": 0, "fwd": 0, "bwd": 0,
+             "allheads_fwd": 0, "allheads_bwd": 0}
     wrapped = {}
     for key, name in (("bhsd_fwd", "flash_attention_bhsd_fwd_plain"),
                       ("bhsd_bwd", "flash_attention_bhsd_bwd_plain"),
                       ("fwd", "flash_attention_fwd_plain"),
-                      ("bwd", "flash_attention_bwd_plain")):
+                      ("bwd", "flash_attention_bwd_plain"),
+                      ("allheads_fwd", "flash_attention_allheads_fwd_plain"),
+                      ("allheads_bwd", "flash_attention_allheads_bwd_plain")):
         fn = getattr(fa, name)
         wrapped[name] = fn
 
@@ -282,14 +290,20 @@ def test_wrapper_routes_by_family():
         setattr(fa, name, counted)
     try:
         _build.reset_launch_counts()
-        for sq, sk, h, want in ((40, 40, 2, "fwd"), (40, 40, 3, "bhsd_fwd"),
-                                (20, 40, 2, "bhsd_fwd")):
+        # (Sq, Sk, H, forward, backward): paired heads; 3 heads and Sq != Sk
+        # inside the budget (B4 both ways); S 700 (B4f, then B5b, as JAX's
+        # `_head_group(1, 704, 704, 5) = 0`); S 1040 (B5 both ways).
+        for sq, sk, h, want, bwd in (
+                (40, 40, 2, "fwd", "bwd"),
+                (40, 40, 3, "allheads_fwd", "allheads_bwd"),
+                (20, 40, 2, "allheads_fwd", "allheads_bwd"),
+                (700, 700, 1, "allheads_fwd", "bhsd_bwd"),
+                (1040, 1040, 1, "bhsd_fwd", "bhsd_bwd")):
             arrs = _arrays(7, 1, sq, sk, h)
             q, k, v = (torch.from_numpy(a).requires_grad_(True)
                        for a in arrs[:3])
             before = dict(calls)
             fa.flash_attention(q, k, v, scale=SCALE).sum().backward()
-            bwd = "bwd" if want == "fwd" else "bhsd_bwd"
             assert calls[want] == before[want] + 1
             assert calls[bwd] == before[bwd] + 1
             assert sum(calls.values()) == sum(before.values()) + 2
