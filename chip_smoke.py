@@ -30,7 +30,13 @@ non-zero and prints no result:
              kv_len=200; Sq=50 over Sk=1601; S 1024 and S 640, the
              routing edges), bf16 and fp32, each with a control that must
              fail, B4b's three gradients bit-equal from run to run, timed
-             at the TP shape beside B5f/B5b and SDPA;
+             at the TP shape beside B5f/B5b and SDPA; the attention
+             roofline tool's ablation kernel (T1), every stage, at
+             ROOFLINE_CASES (the tool's default [8, 16, 1376, 64] and
+             ViT-L/560's [2, 16, 1616, 64]) with a control (the last key
+             tile dropped) that must fail and a length past its limit that
+             must raise, timed beside its bound, the plain version and,
+             for mxu_only, two cuBLAS products;
 4. slice   - the bf16 serving path: a full-width ViT-B/14 + deformable
              DETR Predictor behind a DynamicBatcher answers concurrent
              requests; 12 forward launches per device batch;
@@ -82,6 +88,19 @@ non-zero and prints no result:
              and 2 B4b launches per rank per step, no other flash kernel.
              Each rank's step time is printed, labelled as four ranks
              sharing one card: it is not a tensor-parallel speed.
+11. roofline tool - the port's tools/bench_attn_roofline.py at its
+             defaults, in-process: its four JSON lines (mxu_only, plus_max,
+             plus_exp2, production) in order with the JAX tool's keys, T1
+             launched exactly by the stages' calls and production through
+             B5f and nothing else;
+12. bench   - dinov2_od_tpu_torch.bench in-process, the ViT-B/224 b32 train
+             step (its default) and BENCH_MODE=eval: bench.py's four keys,
+             a positive images/s, the card's name in the metric, B1 and B2
+             launched (B1 alone in eval) and nothing else;
+13. trace   - tools/trace_step.py over 3 steps of the ViT-B train step and
+             of the ViT-L/560 batch-8 forward: the groups sum to the total
+             device time, the flash group holds B1 and B2 (B5f at 560 px),
+             and the largest elementwise and copy kernels by name.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after. The line before the last is {"kernels": [...]}; the last
@@ -101,6 +120,8 @@ import threading
 import time
 
 import numpy as np
+
+from dinov2_od_tpu_torch.utils.benchmark import device_ms, time_ms
 
 # H100 SXM: HBM rate and dense peak rates (NVIDIA data sheet, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -349,6 +370,27 @@ TP_GRAD_TOL = {
 }
 TP_GRAD_CONTROLS = {"float32": (S - 1, 192), "bfloat16": (192,)}
 
+# T1, the attention roofline tool's ablation kernel, bf16 [B, H, S_pad, 64]:
+# the tool's default shape (1370 tokens, ViT-L/518, padded to 1376) and
+# ViT-L/560's (1601 padded to 1616), every stage.
+ROOFLINE_CASES = ((8, 16, 1376), (2, 16, 1616))
+# T1 against its plain version: the relative Frobenius error of o and its
+# max abs error over the largest |o|. Both take s in fp32 (the kernel as
+# q_hi + q_lo products on the tensor cores, 2^-17 of q' short per term,
+# the plain version as an fp32 GEMM) and round p and o to bf16 at the same
+# points, so only an fp32 sum in another order flips a bf16(p) or a bf16(o)
+# by one ulp: a few 1e-4 relative, and one bf16 ulp of the largest |o|
+# (2^-7 of it) plus the p flips' share. The control drops the last key
+# tile (32 of 1376 keys, 16 of 1616), which moves o by about 0.1 relative.
+T1_TOL = {"rel": 1e-3, "max_over_peak": 2.0 ** -6}
+# trace_step's runs: 3 ViT-B train steps (bench.py's default), then the
+# ViT-L/560 batch-8 forward, whose elementwise kernels are logged by name.
+TRACE_RUNS = (("ViT-B/224 b32 train", {}),
+              ("ViT-L/560 b8 eval", {"BENCH_MODE": "eval",
+                                     "BENCH_MODEL": "large",
+                                     "BENCH_IMAGE_SIZE": "560",
+                                     "BENCH_BATCH": "8"}))
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -361,54 +403,6 @@ def card_line() -> str:
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()
     return out[0]
-
-
-def time_ms(fn, iters: int, warmup: int = 10, repeats: int = 5) -> float:
-    """Median over `repeats` of the mean time of `iters` back-to-back
-    calls, from CUDA events, after `warmup` calls."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(repeats):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / iters)
-    return float(np.median(times))
-
-
-def device_ms(fn, iters: int, warmup: int = 3, only: str = "") -> float:
-    """Device time of one call of `fn`: the summed durations of the CUDA
-    kernels it launched (those whose name holds `only`, if given), from
-    torch.profiler over `iters` calls. Gaps between launches do not count,
-    so a contended host, which stretches back-to-back CUDA-event timings
-    of short kernels, does not inflate it."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = 0.0
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA and only in ev.key:
-            dev_us = getattr(ev, "self_device_time_total", None)
-            total_us += ev.self_cuda_time_total if dev_us is None else dev_us
-    if total_us <= 0:
-        raise AssertionError("the profiler saw no device time")
-    return total_us / 1e3 / iters
 
 
 def _bound(dtype: str, n_bytes: float, flops: float):
@@ -2301,6 +2295,240 @@ def phase_tp(seed: int, kernels: dict):
     }))
 
 
+def _t1_errors(out, ref):
+    """(relative Frobenius error, max abs error over the largest |ref|,
+    max abs error) of a bf16 T1 output."""
+    d = out.float() - ref.float()
+    peak = ref.float().abs().max().item()
+    err = d.abs().max().item()
+    return (d.norm() / ref.float().norm()).item(), err / peak, err
+
+
+def phase_roofline_kernel(seed: int):
+    """T1 against its plain version for every stage at ROOFLINE_CASES,
+    with a control (the last key tile dropped) that must fail the same
+    check and a sequence past the kernel's limit that must raise; then
+    timed at the tool's default shape. Returns T1's entry of the kernels
+    line (launches filled in by the tool's phase)."""
+    import torch
+
+    from dinov2_od_tpu_torch.ops import _build
+    from dinov2_od_tpu_torch.ops import attn_roofline as t1
+
+    gen = torch.Generator().manual_seed(seed + 11)
+    scale = DH ** -0.5
+    failures = []
+    worst = 0.0
+    for b, h, s in ROOFLINE_CASES:
+        q, k, v = (torch.randn((b, h, s, DH), generator=gen).to(
+            "cuda", torch.bfloat16) for _ in range(3))
+        ctl_keys = _last_tile_dropped(s)
+        for stage in t1.STAGES:
+            o = t1.attn_roofline(q, k, v, scale=scale, stage=stage)
+            ref = t1.attn_roofline_plain(q, k, v, scale=scale, stage=stage)
+            ctl = t1._launch(q, k, v, scale, stage, ctl_keys)
+            torch.cuda.synchronize()
+            rel, over_peak, err = _t1_errors(o, ref)
+            c_rel, c_over_peak, _ = _t1_errors(ctl, ref)
+            finite = bool(torch.isfinite(o.float()).all())
+            row = {"shape": [b, h, s, DH], "stage": stage, "rel_err": rel,
+                   "max_abs_err": err, "max_err_over_peak": over_peak,
+                   "control_keys": ctl_keys, "control_rel_err": c_rel,
+                   "control_max_err_over_peak": c_over_peak}
+            log("kernels: attn_roofline " + json.dumps(row))
+            worst = max(worst, err)
+            if not (finite and rel <= T1_TOL["rel"]
+                    and over_peak <= T1_TOL["max_over_peak"]):
+                failures.append(f"T1 {stage} {row['shape']}: rel {rel:.3g}, "
+                                f"max/peak {over_peak:.3g}, finite={finite}")
+            if (c_rel <= T1_TOL["rel"]
+                    and c_over_peak <= T1_TOL["max_over_peak"]):
+                failures.append(f"T1 {stage} {row['shape']}: the control "
+                                f"({ctl_keys} keys) passes the check")
+            del o, ref, ctl
+        del q, k, v
+        torch.cuda.empty_cache()
+    long = torch.zeros((1, 1, t1.MAX_SEQ + 16, DH), dtype=torch.bfloat16,
+                       device="cuda")
+    try:
+        t1.attn_roofline(long, long, long, scale=scale, stage="mxu_only")
+        failures.append(f"T1 took S {t1.MAX_SEQ + 16} past its limit")
+    except ValueError as e:
+        if str(t1.MAX_SEQ) not in str(e):
+            failures.append(f"T1's refusal does not name its limit: {e}")
+    if _build.load("attn_roofline").attn_roofline_max_seq() != t1.MAX_SEQ:
+        failures.append("the kernel's and the wrapper's S limits differ")
+    if failures:
+        raise AssertionError("T1 disagrees with its plain version: "
+                             + "; ".join(failures))
+
+    # Timed at the tool's default shape, beside the bound (the function's
+    # two products at the bf16 tensor-core rate, and its bytes: q, k, v
+    # read and o written once) and, for mxu_only, the two cuBLAS products
+    # that compute it: (q' k^T) into bf16, then times v (q' rounded to
+    # bf16 there). No one PyTorch call computes the other two stages.
+    b, h, s = ROOFLINE_CASES[0]
+    q, k, v = (torch.randn((b, h, s, DH), generator=gen).to(
+        "cuda", torch.bfloat16) for _ in range(3))
+    bound_ms, bound_by = _bound("bfloat16", 4 * b * h * s * DH * 2,
+                                4.0 * b * h * s * s * DH)
+    stages = {}
+    for stage in t1.STAGES:
+        def kern(stage=stage):
+            t1.attn_roofline(q, k, v, scale=scale, stage=stage)
+
+        stages[stage] = {
+            "ms": device_ms(kern, iters=20),
+            "event_ms": time_ms(kern, iters=20),
+            "plain_ms": device_ms(lambda stage=stage: t1.attn_roofline_plain(
+                q, k, v, scale=scale, stage=stage), iters=2, warmup=1),
+        }
+    qb = (q.float() * t1.q_multiplier(scale)).to(torch.bfloat16)
+    kt = k.transpose(-1, -2)
+    library_ms = device_ms(lambda: torch.matmul(torch.matmul(qb, kt), v),
+                           iters=20)
+    log("kernels: attn_roofline timing " + json.dumps({
+        "shape": [b, h, s, DH], "stages": stages, "library_ms_mxu_only":
+        library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "card": card_line()}))
+    del q, k, v, qb, kt
+    torch.cuda.empty_cache()
+    return {"name": "attn_roofline", "route": "cuda",
+            "source": "dinov2_od_tpu_torch/csrc/attn_roofline.cu",
+            "replaces": "tools/bench_attn_roofline.py:69",
+            "replaces_function": "kernel", "launches": 0,
+            "shape": [b, h, s, DH], "dtype": "bfloat16",
+            "stage": "mxu_only", "max_abs_err": worst,
+            **stages["mxu_only"], "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms,
+            "library": "torch.matmul(torch.matmul(bf16 q', k^T), v)",
+            "stages": stages}
+
+
+def phase_roofline_tool(kernels: dict):
+    """The port's roofline tool at its defaults, in-process: its four JSON
+    lines in order, T1 launched exactly by the stages' calls, and the
+    production variant through B5f and nothing else."""
+    import io
+
+    import torch
+
+    from dinov2_od_tpu_torch.ops import _build
+    from dinov2_od_tpu_torch.ops.attn_roofline import STAGES
+    from dinov2_od_tpu_torch.tools import bench_attn_roofline as tool
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    _build.reset_launch_counts()
+    calls = tool.run(tool.parse_args([]), out=out)
+    torch.cuda.synchronize()
+    counts = dict(_build.launch_counts)
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        log("roofline tool: " + line)
+    recs = [json.loads(line) for line in lines]
+    keys = [["variant", "ms", "mxu_tf_s"]] + [
+        ["variant", "ms", "mxu_tf_s", "delta_ms_vs_prev"]] * 3
+    want = _counts(attn_roofline=sum(calls[st] for st in STAGES),
+                   flash_attn_bhsd_fwd=calls["production"])
+    problems = []
+    if [r["variant"] for r in recs] != [*STAGES, "production"]:
+        problems.append(f"variants {[r['variant'] for r in recs]}")
+    if [list(r) for r in recs] != keys:
+        problems.append(f"keys {[list(r) for r in recs]}")
+    if not all(r["ms"] > 0 for r in recs):
+        problems.append("a time is not positive")
+    if counts != want:
+        problems.append(f"launches {counts}, expected {want}")
+    if problems:
+        raise AssertionError("roofline tool: " + "; ".join(problems))
+    entry = kernels["attn_roofline"]
+    entry["launches"] = counts["attn_roofline"]
+    entry["tool"] = recs
+    log(f"roofline tool: {time.perf_counter() - t0:.1f} s, launches "
+        f"{counts['attn_roofline']} T1 + {counts['flash_attn_bhsd_fwd']} B5f; "
+        f"{card_line()}")
+
+
+def phase_bench():
+    """`dinov2_od_tpu_torch.bench` in-process, train (its default) and
+    BENCH_MODE=eval: the four keys of bench.py's line, a positive value,
+    the card's name in the metric, and the flash kernels launched (B1 and
+    B2 in the train step, B1 in the forward), nothing else."""
+    import torch
+
+    from dinov2_od_tpu_torch import bench
+    from dinov2_od_tpu_torch.ops import _build
+
+    name = torch.cuda.get_device_name(0)
+    for env, want in (({}, _counts(flash_attn_fwd=1, flash_attn_bwd=1)),
+                      ({"BENCH_MODE": "eval"}, _counts(flash_attn_fwd=1))):
+        t0 = time.perf_counter()
+        _build.reset_launch_counts()
+        rec = bench.run(env)
+        torch.cuda.synchronize()
+        launched = {k: int(n > 0) for k, n in _build.launch_counts.items()}
+        log("bench: " + json.dumps(rec))
+        log(f"bench: {env or 'default'}: {time.perf_counter() - t0:.1f} s, "
+            f"launches {dict(_build.launch_counts)}; {card_line()}")
+        problems = []
+        if list(rec) != ["metric", "value", "unit", "vs_baseline"]:
+            problems.append(f"keys {list(rec)}")
+        if not rec["value"] > 0:
+            problems.append(f"value {rec['value']}")
+        if name not in rec["metric"]:
+            problems.append(f"the metric does not name {name}")
+        if launched != want:
+            problems.append(f"launched {launched}, expected {want}")
+        if problems:
+            raise AssertionError(f"bench {env}: " + "; ".join(problems))
+        torch.cuda.empty_cache()
+
+
+def phase_trace():
+    """`trace_step` for TRACE_RUNS: the groups sum to the total device
+    time within 1%; the train step's flash group holds B1 and B2; the
+    ViT-L/560 forward's B5f; the largest elementwise and copy kernels are
+    logged by name."""
+    import io
+
+    import torch
+
+    from dinov2_od_tpu_torch.tools import trace_step
+
+    for what, env in TRACE_RUNS:
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        summary = trace_step.run(trace_step.parse_args(["--steps", "3"]), env,
+                                 out=out)
+        for line in out.getvalue().splitlines():
+            log(f"trace: {what}: {line}")
+        total = summary["device_ms_per_step"]
+        groups = sum(summary["by_group"].values())
+        src = summary["by_source"]
+        want = (("flash_attn_fwd", "flash_attn_bwd") if not env
+                else ("flash_attn_bhsd_fwd",))
+        problems = []
+        if not total > 0 or abs(groups - total) > 0.01 * total:
+            problems.append(f"groups {groups} against the total {total}")
+        if not all(src.get(k, 0) > 0 for k in want):
+            problems.append(f"the flash group holds {dict(src)}")
+        flash = sum(v for k, v in src.items() if k.startswith("flash_attn"))
+        if abs(summary["by_group"]["flash_attn"] - flash) > 1e-9:
+            problems.append("the flash group is not its kernels' sum")
+        if problems:
+            raise AssertionError(f"trace_step {what}: " + "; ".join(problems))
+        pointwise = [(ms, n) for n, ms in summary["by_name"].items()
+                     if trace_step.classify(n) in ("elementwise",
+                                                   "copy_transpose")]
+        for ms, n in sorted(pointwise, reverse=True)[:12]:
+            log(f"trace: {what}: pointwise {ms:.4f} ms/step "
+                f"{summary['calls'][n]:g} calls {n[:400]}")
+        log(f"trace: {what}: {time.perf_counter() - t0:.1f} s; "
+            f"{card_line()}")
+        torch.cuda.empty_cache()
+
+
 def profile_device(fn, unprofiled_ms: float, what: str, steps: int = 5,
                    top: int = 12):
     """Device time of `steps` calls of `fn` by CUDA kernel, from
@@ -2373,12 +2601,6 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    try:
-        import dinov2_od_tpu_torch  # noqa: F401
-    except ImportError as e:
-        print(f"chip_smoke: the port is not importable: {e}",
-              file=sys.stderr)
-        return 1
     log(card_line())  # as nvidia-smi prints it: name, power limit
     log(f"torch {torch.__version__}, cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
@@ -2389,6 +2611,7 @@ def main(argv=None) -> int:
         kernels[entry["name"]] = entry
     kernels.update(phase_bhsd_kernels(args.seed))
     kernels.update(phase_allheads_kernels(args.seed))
+    kernels["attn_roofline"] = phase_roofline_kernel(args.seed)
     serving_ips = phase_slice(args.seed, kernels, profile=args.profile)
     phase_int8_serving(args.seed, kernels, serving_ips, profile=args.profile)
     train_ips = phase_train(args.seed, kernels, profile=args.profile)
@@ -2397,6 +2620,9 @@ def main(argv=None) -> int:
     phase_large_serving(args.seed, kernels, profile=args.profile)
     phase_large_train(args.seed, kernels, profile=args.profile)
     phase_tp(args.seed, kernels)
+    phase_roofline_tool(kernels)
+    phase_bench()
+    phase_trace()
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
