@@ -10,6 +10,8 @@ non-zero and prints no result:
 1. card    - the card's name and power limit, from nvidia-smi;
 2. build   - every CUDA kernel of the port, compiled with nvcc for sm_90a
              from the sources in the checkout, one nvcc per source at once;
+             ptxas's registers and spills of each kernel of the two TMA +
+             wgmma sources (B6, B5b), which must not spill;
 3. kernels - each kernel against its plain PyTorch version at the shapes
              of the main paths, within stated tolerances, and timed
              (device time from torch.profiler; CUDA events as event_ms)
@@ -17,7 +19,9 @@ non-zero and prints no result:
              flash-attention forward (B1) and backward (B2) at B=32,
              S=257, H=12, dh=64, bf16 and fp32, all keys and kv_len=200;
              the fused quantize + int8 GEMM (B6) at the fc2 shapes of
-             INT8_CASES, with a control (a K tile dropped) that must fail;
+             INT8_CASES, with a control (a K tile dropped) that must fail,
+             its row-quantization and GEMM launches timed apart beside
+             `_int_mm` on the same codes;
              the long-sequence forward (B5f) and backward (B5b) at
              BHSD_CASES (ViT-L/560: B=8, S=1601, H=16, all keys and
              kv_len=1500; Sq=50 over Sk=1601; 3 heads at 257 tokens), bf16
@@ -256,8 +260,8 @@ LS, LH = 1601, 16  # its attention: 1601 tokens, 16 heads of 64
 # the blocked kernels JAX runs with an explicit block_q). Tolerances: TOL
 # and BWD_TOL, for the reasons
 # given there (B5f's online softmax rounds p as B1's does); B5b's dq is
-# summed over key tiles by fp32 atomics in a varying order, a few fp32 ulps
-# that stay far inside BWD_TOL's bf16 ulps.
+# summed over key tiles by fp32 reduce-adds in a varying order, a few fp32
+# ulps that stay far inside BWD_TOL's bf16 ulps.
 BHSD_CASES = ((LARGE_BATCH, LS, LS, LH, LS), (LARGE_BATCH, LS, LS, LH, 1500),
               (LARGE_BATCH, 50, LS, LH, LS), (B, S, S, 3, S))
 LARGE_REQUEST_SIZES = (3, 5, 2, 6)
@@ -311,7 +315,7 @@ LARGE_TRAIN_STEPS = 10
 # backward 4.2e-8 | 3.7e-4 | 0.024; bf16 vs plain attention 4.9e-3 |
 # 4.8e-3 | 0.024 (the forward's bf16 roundings through 24 blocks swamp a
 # one-key fault there, and move the decoder's gradients by 1.5e-2), vs
-# plain backward 2.9e-4 | 1.2e-3 | 0.024 (B5b's dq atomics add their
+# plain backward 2.9e-4 | 1.2e-3 | 0.024 (B5b's dq reduce-adds add their
 # run-to-run order on top of the bf16 roundings both share).
 LARGE_GRAD_TOL = {
     "float32": {
@@ -392,6 +396,11 @@ TRACE_RUNS = (("ViT-B/224 b32 train", {}),
                                      "BENCH_BATCH": "8"}))
 
 
+# The sources redesigned for Hopper with TMA and wgmma (B6, B5b): ptxas
+# must report no spills for any of their kernels.
+HOPPER_SOURCES = ("int8_gemm", "flash_attn_bhsd_bwd")
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -448,6 +457,36 @@ def phase_build():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"build: {name}: {line.strip()}")
+    # The Hopper designs (TMA + wgmma): every kernel of their sources
+    # without spills.
+    for name in HOPPER_SOURCES:
+        report = ptxas_report(name)
+        log(f"build: {name}: ptxas " + json.dumps(report))
+        spilled = {k: v for k, v in report.items()
+                   if v["spill_stores"] or v["spill_loads"]}
+        if spilled:
+            raise AssertionError(f"{name}: ptxas spills in {spilled}")
+
+
+def ptxas_report(source: str) -> dict:
+    """{kernel: registers, stack and spill bytes} of one source as ptxas
+    reports them (`-Xptxas -v`, this run's build or a compile of the
+    source), each kernel named by its __global__ function and, for a
+    template, its element type."""
+    from dinov2_od_tpu_torch.ops import _build
+    from dinov2_od_tpu_torch.tools.trace_step import port_kernels
+
+    names = [fn for fn, src in port_kernels().items() if src == source]
+    out = {}
+    for mangled, info in _build.ptxas_summary(
+            _build.ptxas_log(source)).items():
+        fn = next((f for f in names if f in mangled), mangled)
+        kind = ("<bf16>" if "nv_bfloat16" in mangled
+                else "<float>" if f"{fn}IfE" in mangled else "")
+        out[fn + kind] = info
+    if not out:
+        raise AssertionError(f"ptxas reported no kernel of {source}")
+    return out
 
 
 def phase_kernels(seed: int):
@@ -781,24 +820,28 @@ def phase_int8_kernel(seed: int):
 
         ms = device_ms(kernel, iters=50)
         event_ms = time_ms(kernel, iters=50)
+        # The wrapper's two launches timed apart, on the same call: the
+        # row quantization and the s8 GEMM.
+        quantize_ms = device_ms(kernel, iters=50, only="int8_quantize_rows")
+        gemm_ms = device_ms(kernel, iters=50, only="int8_gemm_kernel")
         plain_ms = device_ms(lambda: ig.fused_int8_linear_plain(x, qp),
                              iters=10)
         # Library yardsticks: the GEMM alone (torch._int_mm, cuBLASLt) on
-        # the pre-quantized operands, with W as stored ([K, N] row-major)
-        # and K-major (a [N, K] copy, cuBLASLt's native int8 layout); the
+        # the same codes as B6's GEMM, with W K-major as stored (cuBLASLt's
+        # native int8 layout) and N-contiguous (a [K, N] copy); the
         # unfused path as a whole (quantization, _int_mm, epilogue); a bf16
         # matmul of the same shape for context.
         xq, xs = ig.quantize_acts(x)
         kq = qp["kernel_q"]
-        kq_kmajor = kq.t().contiguous().t()
-        int_mm_ms = device_ms(lambda: torch._int_mm(xq, kq), iters=20)
-        int_mm_kmajor_ms = device_ms(lambda: torch._int_mm(xq, kq_kmajor),
-                                     iters=20)
+        kq_ncontig = kq.contiguous()
+        int_mm_kmajor_ms = device_ms(lambda: torch._int_mm(xq, kq), iters=20)
+        int_mm_ms = device_ms(lambda: torch._int_mm(xq, kq_ncontig),
+                              iters=20)
 
         def unfused():  # the port's path below K = 2048, K-major W
             q, s = ig.quantize_acts(x)
-            ig.dequant_epilogue(torch._int_mm(q, kq_kmajor), s,
-                                qp["w_scale"], qp["bias"], x.dtype)
+            ig.dequant_epilogue(torch._int_mm(q, kq), s, qp["w_scale"],
+                                qp["bias"], x.dtype)
 
         unfused_ms = device_ms(unfused, iters=20)
         xb = x.to(torch.bfloat16)
@@ -811,7 +854,8 @@ def phase_int8_kernel(seed: int):
             "control_max_abs_err": (control.float() - ref.float()).abs()
             .max().item(),
             "control_within_limit": control_ok,
-            "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
+            "ms": ms, "event_ms": event_ms, "quantize_ms": quantize_ms,
+            "gemm_ms": gemm_ms, "plain_ms": plain_ms,
             "int_mm_ms": int_mm_ms, "int_mm_kmajor_ms": int_mm_kmajor_ms,
             "unfused_ms": unfused_ms, "bf16_matmul_ms": bf16_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -836,9 +880,12 @@ def phase_int8_kernel(seed: int):
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": min(int_mm_ms, int_mm_kmajor_ms),
                 "library": "torch._int_mm on the pre-quantized operands",
+                "quantize_ms": quantize_ms, "gemm_ms": gemm_ms,
+                "int_mm_kmajor_ms": int_mm_kmajor_ms,
                 "unfused_ms": unfused_ms, "bf16_matmul_ms": bf16_ms,
+                "ptxas": ptxas_report("int8_gemm"),
             }
-        del x, xc, xq, xb, wb, out, ref, control, qp
+        del x, xc, xq, xb, wb, out, ref, control, qp, kq_ncontig
     if failures:
         raise AssertionError("int8 GEMM kernel disagrees with its plain "
                              "version: " + "; ".join(failures))
@@ -1010,7 +1057,7 @@ def phase_bhsd_kernels(seed: int):
                 "max_abs_err_o": err_o, "max_abs_err_lse": err_lse,
                 "bwd_max_rel_err": rel, "bwd_max_abs_err": err,
                 "masked_dk_dv_exactly_zero": masked_zero,
-                # dq's atomics: two runs of B5b on the same inputs.
+                # dq's reduce-adds: two runs of B5b on the same inputs.
                 "dq_run_to_run_max_abs": (got[0].float() - again[0].float())
                 .abs().max().item(),
                 "dk_dv_run_to_run_equal": bool(torch.equal(got[1], again[1])
@@ -1055,7 +1102,8 @@ def phase_bhsd_kernels(seed: int):
                         "replaces": "dinov2_od_tpu/ops/flash_attention.py:138",
                         "replaces_function": "_dkv_kernel",
                         "max_abs_err": max(err.values()),
-                        "max_rel_err": max(rel.values()), **brow}
+                        "max_rel_err": max(rel.values()), **brow,
+                        "ptxas": ptxas_report("flash_attn_bhsd_bwd")}
             log("kernels: flash_attn_bhsd " + json.dumps(row))
             del q, k, v, do, o, lse, got, again, ref, o_c, got_c, o_ref
             torch.cuda.empty_cache()
@@ -1226,7 +1274,8 @@ def phase_allheads_kernels(seed: int):
                         "replaces": "dinov2_od_tpu/ops/flash_attention.py:265",
                         "replaces_function": "_bwd_kernel_allheads",
                         "max_abs_err": max(err.values()),
-                        "max_rel_err": max(rel.values()), **brow}
+                        "max_rel_err": max(rel.values()), **brow,
+                        "ptxas": ptxas_report("flash_attn_bhsd_bwd")}
             log("kernels: flash_attn_allheads " + json.dumps(row))
             del q, k, v, do, o, lse, got, again, ref, o_c, got_c, o_ref
             torch.cuda.empty_cache()
@@ -2576,7 +2625,7 @@ def profile_device(fn, unprofiled_ms: float, what: str, steps: int = 5,
         "flash_fwd_share": share("flash_fwd", "bhsd_fwd", "allheads_fwd"),
         "flash_bwd_share": share("dkdv_", "dq_bf16", "dq_f32", "bhsd_bwd",
                                  "allheads_bwd"),
-        "int8_gemm_share": share("int8_gemm_kernel"),
+        "int8_gemm_share": share("int8_gemm_kernel", "int8_quantize_rows"),
         "layer_norm_share": share("layer_norm"),
         "elementwise_share": share("elementwise", "copy"),
         "matcher_host_ms_per_step": matcher_ms,

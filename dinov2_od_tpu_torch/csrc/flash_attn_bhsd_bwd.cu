@@ -1,5 +1,5 @@
 // Flash-attention backward over [B, H, S, 64] heads for Hopper (sm_90a),
-// plain C interface: one fused pass, dq accumulated by atomics.
+// plain C interface: one fused pass, dq summed by bulk reduce-adds.
 //
 // Replaces dinov2_od_tpu/ops/flash_attention.py:_dkv_kernel (B5b), the
 // Pallas TPU kernel that the adapted ViT blocks' self-attention runs in
@@ -31,37 +31,55 @@
 // bf16): operations. The five products are 10*B*H*S^2*64 = 210 GFLOP,
 // 212 us at 989 TFLOP/s; the bytes (q, k, v, dO read, dk, dv written, lse
 // and delta, the fp32 dq scratch written and read once) are ~290 MB,
-// 86 us at 3.35 TB/s.
+// 86 us at 3.35 TB/s. Beside the products, the dq partial sums that cross
+// key tiles are added in L2: 26 shares of 52 MB at that shape.
 //
-// Design. The TPU kernel walks its key blocks in order and carries dq in
-// a revisited fp32 output across them. Hopper's blocks run in no order, so
-// one block per (128-key tile, head, batch) loops over all 64-row q tiles
-// itself: for each it recomputes s and p, adds p^T dO into dv and ds^T q
-// into dk (fp32 registers, each of the 8 warps owning 16 keys, in the
-// transposed orientation so p^T and ds^T are A operands straight from the
-// accumulators), stages ds^T in shared memory as bf16, and then the 8
-// warps multiply ds by the block's k tile (4 row groups x 2 halves of the
-// head dims) and add that q tile's dq share into the scratch with
-// float2 atomics. Five products per (q tile, key tile) pair, where the
-// flat kernel B2's two deterministic passes take seven. The atomics add
-// the 13 key tiles' shares (at 1601 keys) in an order that changes from
-// run to run, so dq differs between runs in its last fp32 bits, and after
-// the cast to bf16 an element may round to the neighbouring value; dk and
-// dv are deterministic. The order was kept free on purpose: per-q-tile
-// semaphores would serialise the key tiles of one head. K/V, q and dO
-// tiles arrive by cp.async (q/dO double-buffered); all products run on
-// the tensor cores with mma.sync m16n8k16 (bf16 in, fp32 accumulate),
-// operands needed transposed are read with ldmatrix.trans. 74 KB of
-// dynamic shared memory. fp32 inputs take a CUDA-core kernel (one thread
-// per key; the dq share summed through shared memory, one thread per head
-// dim), since the tensor cores would round to tf32.
+// Design (FlashAttention-3's backward, https://arxiv.org/abs/2407.08608,
+// section 3). The TPU kernel walks its key blocks in order and carries dq
+// in a revisited fp32 output across them. Hopper's blocks run in no order,
+// so one block per (128-key tile, head, batch) loops over all 64-row q
+// tiles itself:
+// - a producer warp brings the block's k and v tiles once and then q and
+//   dO tiles through a 3-stage mbarrier ring, by TMA (4-D tensor maps over
+//   [B, S, H, 64] with the real strides, 128-byte swizzle; rows out of
+//   bounds read as zeros, the masks stay explicit);
+// - three more warps of its warpgroup scale each landed tile into a second
+//   copy, q' = bf(q * bf(scale*log2e)) and dO' = bf(dO * bf(scale)), the
+//   contract's rounding (a wgmma reading the TMA'd tile could not round),
+//   and stage the tile's lse and delta, loaded a tile ahead;
+// - two consumer warpgroups own 64 keys each and run independently:
+//   s^T = k . q'^T and dp^T = v . dO'^T by wgmma with both operands in
+//   shared memory, p^T and ds^T in registers, dv += p^T . dO and
+//   dk += ds^T . q by wgmma with A from registers and B MN-major (the
+//   transpose bit), ds^T into shared memory as bf16, and the warpgroup's
+//   dq share ds . k over its 64 keys (both operands MN-major) in the same
+//   group; the 64 x 64 fp32 share goes through a swizzled staging tile
+//   (double-buffered) into the scratch by bulk tensor reduce-adds, each
+//   warp's 16 rows its own, where per-thread float2 atomics took 4096
+//   adds a tile;
+// - setmaxnreg gives the consumers 216 registers, the producer warpgroup
+//   72; dk and dv stay in registers and are stored once.
+// Each warpgroup adding its own share doubles the reduce traffic (26
+// partial sums of each dq element at 1601 keys), but summing the two
+// shares in shared memory first, behind a barrier of both warpgroups,
+// measured slower on an H100. The reduce-adds land in an order that
+// changes from run to run, so dq differs between runs in its last fp32
+// bits, and after the cast to bf16 an element may round to the
+// neighbouring value; dk and dv are deterministic. fp32 inputs take a
+// CUDA-core kernel (one thread per key; the dq share summed through shared
+// memory, one thread per head dim), since the tensor cores would round to
+// tf32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 typedef __nv_bfloat16 bf16;
 typedef __nv_bfloat162 bf162;
@@ -90,345 +108,341 @@ struct Args {
 };
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core kernel
+// bf16 kernel: TMA, wgmma, one producer and two consumer warpgroups
 // ---------------------------------------------------------------------------
 
-constexpr int kKeys = 128;  // keys per block, 16 per warp
+constexpr int kKeys = 128;  // keys per block, 64 per consumer warpgroup
 constexpr int kTileQ = 64;  // rows of a streamed q / dO tile
-constexpr int kWarps = kKeys / 16;
-constexpr int kThreads = kWarps * 32;
-// Row pitch of the shared tiles: 64 + 8 bf16 = 144 bytes keeps the
-// 16-byte cp.async/ldmatrix rows aligned and spreads the fragment loads
-// of one warp over all 32 banks.
-constexpr int kLd = kHeadDim + 8;
-// sK and sDS [kKeys][kLd], sQ and sDO [2][kTileQ][kLd] bf16, then the lse
-// and delta of two q tiles in fp32.
-constexpr int kSmemBytes =
-    (2 * kKeys + 4 * kTileQ) * kLd * 2 + 4 * kTileQ * 4;
+constexpr int kStages = 3;  // the q / dO ring
+constexpr int kRowBytes = kHeadDim * 2;         // 128: one swizzled row
+constexpr int kQTile = kTileQ * kRowBytes;      // 8 KB
+constexpr int kKTile = kKeys * kRowBytes;       // 16 KB
+constexpr int kDsTile = 64 * kRowBytes;         // 8 KB: 64 keys x 64 q
+constexpr int kDqTile = kTileQ * kHeadDim * 4;  // 16 KB of fp32
+constexpr int kBf16Threads = 3 * 128;
+constexpr int kScalers = 96;  // warps 1-3 of the producer warpgroup
+// setmaxnreg's split, 2 x 216 + 72 = 504 a thread triple of 512: the
+// scaling warps spill below 72, the consumers need no more than 216.
+constexpr int kConsumerRegs = 216;
+constexpr int kProducerRegs = 72;
 
-__device__ __forceinline__ uint32_t as_u32(bf162 v) {
+// Shared memory, from a 1024-byte boundary: k, v; per stage q, dO and
+// their scaled copies q', dO'; per consumer warpgroup its ds^T tile and
+// its two fp32 dq staging tiles; per stage the lse and delta of the q
+// tile; the barriers.
+constexpr int kOffK = 0;
+constexpr int kOffV = kOffK + kKTile;
+constexpr int kOffStage = kOffV + kKTile;
+constexpr int kStageBytes = 4 * kQTile;
+constexpr int kOffDS = kOffStage + kStages * kStageBytes;
+constexpr int kOffDQ = kOffDS + 2 * kDsTile;
+constexpr int kOffStats = kOffDQ + 4 * kDqTile;
+constexpr int kOffBar = kOffStats + kStages * 2 * kTileQ * 4;
+constexpr int kNumBars = 1 + 3 * kStages;
+constexpr int kBf16Smem = 1024 + kOffBar + kNumBars * 8;
+
+struct TileArgs {
+  const float* lse;
+  const float* delta;
+  bf16* dk;
+  bf16* dv;
+  int Sq, Sk, H, kv_len, q_len;
+  float qscale, doscale, scale;
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  bf162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t raw_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Two values multiplied by `mult` and rounded back to bf16, as JAX
+// 8 bf16 values multiplied by `mult` and rounded back to bf16, as JAX
 // multiplies a bf16 array by a Python scalar.
-__device__ __forceinline__ uint32_t scaled_pair(const bf16* p, float mult) {
-  const float2 f = __bfloat1622float2(*reinterpret_cast<const bf162*>(p));
-  return as_u32(__floats2bfloat162_rn(f.x * mult, f.y * mult));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  const int src_size = valid ? 16 : 0;  // 0: zero-fill, read nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr),
-               "l"(gmem), "r"(src_size)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* smem) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// Rows [row0, row0 + ROWS) of one head's [S, 64] matrix into a shared
-// tile; rows at or past `n_valid` are zero-filled.
-template <int ROWS>
-__device__ __forceinline__ void load_rows(bf16* tile, const bf16* base,
-                                          long long row_stride, int row0,
-                                          int n_valid, int tid) {
+__device__ __forceinline__ uint4 scaled8(uint4 u, float mult) {
+  bf162* h = reinterpret_cast<bf162*>(&u);
 #pragma unroll
-  for (int i = 0; i < (ROWS * kHeadDim / 8) / kThreads; ++i) {
-    const int c = tid + i * kThreads;
-    const int r = c >> 3;
-    const int col = (c & 7) * 8;
-    const int row = row0 + r;
-    const bool valid = row < n_valid;
-    const bf16* src = base + (valid ? row : 0) * row_stride + col;
-    cp_async16(tile + r * kLd + col, src, valid);
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    h[i] = __floats2bfloat162_rn(f.x * mult, f.y * mult);
   }
+  return u;
 }
 
-// lse and delta of q rows [q0, q0 + kTileQ); rows at or past q_len get
-// lse +inf, which makes their p exactly 0.
-__device__ __forceinline__ void load_stats(float* sl, float* sd, const Args& a,
-                                           long long bh, int q0, int tid) {
-  if (tid < kTileQ) {
-    const int r = q0 + tid;
-    sl[tid] = r < a.q_len ? a.lse[bh * a.Sq + r] : INFINITY;
-  } else if (tid < 2 * kTileQ) {
-    const int r = q0 + tid - kTileQ;
-    sd[tid - kTileQ] = r < a.q_len ? a.delta[bh * a.Sq + r] : 0.f;
-  }
-}
-
-// A fragments of the 16 x 64 row block at `rows` (row pitch kLd).
-__device__ __forceinline__ void a_frags(uint32_t (&f)[kHeadDim / 16][4],
-                                        const bf16* rows, int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < kHeadDim / 16; ++kk) {
-    const int c = kk * 16 + t * 2;
-    f[kk][0] = raw_pair(rows + g * kLd + c);
-    f[kk][1] = raw_pair(rows + (g + 8) * kLd + c);
-    f[kk][2] = raw_pair(rows + g * kLd + c + 8);
-    f[kk][3] = raw_pair(rows + (g + 8) * kLd + c + 8);
-  }
-}
-
-// acc[n] (16 x 8 tiles, n = 0..7) = A (16 x 64) . B^T, where B is a
-// 64 x 64 shared tile whose rows are the n index (row pitch kLd), each B
-// value multiplied by `mult` in bf16 first.
-__device__ __forceinline__ void mma_abt(float (&acc)[8][4],
-                                        const uint32_t (&a)[4][4],
-                                        const bf16* b_rows, int g, int t,
-                                        float mult) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[n][j] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kHeadDim / 16; ++kk) {
-      const bf16* bp = b_rows + (n * 8 + g) * kLd + kk * 16 + t * 2;
-      mma_16816(acc[n], a[kk], scaled_pair(bp, mult),
-                scaled_pair(bp + 8, mult));
-    }
-  }
-}
-
-// The 16 x 64 fp32 accumulator x as bf16 A fragments of a product over
-// its 64 columns: accumulator tiles 2j and 2j+1 form k-step j.
-__device__ __forceinline__ void acc_to_a(uint32_t (&f)[4][4],
-                                         const float (&x)[8][4]) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    f[n >> 1][(n & 1) * 2 + 0] = as_u32(__floats2bfloat162_rn(x[n][0], x[n][1]));
-    f[n >> 1][(n & 1) * 2 + 1] = as_u32(__floats2bfloat162_rn(x[n][2], x[n][3]));
-  }
-}
-
-// acc[n] (16 x 8 tiles over 64 head dims) += A (16 x 64) . M, where M is a
-// 64 x 64 shared tile stored row-major over the contraction index, read
-// transposed with ldmatrix.trans.
-__device__ __forceinline__ void mma_am(float (&acc)[8][4],
-                                       const uint32_t (&a)[4][4],
-                                       const bf16* m, int lane) {
-  const int mi = lane >> 3;
-  const int mr = lane & 7;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-    for (int np = 0; np < kHeadDim / 16; ++np) {
-      uint32_t bf[4];
-      ldmatrix_x4_trans(
-          bf, m + (kk * 16 + (mi & 1) * 8 + mr) * kLd + (np * 2 + (mi >> 1)) * 8);
-      mma_16816(acc[np * 2], a[kk], bf[0], bf[1]);
-      mma_16816(acc[np * 2 + 1], a[kk], bf[2], bf[3]);
-    }
-  }
-}
-
-// Rows row and row + 8 of a 16 x 64 fp32 accumulator into a contiguous
-// [B, S, H, 64] bf16 output, rows at or past S skipped.
-__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[8][4],
-                                           int row, int S, int H, int h, int b,
-                                           int t) {
+// Rows `row` and `row + 8` of a warp's share of a 64 x 64 fp32 wgmma
+// accumulator (elements 4j, 4j+1 and 4j+2, 4j+3 at columns 8j + 2t, +1)
+// into a contiguous [B, S, H, 64] bf16 output, rows at or past S skipped.
+__device__ __forceinline__ void store_acc_rows(bf16* out,
+                                               const float (&acc)[32],
+                                               int row, int S, int H, int h,
+                                               int b, int t) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int rr = row + r * 8;
+    const int rr = row + 8 * r;
     if (rr >= S) continue;
-    bf16* op = out + ((static_cast<long long>(b) * S + rr) * H + h) * kHeadDim;
+    bf16* op = out + ((static_cast<long long>(b) * S + rr) * H + h) * kHeadDim +
+               2 * t;
 #pragma unroll
-    for (int n = 0; n < kHeadDim / 8; ++n)
-      *reinterpret_cast<bf162*>(op + n * 8 + t * 2) =
-          __floats2bfloat162_rn(acc[n][2 * r], acc[n][2 * r + 1]);
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<bf162*>(op + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1) bhsd_bwd_bf16_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);  // the block's k tile
-  bf16* sDS = sK + kKeys * kLd;  // v at the start, then ds^T of a q tile
-  bf16* sQ = sDS + kKeys * kLd;                 // [2][kTileQ * kLd]
-  bf16* sDO = sQ + 2 * kTileQ * kLd;            // [2][kTileQ * kLd]
-  float* sL = reinterpret_cast<float*>(sDO + 2 * kTileQ * kLd);  // [2][kTileQ]
-  float* sD = sL + 2 * kTileQ;                                   // [2][kTileQ]
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int mi = lane >> 3;
-  const int mr = lane & 7;
+__global__ void __launch_bounds__(kBf16Threads, 1)
+    bhsd_bwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map,
+                         const __grid_constant__ CUtensorMap do_map,
+                         const __grid_constant__ CUtensorMap dq_map,
+                         const TileArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + kOffBar);
+  uint64_t* full = kv_full + 1;         // q and dO landed
+  uint64_t* scaled = full + kStages;    // q', dO', lse and delta written
+  uint64_t* empty = scaled + kStages;   // both consumers are done
   const int key0 = blockIdx.x * kKeys;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const long long bh = static_cast<long long>(b) * a.H + h;
+  const int wg = threadIdx.x >> 7;
+  const int wt = threadIdx.x & 127;
+  const int lane = wt & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int lrow = wg * 64 + (wt >> 5) * 16 + g;  // rows lrow, lrow + 8
+  const int krow = key0 + lrow;
 
-  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.qs.b + h * a.qs.h;
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.ks.b + h * a.ks.h;
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vs.b + h * a.vs.h;
-  const bf16* dob =
-      static_cast<const bf16*>(a.dout) + b * a.dos.b + h * a.dos.h;
+  if (key0 >= a.kv_len) {  // a tile of masked keys only: dk = dv = 0
+    if (wg < 2) {
+      float zero[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) zero[i] = 0.f;
+      store_acc_rows(a.dk, zero, krow, a.Sk, a.H, h, b, t);
+      store_acc_rows(a.dv, zero, krow, a.Sk, a.H, h, b, t);
+    }
+    return;
+  }
+  const int n_qt = (a.q_len + kTileQ - 1) / kTileQ;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&scaled[s], kScalers);
+      mbar_init(&empty[s], 2);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-  float dk[8][4], dv[8][4];
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dk[n][j] = dv[n][j] = 0.f;
-
-  if (key0 < a.kv_len) {  // a tile of masked keys only keeps dk = dv = 0
-    const int n_qt = (a.q_len + kTileQ - 1) / kTileQ;
-    load_rows<kKeys>(sK, kb, a.ks.s, key0, a.kv_len, tid);
-    load_rows<kKeys>(sDS, vb, a.vs.s, key0, a.kv_len, tid);
-    load_rows<kTileQ>(sQ, qb, a.qs.s, 0, a.q_len, tid);
-    load_rows<kTileQ>(sDO, dob, a.dos.s, 0, a.q_len, tid);
-    cp_async_commit();
-    load_stats(sL, sD, a, bh, 0, tid);
-    cp_async_wait<0>();
-    __syncthreads();
-    uint32_t kf[4][4], vf[4][4];  // this warp's 16 keys of k and v
-    a_frags(kf, sK + warp * 16 * kLd, g, t);
-    a_frags(vf, sDS + warp * 16 * kLd, g, t);
-    __syncthreads();  // sDS now takes ds^T
-    const int my_key = key0 + warp * 16 + g;  // rows my_key, my_key + 8
-    const bool kmask0 = my_key >= a.kv_len;
-    const bool kmask1 = my_key + 8 >= a.kv_len;
-    // The dq product's share of this warp: 16 q rows x 32 head dims.
-    const int rg = warp & 3;
-    const int dhalf = warp >> 2;
-
-    for (int qt = 0; qt < n_qt; ++qt) {
-      const int buf = qt & 1;
-      if (qt + 1 < n_qt) {
-        const int nb = buf ^ 1;
-        const int q1 = (qt + 1) * kTileQ;
-        load_rows<kTileQ>(sQ + nb * kTileQ * kLd, qb, a.qs.s, q1, a.q_len, tid);
-        load_rows<kTileQ>(sDO + nb * kTileQ * kLd, dob, a.dos.s, q1, a.q_len,
-                          tid);
-        cp_async_commit();
-        load_stats(sL + nb * kTileQ, sD + nb * kTileQ, a, bh, q1, tid);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const bf16* sq = sQ + buf * kTileQ * kLd;
-      const bf16* sdo = sDO + buf * kTileQ * kLd;
-      const float* lse = sL + buf * kTileQ;
-      const float* dlt = sD + buf * kTileQ;
-
-      // p^T = exp2(k . qs^T - lse): 16 keys x 64 queries.
-      float x[8][4];
-      mma_abt(x, kf, sq, g, t, a.qscale);
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const float l = lse[n * 8 + t * 2 + j];
-          x[n][j] = kmask0 ? 0.f : exp2f(x[n][j] - l);
-          x[n][2 + j] = kmask1 ? 0.f : exp2f(x[n][2 + j] - l);
-        }
-      uint32_t pf[4][4];
-      acc_to_a(pf, x);
-      mma_am(dv, pf, sdo, lane);  // dv += p^T . dO
-
-      // ds^T = p^T * (v . dos^T - delta * scale).
-      float dp[8][4];
-      mma_abt(dp, vf, sdo, g, t, a.doscale);
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const float d = dlt[n * 8 + t * 2 + j] * a.scale;
-          x[n][j] = x[n][j] * (dp[n][j] - d);
-          x[n][2 + j] = x[n][2 + j] * (dp[n][2 + j] - d);
-        }
-      uint32_t dsf[4][4];
-      acc_to_a(dsf, x);
-      mma_am(dk, dsf, sq, lane);  // dk += ds^T . q
-
-      // ds^T in bf16 into this warp's 16 rows of sDS (keys x queries).
-      bf16* dsw = sDS + warp * 16 * kLd;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        *reinterpret_cast<uint32_t*>(dsw + g * kLd + n * 8 + t * 2) =
-            dsf[n >> 1][(n & 1) * 2];
-        *reinterpret_cast<uint32_t*>(dsw + (g + 8) * kLd + n * 8 + t * 2) =
-            dsf[n >> 1][(n & 1) * 2 + 1];
-      }
-      __syncthreads();
-
-      // dq share = ds (64 queries x 128 keys) . k (128 keys x 64 dims):
-      // ds's A fragments come from ds^T by ldmatrix.trans (matrices:
-      // keys 0-7 | 8-15 x queries 0-7 | 8-15), k's B fragments as in
-      // mma_am.
-      float dqa[4][4];
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) dqa[n][j] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kKeys / 16; ++kk) {
-        uint32_t af[4];
-        ldmatrix_x4_trans(
-            af, sDS + (kk * 16 + (mi >> 1) * 8 + mr) * kLd + rg * 16 + (mi & 1) * 8);
-#pragma unroll
-        for (int np2 = 0; np2 < 2; ++np2) {
-          const int np = dhalf * 2 + np2;
-          uint32_t bf[4];
-          ldmatrix_x4_trans(
-              bf, sK + (kk * 16 + (mi & 1) * 8 + mr) * kLd + (np * 2 + (mi >> 1)) * 8);
-          mma_16816(dqa[np2 * 2], af, bf[0], bf[1]);
-          mma_16816(dqa[np2 * 2 + 1], af, bf[2], bf[3]);
+  if (wg == 2) {
+    // ---- producer warpgroup ----
+    regs_dealloc<kProducerRegs>();
+    if (wt < 32) {  // TMA, one thread
+      if (wt == 0) {
+        mbar_expect_tx(kv_full, 2 * kKTile);
+        tma_load_4d(smem + kOffK, &k_map, kv_full, 0, h, key0, b);
+        tma_load_4d(smem + kOffV, &v_map, kv_full, 0, h, key0, b);
+        for (int qt = 0; qt < n_qt; ++qt) {
+          const int s = qt % kStages;
+          mbar_wait(&empty[s], ((qt / kStages) & 1) ^ 1);
+          mbar_expect_tx(&full[s], 2 * kQTile);
+          uint8_t* st = smem + kOffStage + s * kStageBytes;
+          tma_load_4d(st, &q_map, &full[s], 0, h, qt * kTileQ, b);
+          tma_load_4d(st + kQTile, &do_map, &full[s], 0, h, qt * kTileQ, b);
         }
       }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = qt * kTileQ + rg * 16 + g + r * 8;
-        if (row >= a.q_len) continue;
-        float* dst = a.dq +
-                     ((static_cast<long long>(b) * a.Sq + row) * a.H + h) * kHeadDim +
-                     dhalf * 32 + t * 2;
-#pragma unroll
-        for (int n = 0; n < 4; ++n)
-          atomicAdd(reinterpret_cast<float2*>(dst + n * 8),
-                    make_float2(dqa[n][2 * r], dqa[n][2 * r + 1]));
+    } else {  // the scaled copies and the row statistics
+      const int i0 = wt - 32;  // 0 .. 95
+      const long long row0 = (static_cast<long long>(b) * a.H + h) * a.Sq;
+      // Row i0 (< 64) of a q tile: its lse (+inf past q_len: p = 0 there)
+      // and delta, loaded a tile ahead so their latency hides behind the
+      // previous tile.
+      float l_next = INFINITY, d_next = 0.f;
+      if (i0 < kTileQ && i0 < a.q_len) {
+        l_next = a.lse[row0 + i0];
+        d_next = a.delta[row0 + i0];
       }
-      __syncthreads();  // sDS and this q buffer are rewritten next
+      for (int qt = 0; qt < n_qt; ++qt) {
+        const int s = qt % kStages;
+        const float l = l_next, d = d_next;
+        const int r = (qt + 1) * kTileQ + i0;
+        l_next = INFINITY;
+        d_next = 0.f;
+        if (i0 < kTileQ && r < a.q_len) {
+          l_next = a.lse[row0 + r];
+          d_next = a.delta[row0 + r];
+        }
+        mbar_wait(&full[s], (qt / kStages) & 1);
+        uint8_t* st = smem + kOffStage + s * kStageBytes;
+        // q then dO, into q' then dO', two 16-byte loads in flight a
+        // thread: the scaling is elementwise, so the copies keep TMA's
+        // swizzled layout.
+        const uint4* src = reinterpret_cast<const uint4*>(st);
+        uint4* dst = reinterpret_cast<uint4*>(st + 2 * kQTile);
+        constexpr int kVecs = 2 * kQTile / 16;
+#pragma unroll
+        for (int base = 0; base < kVecs; base += 2 * kScalers) {
+          uint4 v[2];
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int i = base + u * kScalers + i0;
+            if (i < kVecs) v[u] = src[i];
+          }
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int i = base + u * kScalers + i0;
+            if (i < kVecs)
+              dst[i] = scaled8(v[u], i < kVecs / 2 ? a.qscale : a.doscale);
+          }
+        }
+        float* stats = reinterpret_cast<float*>(smem + kOffStats) +
+                       s * 2 * kTileQ;
+        if (i0 < kTileQ) {
+          stats[i0] = l;
+          stats[kTileQ + i0] = d;
+        }
+        fence_proxy_async();
+        mbar_arrive(&scaled[s]);
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups: keys key0 + 64 wg .. + 63 ----
+  regs_alloc<kConsumerRegs>();
+  float dk[32], dv[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+  // This warpgroup's k and v rows: K-major A operands of s^T and dp^T,
+  // and k as the MN-major B operand of its dq share.
+  const uint8_t* my_k = smem + kOffK + wg * 64 * kRowBytes;
+  const uint8_t* my_v = smem + kOffV + wg * 64 * kRowBytes;
+  const uint64_t k_desc = desc_sw128(my_k, 16, 1024);
+  const uint64_t v_desc = desc_sw128(my_v, 16, 1024);
+  const uint64_t kb_desc = desc_sw128(my_k, 1024, 1024);
+  uint8_t* sds = smem + kOffDS + wg * kDsTile;
+  const uint64_t ds_desc = desc_sw128(sds, 1024, 1024);
+  uint8_t* sdq = smem + kOffDQ + wg * 2 * kDqTile;  // two staging tiles
+  const int bar_id = 2 + wg;  // this warpgroup's named barrier
+  const int r0 = (wt >> 5) * 16 + g;  // rows r0 and r0 + 8 of 64
+  const bool mask0 = krow >= a.kv_len;
+  const bool mask1 = krow + 8 >= a.kv_len;
+  mbar_wait(kv_full, 0);
+
+  for (int qt = 0; qt < n_qt; ++qt) {
+    const int s = qt % kStages;
+    const uint32_t parity = (qt / kStages) & 1;
+    mbar_wait(&full[s], parity);
+    mbar_wait(&scaled[s], parity);
+    const uint8_t* st = smem + kOffStage + s * kStageBytes;
+    const float* lse = reinterpret_cast<const float*>(smem + kOffStats) +
+                       s * 2 * kTileQ;
+    const float* dlt = lse + kTileQ;
+    // s^T = k . q'^T and dp^T = v . dO'^T: 64 keys x 64 queries, both
+    // operands K-major.
+    float sT[32], dpT[32];
+    const uint64_t qs_desc = desc_sw128(st + 2 * kQTile, 16, 1024);
+    const uint64_t dos_desc = desc_sw128(st + 3 * kQTile, 16, 1024);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)  // 16 head dims = 32 bytes a step
+      wgmma_bf16_ss<0, 0>(sT, k_desc + 2 * kk, qs_desc + 2 * kk, kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_bf16_ss<0, 0>(dpT, v_desc + 2 * kk, dos_desc + 2 * kk, kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sT);
+    fence_regs(dpT);
+
+    // p^T and ds^T as bf16 A fragments: k-step kk takes accumulator
+    // columns 16kk .. 16kk + 15, i.e. elements 8kk .. 8kk + 7.
+    uint32_t pf[4][4], dsf[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 8 * j + 2 * t;
+      const float d0 = dlt[c] * a.scale;
+      const float d1 = dlt[c + 1] * a.scale;
+      const float p0 = mask0 ? 0.f : exp2f(sT[4 * j] - lse[c]);
+      const float p1 = mask0 ? 0.f : exp2f(sT[4 * j + 1] - lse[c + 1]);
+      const float p2 = mask1 ? 0.f : exp2f(sT[4 * j + 2] - lse[c]);
+      const float p3 = mask1 ? 0.f : exp2f(sT[4 * j + 3] - lse[c + 1]);
+      pf[j >> 1][(j & 1) * 2] = pack_bf16(p0, p1);
+      pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+      dsf[j >> 1][(j & 1) * 2] =
+          pack_bf16(p0 * (dpT[4 * j] - d0), p1 * (dpT[4 * j + 1] - d1));
+      dsf[j >> 1][(j & 1) * 2 + 1] =
+          pack_bf16(p2 * (dpT[4 * j + 2] - d0), p3 * (dpT[4 * j + 3] - d1));
+    }
+
+    // dv += p^T . dO and dk += ds^T . q: B MN-major, 16 q rows a step.
+    const uint64_t q_desc = desc_sw128(st, 1024, 1024);
+    const uint64_t do_desc = desc_sw128(st + kQTile, 1024, 1024);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_bf16_rs<1>(dv, pf[kk], do_desc + 128 * kk, 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_bf16_rs<1>(dk, dsf[kk], q_desc + 128 * kk, 1);
+
+    // ds^T (64 keys x 64 queries) into shared memory, swizzled as TMA
+    // writes a tile (16-byte chunk j of row r at chunk j ^ (r & 7)), then
+    // this warpgroup's dq share, ds . k over its 64 keys (both operands
+    // MN-major), in the same group as dv and dk.
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int chunk = ((j ^ g) << 4) + 4 * t;
+      *reinterpret_cast<uint32_t*>(sds + r0 * kRowBytes + chunk) =
+          dsf[j >> 1][(j & 1) * 2];
+      *reinterpret_cast<uint32_t*>(sds + (r0 + 8) * kRowBytes + chunk) =
+          dsf[j >> 1][(j & 1) * 2 + 1];
+    }
+    fence_proxy_async();
+    named_barrier(bar_id, 128);
+    float dq[32];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_bf16_ss<1, 1>(dq, ds_desc + 128 * kk, kb_desc + 128 * kk, kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    fence_regs(dk);
+    fence_regs(dv);
+    if (wt == 0) mbar_arrive(&empty[s]);  // q, dO, q', dO' are read
+
+    // The 64 x 64 fp32 share into a staging tile, as two 64 x 32 halves
+    // in the 128-byte swizzle (conflict-free stores), then bulk
+    // reduce-adds into the scratch: each warp stages and adds its own 16
+    // rows, so only warp-level syncs are needed. Two staging tiles per
+    // warpgroup, by q-tile parity, so the reduce of the last tile can
+    // still be reading the other.
+    uint8_t* stage_dq = sdq + (qt & 1) * kDqTile;
+    const int w16 = (wt >> 5) * 16;
+    if (lane == 0) bulk_wait_read<1>();  // its reduce of two tiles ago
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int half = (j >> 2) * (kDqTile / 2);
+      const int chunk = 2 * (j & 3) + (t >> 1);
+      const int off = half + (((chunk ^ g) << 4) | ((t & 1) << 3));
+      *reinterpret_cast<float2*>(stage_dq + r0 * 128 + off) =
+          make_float2(dq[4 * j], dq[4 * j + 1]);
+      *reinterpret_cast<float2*>(stage_dq + (r0 + 8) * 128 + off) =
+          make_float2(dq[4 * j + 2], dq[4 * j + 3]);
+    }
+    fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) {
+      tma_reduce_add_4d(&dq_map, stage_dq + w16 * 128, 0, h,
+                        qt * kTileQ + w16, b);
+      tma_reduce_add_4d(&dq_map, stage_dq + kDqTile / 2 + w16 * 128, 32, h,
+                        qt * kTileQ + w16, b);
+      bulk_commit();
     }
   }
-  const int row = key0 + warp * 16 + g;
-  store_rows(static_cast<bf16*>(a.dk), dk, row, a.Sk, a.H, h, b, t);
-  store_rows(static_cast<bf16*>(a.dv), dv, row, a.Sk, a.H, h, b, t);
+  if (lane == 0) bulk_wait<0>();
+  store_acc_rows(a.dk, dk, krow, a.Sk, a.H, h, b, t);
+  store_acc_rows(a.dv, dv, krow, a.Sk, a.H, h, b, t);
 }
 
 // ---------------------------------------------------------------------------
@@ -484,8 +498,11 @@ __global__ void __launch_bounds__(kF32Keys) bhsd_bwd_f32_kernel(Args a) {
       load_row4(sK + r * kPad, kb, a.ks.s, key0 + r, a.kv_len, col);
       load_row4(sV + r * kPad, vb, a.vs.s, key0 + r, a.kv_len, col);
     }
-    const float* mk = sK + tid * kPad;
-    const float* mv = sV + tid * kPad;
+    // k, v and the q / dO rows are read from shared memory at each use
+    // (volatile): held in registers they would take 128 more beside dk
+    // and dv, and spill.
+    const volatile float* mk = sK + tid * kPad;
+    const volatile float* mv = sV + tid * kPad;
     const bool live = key < a.kv_len;
     for (int q0 = 0; q0 < a.q_len; q0 += kF32Stream) {
       __syncthreads();  // the previous tile is consumed (and sK/sV ready)
@@ -502,18 +519,20 @@ __global__ void __launch_bounds__(kF32Keys) bhsd_bwd_f32_kernel(Args a) {
       }
       __syncthreads();
       for (int j = 0; j < kF32Stream; ++j) {
+        const volatile float* qj = sQ[j];
+        const volatile float* doj = sDO[j];
         float s = 0.f, dp = 0.f;
 #pragma unroll
         for (int d = 0; d < kHeadDim; ++d) {
-          s = fmaf(sQ[j][d] * a.qscale, mk[d], s);
-          dp = fmaf(sDO[j][d] * a.doscale, mv[d], dp);
+          s = fmaf(qj[d] * a.qscale, mk[d], s);
+          dp = fmaf(doj[d] * a.doscale, mv[d], dp);
         }
         const float p = live ? exp2f(s - sL[j]) : 0.f;
         const float ds = p * (dp - sD[j] * a.scale);
 #pragma unroll
         for (int d = 0; d < kHeadDim; ++d) {
-          dv[d] = fmaf(p, sDO[j][d], dv[d]);
-          dk[d] = fmaf(ds, sQ[j][d], dk[d]);
+          dv[d] = fmaf(p, doj[d], dv[d]);
+          dk[d] = fmaf(ds, qj[d], dk[d]);
         }
         sDS[j][tid] = ds;
       }
@@ -555,7 +574,10 @@ __global__ void __launch_bounds__(kF32Keys) bhsd_bwd_f32_kernel(Args a) {
 // (<= seq_q) are masked. Strides are in elements, in the (batch, row,
 // head) order of the model's [B, S, H, 64] layout; every pointer and
 // stride must keep 16-byte alignment and head_dim must be 64 (the Python
-// wrapper checks both).
+// wrapper checks both). tma: for bf16, the tensor-map specs (hopper.cuh)
+// of q, k, v, dO and the dq scratch, in that order, 16 int64 each (boxes
+// of 64, 128, 128 and 64 rows of one head, and 16 rows of 32 head dims of
+// the scratch); unused for fp32.
 extern "C" int flash_attn_bhsd_bwd(const void* q, const void* k, const void* v,
                                    const void* dout, const float* lse,
                                    const float* delta, float* dq, void* dk,
@@ -568,24 +590,42 @@ extern "C" int flash_attn_bhsd_bwd(const void* q, const void* k, const void* v,
                                    long long k_sh, long long v_sb,
                                    long long v_ss, long long v_sh,
                                    long long do_sb, long long do_ss,
-                                   long long do_sh, void* stream) {
+                                   long long do_sh, const long long* tma,
+                                   void* stream) {
   if (head_dim != kHeadDim || kv_len < 1 || kv_len > seq_k || q_len < 1 ||
       q_len > seq_q)
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a{q,      k,      v,      dout,   lse,     delta,
-         dq,     dk,     dv,     seq_q,  seq_k,   heads,
-         kv_len, q_len,  qscale, doscale, scale,
-         {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh},
-         {v_sb, v_ss, v_sh}, {do_sb, do_ss, do_sh}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
+    if (tma == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    CUtensorMap maps[5];
+    const void* ptrs[4] = {q, k, v, dout};
+    for (int i = 0; i < 4; ++i) {
+      const int rc = encode_tensor_map(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                                       ptrs[i], tma + i * kSpecLen,
+                                       CU_TENSOR_MAP_SWIZZLE_128B);
+      if (rc) return rc;
+    }
+    const int rc = encode_tensor_map(&maps[4], CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                                     dq, tma + 4 * kSpecLen,
+                                     CU_TENSOR_MAP_SWIZZLE_128B);
+    if (rc) return rc;
+    const TileArgs ta{lse,    delta,  static_cast<bf16*>(dk),
+                      static_cast<bf16*>(dv), seq_q, seq_k, heads, kv_len,
+                      q_len,  qscale, doscale, scale};
     cudaError_t err = cudaFuncSetAttribute(
         bhsd_bwd_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmemBytes);
+        kBf16Smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((seq_k + kKeys - 1) / kKeys, heads, batch);
-    bhsd_bwd_bf16_kernel<<<grid, kThreads, kSmemBytes, st>>>(a);
+    bhsd_bwd_bf16_kernel<<<grid, kBf16Threads, kBf16Smem, st>>>(
+        maps[0], maps[1], maps[2], maps[3], maps[4], ta);
   } else {
+    Args a{q,      k,      v,      dout,   lse,     delta,
+           dq,     dk,     dv,     seq_q,  seq_k,   heads,
+           kv_len, q_len,  qscale, doscale, scale,
+           {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh},
+           {v_sb, v_ss, v_sh}, {do_sb, do_ss, do_sh}};
     const dim3 grid((seq_k + kF32Keys - 1) / kF32Keys, heads, batch);
     bhsd_bwd_f32_kernel<<<grid, kF32Keys, 0, st>>>(a);
   }

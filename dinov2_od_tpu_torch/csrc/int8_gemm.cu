@@ -1,12 +1,12 @@
-// Fused dynamic quantization + int8 GEMM for Hopper (sm_90a), plain C
-// interface.
+// Dynamic row quantization + int8 GEMM for Hopper (sm_90a), plain C
+// interface: two kernels under one entry point.
 //
 // Replaces dinov2_od_tpu/ops/int8_gemm.py:_kernel, the Pallas TPU kernel
 // that the W8A8 serving path (and the int8 frozen prefix of training) runs
 // for every wide-K linear: the fc2 of each ViT block.
 //
 // What it computes, for x [M, K] (bf16 or fp32), W [K, N] int8 stored
-// N-contiguous (the JAX param layout), w_scale [N] and bias [N] fp32:
+// K-major (memory [N, K]), w_scale [N] and bias [N] fp32:
 //   s[m]    = max(absmax_k |x[m, k]| * fp32(1/127), 1e-8)
 //   xq[m,k] = clip(rint(x[m, k] / s[m]), -127, 127)      (int8, half to even)
 //   acc     = xq . W                                     (exact, int32)
@@ -20,108 +20,54 @@
 // What bounds it on an H100 at the ViT-B serving fc2 (M 8224, K 3072,
 // N 768, bf16): both about equally. x (50.5 MB), W (2.4 MB) and out
 // (12.6 MB) take 19.6 us at 3.35 TB/s; the 38.8 G int8 operations 19.6 us
-// at 1979 TOP/s. The design keeps the quantized activations out of device
-// memory: one block owns a 32-row slab of x, quantizes it once into shared
-// memory (the TPU kernel's VMEM scratch, filled on its first N step; here
-// the block itself loops over all N tiles, since Hopper's blocks run in no
-// order), and then streams W in 64 x 128 tiles through a double-buffered
-// cp.async ring while 8 warps run mma.sync m16n8k32 s8 x s8 -> s32.
+// at 1979 TOP/s.
 //
-// Operand layout: mma.sync wants B K-major (4 consecutive k of one column
-// in a register), but W is N-contiguous and ldmatrix.trans moves only
-// 16-bit elements. Each thread instead reads, for 4 consecutive k rows,
-// the 32-bit word of 4 neighbouring columns (4g .. 4g+3) and transposes
-// the 4 x 4 bytes with byte permutes: that yields the B registers of four
-// n8 tiles at once, where tile j's column g is physical column 4g + j. The
-// accumulators map back to 8 consecutive physical columns per thread, so
-// the epilogue stores 16 or 32 contiguous bytes. The W tiles are stored
-// with an XOR swizzle of their 16-byte chunks, the x slab with a 16-byte
-// row pad, so that these fragment reads hit 32 distinct banks.
+// Design. The TPU kernel keeps a block's quantized rows in VMEM and
+// reuses them over every N step. On Hopper a 64-row slab (what wgmma needs
+// as M) is 192 KB at K 3072 and 256 KB at K 4096, past the 227 KB of
+// shared memory, and blocks that each stream all of W re-read it from L2
+// hundreds of times. So the quantization is its own pass:
+//   (a) int8_quantize_rows_kernel: one block a row, held in registers
+//       from 16-byte loads all issued at once, so x is read once; writes
+//       the codes [M, K] (K-major by construction) and the fp32 row scales;
+//       the codes make one 25 MB round trip, mostly through L2;
+//   (b) int8_gemm_kernel: one block per 128 x 128 output tile. A producer
+//       warp brings 128 x 128 byte tiles of the codes and of W by TMA with
+//       the 128-byte swizzle into a 4-stage mbarrier ring; two consumer
+//       warpgroups (64 rows each) run wgmma m64n128k32 s8 x s8 -> s32 with
+//       both operands K-major in shared memory (wgmma reads s8 K-major
+//       only, hence W's layout), keeping one group in flight while the
+//       previous stage is handed back; the epilogue applies the single
+//       fp32 fma above per element and stores x's type.
+// TMA fills rows past M with zeros. The tensor maps are encoded on the
+// host from specs the wrapper computes (hopper.cuh).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 typedef __nv_bfloat16 bf16;
 typedef __nv_bfloat162 bf162;
 
-constexpr int kBlockM = 32;   // rows of x per block
-constexpr int kBlockN = 128;  // columns of W per tile
-constexpr int kBlockK = 64;   // depth of a W tile
-constexpr int kWarps = 8;     // 2 (rows of 16) x 4 (columns of 32)
-constexpr int kThreads = kWarps * 32;
-constexpr int kTileBytes = kBlockK * kBlockN;
-constexpr int kSlabPad = 16;  // bytes added to each slab row
-constexpr int kMaxK = 4096;
 constexpr float kInvQmax = 1.0f / 127.0f;
 constexpr float kEps = 1e-8f;
+constexpr int kMaxK = 4096;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr),
-               "l"(gmem)
-               : "memory");
-}
+// ---------------------------------------------------------------------------
+// (a) row quantization
+// ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
+constexpr int kQuantThreads = 128;  // one block a row
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Byte offset of 16-byte chunk `chunk` (0..7) of row `row` in a W tile.
-// Rows 4i .. 4i+3 XOR the chunk with 2 (i mod 4), so the fragment reads of
-// one warp (threads t = 0..3 on rows 4t + const) land on distinct chunks.
-__device__ __forceinline__ int w_offset(int row, int chunk) {
-  return row * kBlockN + ((chunk ^ (((row >> 2) & 3) << 1)) << 4);
-}
-
-// W[k0 : k0 + 64, n0 : n0 + 128] into a shared tile, 16 bytes a thread.
-__device__ __forceinline__ void load_w_tile(uint8_t* tile,
-                                            const int8_t* __restrict__ w,
-                                            int N, int k0, int n0, int tid) {
-#pragma unroll
-  for (int i = 0; i < kTileBytes / 16 / kThreads; ++i) {
-    const int c = tid + i * kThreads;
-    const int row = c >> 3;
-    const int chunk = c & 7;
-    cp_async16(tile + w_offset(row, chunk),
-               w + static_cast<long long>(k0 + row) * N + n0 + chunk * 16);
-  }
-}
-
-// out[j] = byte j of w[0], w[1], w[2], w[3] (a 4 x 4 byte transpose).
-__device__ __forceinline__ void transpose4x4(const uint32_t (&w)[4],
-                                             uint32_t (&out)[4]) {
-  const uint32_t lo01 = __byte_perm(w[0], w[1], 0x5140);
-  const uint32_t hi01 = __byte_perm(w[0], w[1], 0x7362);
-  const uint32_t lo23 = __byte_perm(w[2], w[3], 0x5140);
-  const uint32_t hi23 = __byte_perm(w[2], w[3], 0x7362);
-  out[0] = __byte_perm(lo01, lo23, 0x5410);
-  out[1] = __byte_perm(lo01, lo23, 0x7632);
-  out[2] = __byte_perm(hi01, hi23, 0x5410);
-  out[3] = __byte_perm(hi01, hi23, 0x7632);
-}
-
-// 16 bytes of x as floats.
-__device__ __forceinline__ void load_vec(const bf16* p, float (&f)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
+// 16 bytes of x as floats: 8 bf16 or 4 fp32.
+__device__ __forceinline__ void unpack(const uint4& u, float (&f)[8]) {
   const bf162* h = reinterpret_cast<const bf162*>(&u);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -131,12 +77,11 @@ __device__ __forceinline__ void load_vec(const bf16* p, float (&f)[8]) {
   }
 }
 
-__device__ __forceinline__ void load_vec(const float* p, float (&f)[4]) {
-  const float4 u = *reinterpret_cast<const float4*>(p);
-  f[0] = u.x;
-  f[1] = u.y;
-  f[2] = u.z;
-  f[3] = u.w;
+__device__ __forceinline__ void unpack(const uint4& u, float (&f)[4]) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
 }
 
 __device__ __forceinline__ uint32_t code(float v, float s) {
@@ -144,216 +89,230 @@ __device__ __forceinline__ uint32_t code(float v, float s) {
   return static_cast<uint32_t>(static_cast<uint8_t>(static_cast<int8_t>(q)));
 }
 
-// Rows m0 .. m0+31 of x quantized into the slab (row pitch K + 16 bytes),
-// their scales into row_scale; rows at or past M become zeros. One warp
-// per row: absmax over the row, then the codes, reading x twice.
+// One block per row. Each thread issues all its 16-byte loads of the row
+// before it uses the first (K 4096: 4 in bf16, 8 in fp32), so x is read
+// once with many loads in flight; the absmax goes through the warps'
+// shuffles and shared memory; the codes are computed from registers.
 template <typename T>
-__device__ void quantize_rows(const T* __restrict__ x, int8_t* slab,
-                              float* row_scale, int M, int K, int m0,
-                              int warp, int lane) {
-  constexpr int V = 16 / sizeof(T);
-  const int pitch = K + kSlabPad;
-  for (int r = warp; r < kBlockM; r += kWarps) {
-    const int row = m0 + r;
-    int8_t* dst = slab + r * pitch;
-    if (row >= M) {
-      for (int c = lane * V; c < K; c += 32 * V) {
-        if (V == 8)
-          *reinterpret_cast<uint2*>(dst + c) = make_uint2(0u, 0u);
-        else
-          *reinterpret_cast<uint32_t*>(dst + c) = 0u;
-      }
-      if (lane == 0) row_scale[r] = 0.0f;
-      continue;
-    }
-    const T* src = x + static_cast<long long>(row) * K;
-    float amax = 0.0f;
-    for (int c = lane * V; c < K; c += 32 * V) {
+__global__ void __launch_bounds__(kQuantThreads)
+    int8_quantize_rows_kernel(const T* __restrict__ x,
+                              int8_t* __restrict__ codes,
+                              float* __restrict__ scale, int K) {
+  constexpr int V = 16 / sizeof(T);                     // elements a load
+  constexpr int kChunks = kMaxK / (kQuantThreads * V);  // loads a thread
+  __shared__ float warp_max[kQuantThreads / 32];
+  const int tid = threadIdx.x;
+  const int row = blockIdx.x;
+  const T* src = x + static_cast<long long>(row) * K;
+  int8_t* dst = codes + static_cast<long long>(row) * K;
+  uint4 buf[kChunks];
+#pragma unroll
+  for (int i = 0; i < kChunks; ++i) {
+    const int c = (i * kQuantThreads + tid) * V;
+    if (c < K) buf[i] = __ldg(reinterpret_cast<const uint4*>(src + c));
+  }
+  float amax = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kChunks; ++i) {
+    if ((i * kQuantThreads + tid) * V < K) {
       float f[V];
-      load_vec(src + c, f);
+      unpack(buf[i], f);
 #pragma unroll
       for (int j = 0; j < V; ++j) amax = fmaxf(amax, fabsf(f[j]));
     }
+  }
 #pragma unroll
-    for (int o = 16; o; o >>= 1)
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-    const float s = fmaxf(amax * kInvQmax, kEps);
-    for (int c = lane * V; c < K; c += 32 * V) {
+  for (int o = 16; o; o >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  if ((tid & 31) == 0) warp_max[tid >> 5] = amax;
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < kQuantThreads / 32; ++w) amax = fmaxf(amax, warp_max[w]);
+  const float s = fmaxf(amax * kInvQmax, kEps);
+#pragma unroll
+  for (int i = 0; i < kChunks; ++i) {
+    const int c = (i * kQuantThreads + tid) * V;
+    if (c < K) {
       float f[V];
-      load_vec(src + c, f);
+      unpack(buf[i], f);
       uint32_t word[V / 4];
 #pragma unroll
-      for (int i = 0; i < V / 4; ++i) {
-        word[i] = code(f[4 * i], s) | (code(f[4 * i + 1], s) << 8) |
-                  (code(f[4 * i + 2], s) << 16) |
-                  (code(f[4 * i + 3], s) << 24);
+      for (int w = 0; w < V / 4; ++w) {
+        word[w] = code(f[4 * w], s) | (code(f[4 * w + 1], s) << 8) |
+                  (code(f[4 * w + 2], s) << 16) | (code(f[4 * w + 3], s) << 24);
       }
       if (V == 8)
         *reinterpret_cast<uint2*>(dst + c) = make_uint2(word[0], word[V / 8]);
       else
         *reinterpret_cast<uint32_t*>(dst + c) = word[0];
     }
-    if (lane == 0) row_scale[r] = s;
   }
+  if (tid == 0) scale[row] = s;
 }
 
-__device__ __forceinline__ void store8(bf16* p, const float (&o)[8]) {
-  uint4 u;
-  bf162* h = reinterpret_cast<bf162*>(&u);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) h[j] = __floats2bfloat162_rn(o[2 * j], o[2 * j + 1]);
-  *reinterpret_cast<uint4*>(p) = u;
+// ---------------------------------------------------------------------------
+// (b) s8 GEMM
+// ---------------------------------------------------------------------------
+
+constexpr int kTileM = 128;  // rows of the output tile, 64 per consumer
+constexpr int kTileN = 128;
+constexpr int kTileK = 128;  // bytes of K per stage: one swizzled row
+constexpr int kStages = 4;
+constexpr int kConsumers = 2;  // warpgroups
+constexpr int kThreads = (kConsumers + 1) * 128;
+constexpr int kATile = kTileM * kTileK;  // 16 KB
+constexpr int kBTile = kTileN * kTileK;  // 16 KB
+constexpr int kStageBytes = kATile + kBTile;
+constexpr int kSmemBytes = 1024 + kStages * kStageBytes + 2 * kStages * 8;
+
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<bf162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-__device__ __forceinline__ void store8(float* p, const float (&o)[8]) {
-  *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
-  *reinterpret_cast<float4*>(p + 4) = make_float4(o[4], o[5], o[6], o[7]);
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    int8_gemm_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
+__global__ void __launch_bounds__(kThreads, 1)
+    int8_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
+                     const __grid_constant__ CUtensorMap b_map,
+                     const float* __restrict__ x_scale,
                      const float* __restrict__ w_scale,
                      const float* __restrict__ bias, T* __restrict__ out,
                      int M, int K, int N) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* w_tiles = smem;  // two W tiles
-  float* row_scale = reinterpret_cast<float*>(smem + 2 * kTileBytes);
-  int8_t* slab =
-      reinterpret_cast<int8_t*>(smem + 2 * kTileBytes + kBlockM * 4);
-  const int pitch = K + kSlabPad;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+  const int wg = threadIdx.x >> 7;
+  const int n0 = blockIdx.x * kTileN;
+  const int m0 = blockIdx.y * kTileM;
+  const int k_tiles = K / kTileK;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;  // fragment row / column group
-  const int t = lane & 3;   // thread in group
-  const int wm = warp >> 2;  // rows wm*16 .. +15 of the slab
-  const int wn = warp & 3;   // columns wn*32 .. +31 of the N tile
-  const int m0 = blockIdx.x * kBlockM;
-  const int k_tiles = K / kBlockK;
-  const int total = k_tiles * (N / kBlockN);
-
-  // The first W tile flies while the slab is quantized.
-  load_w_tile(w_tiles, w, N, 0, 0, tid);
-  cp_async_commit();
-  quantize_rows<T>(x, slab, row_scale, M, K, m0, warp, lane);
-
-  int acc[4][4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0;
-
-  for (int it = 0; it < total; ++it) {
-    const int nt = it / k_tiles;
-    const int kt = it - nt * k_tiles;
-    if (it + 1 < total) {
-      const int nn = (it + 1) / k_tiles;
-      load_w_tile(w_tiles + ((it + 1) & 1) * kTileBytes, w, N,
-                  ((it + 1) - nn * k_tiles) * kBlockK, nn * kBlockN, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
     }
-    __syncthreads();  // the tile, and at it == 0 the slab, are in place
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-    const uint8_t* tile = w_tiles + (it & 1) * kTileBytes;
-#pragma unroll
-    for (int ks = 0; ks < kBlockK / 32; ++ks) {
-      const int8_t* ar =
-          slab + (wm * 16 + g) * pitch + kt * kBlockK + ks * 32 + t * 4;
-      uint32_t a[4];
-      a[0] = *reinterpret_cast<const uint32_t*>(ar);
-      a[1] = *reinterpret_cast<const uint32_t*>(ar + 8 * pitch);
-      a[2] = *reinterpret_cast<const uint32_t*>(ar + 16);
-      a[3] = *reinterpret_cast<const uint32_t*>(ar + 8 * pitch + 16);
-      uint32_t b[2][4];  // [k half][n8 tile]
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        uint32_t words[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int row = ks * 32 + h * 16 + t * 4 + i;
-          words[i] = *reinterpret_cast<const uint32_t*>(
-              tile + w_offset(row, 2 * wn + (g >> 2)) + (g & 3) * 4);
-        }
-        transpose4x4(words, b[h]);
+  if (wg == kConsumers) {  // producer warpgroup: one thread issues TMA
+    if (threadIdx.x == kConsumers * 128) {
+      for (int kt = 0; kt < k_tiles; ++kt) {
+        const int s = kt % kStages;
+        const uint32_t round = kt / kStages;
+        mbar_wait(&empty[s], (round & 1) ^ 1);
+        mbar_expect_tx(&full[s], kStageBytes);
+        uint8_t* stage = smem + s * kStageBytes;
+        tma_load_2d(stage, &a_map, &full[s], kt * kTileK, m0);
+        tma_load_2d(stage + kATile, &b_map, &full[s], kt * kTileK, n0);
       }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) mma_s8(acc[j], a, b[0][j], b[1][j]);
     }
-    __syncthreads();  // this buffer is refilled at the next iteration
+    return;
+  }
 
-    if (kt == k_tiles - 1) {
-      // Tile j's column g is physical column 4g + j, so accumulator i of
-      // tile j sits at column 8t + j (+4 for odd i), row g (+8 for i >= 2).
-      const int col0 = nt * kBlockN + wn * 32 + t * 8;
-      float ws[8], bs[8];
-      *reinterpret_cast<float4*>(ws) =
-          *reinterpret_cast<const float4*>(w_scale + col0);
-      *reinterpret_cast<float4*>(ws + 4) =
-          *reinterpret_cast<const float4*>(w_scale + col0 + 4);
-      *reinterpret_cast<float4*>(bs) =
-          *reinterpret_cast<const float4*>(bias + col0);
-      *reinterpret_cast<float4*>(bs + 4) =
-          *reinterpret_cast<const float4*>(bias + col0 + 4);
+  int acc[64];
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int lr = wm * 16 + g + r * 8;
-        const int row = m0 + lr;
-        if (row < M) {
-          const float xs = row_scale[lr];
-          float o[8];
+  for (int i = 0; i < 64; ++i) acc[i] = 0;
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    const int s = kt % kStages;
+    mbar_wait(&full[s], (kt / kStages) & 1);
+    const uint8_t* stage = smem + s * kStageBytes;
+    const uint64_t da = desc_sw128(stage + wg * 64 * kTileK, 16, 1024);
+    const uint64_t db = desc_sw128(stage + kATile, 16, 1024);
+    wgmma_fence();
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            o[j] = fmaf(static_cast<float>(acc[j][2 * r]), xs * ws[j], bs[j]);
-            o[4 + j] = fmaf(static_cast<float>(acc[j][2 * r + 1]),
-                            xs * ws[4 + j], bs[4 + j]);
-          }
-          store8(out + static_cast<long long>(row) * N + col0, o);
-        }
-      }
+    for (int kk = 0; kk < kTileK / 32; ++kk)  // 32 bytes = 2 units a step
+      wgmma_s8_m64n128k32(acc, da + 2 * kk, db + 2 * kk, 1);
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous tile's products are done
+    if (kt > 0 && (threadIdx.x & 127) == 0)
+      mbar_arrive(&empty[(kt - 1) % kStages]);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // Accumulator 4j + e sits at row g (+8 for e >= 2), column 8j + 2t
+  // (+1 for odd e) of this warp's 16 rows.
+  const int wt = threadIdx.x & 127;
+  const int lane = wt & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int r0 = m0 + wg * 64 + (wt >> 5) * 16 + g;
+  const int r1 = r0 + 8;
+  const float xs0 = r0 < M ? x_scale[r0] : 0.0f;
+  const float xs1 = r1 < M ? x_scale[r1] : 0.0f;
+  T* out0 = out + static_cast<long long>(r0) * N;
+  T* out1 = out + static_cast<long long>(r1) * N;
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[j][i] = 0;
-    }
+  for (int j = 0; j < kTileN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * t;
+    const float2 ws = *reinterpret_cast<const float2*>(w_scale + col);
+    const float2 bs = *reinterpret_cast<const float2*>(bias + col);
+    if (r0 < M)
+      store2(out0 + col,
+             fmaf(static_cast<float>(acc[4 * j]), xs0 * ws.x, bs.x),
+             fmaf(static_cast<float>(acc[4 * j + 1]), xs0 * ws.y, bs.y));
+    if (r1 < M)
+      store2(out1 + col,
+             fmaf(static_cast<float>(acc[4 * j + 2]), xs1 * ws.x, bs.x),
+             fmaf(static_cast<float>(acc[4 * j + 3]), xs1 * ws.y, bs.y));
   }
 }
 
 template <typename T>
-int launch(const void* x, const int8_t* w, const float* w_scale,
-           const float* bias, void* out, int m, int k, int n,
+int launch(const void* x, int8_t* codes, float* x_scale, const void* w,
+           const float* w_scale, const float* bias, void* out, int m, int k,
+           int n, const long long* a_spec, const long long* b_spec,
            cudaStream_t stream) {
-  const int smem = 2 * kTileBytes + kBlockM * 4 + kBlockM * (k + kSlabPad);
-  cudaError_t err = cudaFuncSetAttribute(
-      int8_gemm_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int8_quantize_rows_kernel<T><<<m, kQuantThreads, 0, stream>>>(
+      static_cast<const T*>(x), codes, x_scale, k);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((m + kBlockM - 1) / kBlockM);
-  int8_gemm_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), w, w_scale, bias, static_cast<T*>(out), m, k,
-      n);
+  CUtensorMap a_map, b_map;
+  int rc = encode_tensor_map(&a_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, codes,
+                             a_spec, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc) return rc;
+  rc = encode_tensor_map(&b_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, b_spec,
+                         CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc) return rc;
+  err = cudaFuncSetAttribute(int8_gemm_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(n / kTileN, (m + kTileM - 1) / kTileM);
+  int8_gemm_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(
+      a_map, b_map, x_scale, w_scale, bias, static_cast<T*>(out), m, k, n);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launches the fused quantize + int8 GEMM on `stream` and returns the
-// launch's cudaError_t (0 on success). is_bf16: 1 for bf16 x and out, 0
-// for fp32. x [m, k] and out [m, n] row-major contiguous, w [k, n] int8
-// row-major contiguous, w_scale and bias [n] fp32; every pointer 16-byte
-// aligned, k and n multiples of 128, k at most 4096 (the wrapper checks).
-extern "C" int int8_gemm(const void* x, const void* w, const float* w_scale,
+// Launches the row quantization and then the GEMM on `stream`; returns the
+// first failing step's cudaError_t (0 on success). is_bf16: 1 for bf16 x
+// and out, 0 for fp32. x [m, k] and out [m, n] row-major contiguous; codes
+// [m, k] int8 and x_scale [m] fp32 are scratch the quantization writes and
+// the GEMM reads; w is the int8 [k, n] weight stored K-major (memory
+// [n, k], row stride k); w_scale and bias [n] fp32. a_spec and b_spec are
+// the tensor-map specs (hopper.cuh) of the codes ([k, m], box 128 x 128)
+// and of w ([k, n], box 128 x 128). Every pointer 16-byte aligned, k and
+// n multiples of 128, k at most 4096 (the wrapper checks).
+extern "C" int int8_gemm(const void* x, void* codes, float* x_scale,
+                         const void* w, const float* w_scale,
                          const float* bias, void* out, int is_bf16, int m,
-                         int k, int n, void* stream) {
+                         int k, int n, const long long* a_spec,
+                         const long long* b_spec, void* stream) {
   if (m < 1 || k % 128 || n % 128 || k < 128 || k > kMaxK || n < 128)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int8_t* wq = static_cast<const int8_t*>(w);
-  return is_bf16 ? launch<bf16>(x, wq, w_scale, bias, out, m, k, n, st)
-                 : launch<float>(x, wq, w_scale, bias, out, m, k, n, st);
+  int8_t* cq = static_cast<int8_t*>(codes);
+  return is_bf16 ? launch<bf16>(x, cq, x_scale, w, w_scale, bias, out, m, k,
+                                n, a_spec, b_spec, st)
+                 : launch<float>(x, cq, x_scale, w, w_scale, bias, out, m,
+                                 k, n, a_spec, b_spec, st);
 }
 
 // Message for a code returned by int8_gemm.

@@ -14,10 +14,10 @@ floating point. The apply functions (models/layers.py `linear`,
 models/vit.py) dispatch on "kernel_q" in a linear's params, so one
 `detector_apply` serves fp32, bf16 and int8 trees.
 
-Wide-K linears (K >= 2048: each block's fc2) on a CUDA tensor run the
-fused kernel B6 (ops/int8_gemm.py); the others quantize with torch ops
-and multiply with `torch._int_mm`, as the JAX package leaves that product
-to XLA's s8 dot.
+Every int8 kernel is stored K-major. Wide-K linears (K >= 2048: each
+block's fc2) on a CUDA tensor run the fused kernel B6 (ops/int8_gemm.py);
+the others quantize with torch ops and multiply with `torch._int_mm`, as
+the JAX package leaves that product to XLA's s8 dot.
 """
 
 from __future__ import annotations
@@ -32,10 +32,10 @@ from ..ops.int8_gemm import quantize_acts as _quantize_acts
 Params = Dict[str, Any]
 
 _LINEARS = ("q", "k", "v", "proj", "fc1", "fc2")
-_FUSED_MIN_K = 2048  # wide-K linears (each block's fc2) take the kernel
+_FUSED_MIN_K = 2048  # wide-K linears (each block's fc2) take B6
 
 
-def _k_major(w: torch.Tensor) -> torch.Tensor:
+def k_major(w: torch.Tensor) -> torch.Tensor:
     """w `[..., K, N]` stored K-major: the same tensor, laid out [..., N, K]
     in memory."""
     return w.transpose(-1, -2).contiguous().transpose(-1, -2)
@@ -46,18 +46,17 @@ def quantize_linear(p: Params) -> Params:
     as symmetric per-output-channel int8. LoRA factors are dropped: the
     quantized linear is a single int8 GEMM.
 
-    kernel_q is stored in the layout of the GEMM that reads it: row-major
-    (N-contiguous, as the JAX tree has it) where K reaches the fused
-    kernel, K-major below, where cuBLASLt's s8 GEMM is ~5.6x faster on it
-    than on a row-major one at ViT-B's shapes (PERF.md)."""
+    kernel_q is stored K-major (the same `[..., K, N]` tensor, laid out
+    `[..., N, K]` in memory): wgmma reads s8 operands K-major only, so the
+    fused kernel B6 takes it in place, and cuBLASLt's s8 GEMM, which runs
+    the narrower linears, is ~5.6x faster on it than on a row-major one
+    at ViT-B's shapes (PERF.md). Values and shapes are the JAX tree's."""
     w = p["kernel"].float()
     w_scale = torch.clamp_min(w.abs().amax(-2) * int8_gemm.INV_QMAX,
                               int8_gemm.EPS)
     w_q = torch.clamp(torch.round(w / w_scale[..., None, :]), -127.0, 127.0)
-    w_q = w_q.to(torch.int8)
-    if w_q.shape[-2] < _FUSED_MIN_K:
-        w_q = _k_major(w_q)
-    return {"kernel_q": w_q, "w_scale": w_scale, "bias": p["bias"]}
+    return {"kernel_q": k_major(w_q.to(torch.int8)), "w_scale": w_scale,
+            "bias": p["bias"]}
 
 
 def _int8_matmul(x: torch.Tensor, kernel_q: torch.Tensor,
@@ -147,6 +146,6 @@ def quantize_detector_int8(params: Params, cfg=None) -> Params:
 
 
 __all__ = [
-    "int8_linear", "int8_qkv", "quantize_backbone_int8", "quantize_blocks",
-    "quantize_detector_int8", "quantize_linear",
+    "int8_linear", "int8_qkv", "k_major", "quantize_backbone_int8",
+    "quantize_blocks", "quantize_detector_int8", "quantize_linear",
 ]

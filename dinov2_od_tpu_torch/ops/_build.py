@@ -2,9 +2,10 @@
 
 Each source under `csrc/` compiles with `nvcc` for sm_90a into a shared
 library with a plain C interface. The library's file name carries a hash
-of its source, so an edited source rebuilds and an unchanged one loads the
-library already built. Builds go to `csrc/_build/` inside the package
-(listed in .gitignore); `build_all` starts one `nvcc` per source at once.
+of its source and of the shared headers (`csrc/*.cuh`), so an edited
+source rebuilds and an unchanged one loads the library already built.
+Builds go to `csrc/_build/` inside the package (listed in .gitignore);
+`build_all` starts one `nvcc` per source at once.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -58,7 +60,9 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(src + headers
+                          + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:12]}.so"
 
 
@@ -89,6 +93,53 @@ def build_all(names=None) -> None:
             os.replace(tmp, out)  # atomic: concurrent builders agree
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_PROPS = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_log(name: str) -> str:
+    """ptxas's `-v` report of kernel `name`: this process's build's, else
+    from compiling the source once more (the built library stays)."""
+    if name not in build_logs:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = BUILD_DIR / f"ptxas_{name}.{os.getpid()}.tmp"
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        tmp.unlink(missing_ok=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
+        build_logs[name] = proc.stdout
+    return build_logs[name]
+
+
+def ptxas_summary(log: str) -> Dict[str, Dict[str, int]]:
+    """{mangled kernel name: registers, stack, spill stores and loads in
+    bytes} from an `nvcc -Xptxas -v` log (`build_logs[name]`)."""
+    out: Dict[str, Dict[str, int]] = {}
+    fn = None
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            fn = m.group(1)
+            out[fn] = {"registers": 0, "stack": 0, "spill_stores": 0,
+                       "spill_loads": 0}
+            continue
+        if fn is None:
+            continue
+        m = _PROPS.search(line)
+        if m:
+            out[fn].update(stack=int(m.group(1)),
+                           spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+        m = _REGS.search(line)
+        if m:
+            out[fn]["registers"] = int(m.group(1))
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -70,7 +70,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, _tma
 
 _KERNEL = "flash_attn_fwd"
 _BWD_KERNEL = "flash_attn_bwd"
@@ -538,21 +538,38 @@ def _launch_bwd(q, k, v, do, lse, delta, scale: float, kv_len: int):
     return dq, dk, dv
 
 
+def bhsd_bwd_tma_specs(q, k, v, do, dq_acc):
+    """The tensor-map specs B5b's bf16 kernel reads its operands through
+    (ops/_tma.py), in its order: q and dO `[B, Sq, H, 64]` in 64-row
+    boxes, k and v `[B, Sk, H, 64]` in 128-row boxes (one key tile), each
+    one head wide, and the fp32 dq scratch `[B, Sq, H, 64]` in boxes of 16
+    rows (one warp's) by 32 head dims (128 bytes, the swizzle's width); the
+    real strides, so the fused qkv slices are read in place. Raises
+    ValueError where TMA cannot address one of them."""
+    order = (3, 2, 1, 0)  # head dim, head, row, batch
+    return [_tma.tensor_map_spec(t, order, (dims, 1, rows, 1))
+            for t, dims, rows in ((q, HEAD_DIM, 64), (k, HEAD_DIM, 128),
+                                  (v, HEAD_DIM, 128), (do, HEAD_DIM, 64),
+                                  (dq_acc, HEAD_DIM // 2, 16))]
+
+
 def _launch_bhsd_bwd(q, k, v, do, lse, delta, scale: float, kv_len: int,
                      q_len: int):
-    """B5b. dq is summed over key tiles by fp32 atomic adds into a zeroed
-    fp32 scratch, so its low bits may differ from run to run; the scratch
-    is cast to q's dtype once here (for fp32 it is dq itself)."""
+    """B5b. dq is summed over key tiles by fp32 bulk reduce-adds into a
+    zeroed fp32 scratch, so its low bits may differ from run to run; the
+    scratch is cast to q's dtype once here (for fp32 it is dq itself)."""
     b, sq, h, dh = q.shape
     sk = k.shape[1]
     _check_launch(q=q, k=k, v=v, do=do)
     _check_rows(b, h, sq, lse=lse, delta=delta)
     lib, fn = _bound(_BHSD_BWD_KERNEL,
-                     [_P] * 9 + [_I] * 8 + [_F] * 3 + [_LL] * 12 + [_P])
+                     [_P] * 9 + [_I] * 8 + [_F] * 3 + [_LL] * 12 + [_P] * 2)
     dq_acc = torch.zeros((b, sq, h, dh), dtype=torch.float32,
                          device=q.device)
     dk = torch.empty((b, sk, h, dh), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
+    specs = (_tma.as_c_array(*bhsd_bwd_tma_specs(q, k, v, do, dq_acc))
+             if q.dtype == torch.bfloat16 else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(
@@ -562,7 +579,8 @@ def _launch_bhsd_bwd(q, k, v, do, lse, delta, scale: float, kv_len: int,
             b, sq, sk, h, dh, kv_len, q_len, _qscale(scale, q.dtype),
             _rounded(scale, q.dtype), float(scale),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *do.stride()[:3], stream,
+            *do.stride()[:3],
+            None if specs is None else ctypes.addressof(specs), stream,
         )
     _raise_on(lib, _BHSD_BWD_KERNEL, rc)
     _build.launch_counts[_BHSD_BWD_KERNEL] += 1
@@ -734,7 +752,7 @@ def flash_attention_lse(
 
 
 __all__ = [
-    "HEAD_DIM", "NEG_INF", "flash_attention",
+    "HEAD_DIM", "NEG_INF", "bhsd_bwd_tma_specs", "flash_attention",
     "flash_attention_allheads_bwd", "flash_attention_allheads_bwd_plain",
     "flash_attention_allheads_fwd", "flash_attention_allheads_fwd_plain",
     "flash_attention_bhsd_bwd",

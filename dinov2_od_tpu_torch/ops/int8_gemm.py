@@ -16,10 +16,14 @@ where XLA rewrites that division into the multiply (x / s stays a true
 division), and XLA on the CPU contracts the epilogue into one fma. With
 both, the plain version here matches jitted JAX bit for bit.
 
-`fused_int8_linear` launches the kernel (csrc/int8_gemm.cu) for a CUDA
-tensor and runs `fused_int8_linear_plain`, the same math in torch ops, for
-a CPU tensor. A CUDA tensor never falls back to the plain version: the
-wrapper launches the kernel or raises.
+`fused_int8_linear` launches the kernel (csrc/int8_gemm.cu: a row
+quantization launch, then an s8 wgmma GEMM over TMA tiles; counted as one
+`int8_gemm` launch) for a CUDA tensor and runs `fused_int8_linear_plain`,
+the same math in torch ops, for a CPU tensor. A CUDA tensor never falls
+back to the plain version: the wrapper launches the kernel or raises. The
+kernel reads kernel_q K-major (`[K, N]` with strides (1, K), as
+`models/quantize.py` stores it) in place, and raises on another layout;
+the plain version takes any.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, _tma
 
 _KERNEL = "int8_gemm"
 EPS = 1e-8
@@ -50,8 +54,9 @@ def set_fused_enabled(enabled: bool) -> None:
 
 def int8_gemm_eligible(m: int, k: int, n: int) -> bool:
     """The shapes the fused kernel takes, the JAX package's conditions:
-    K and N multiples of 128 and K at most 4096 (the kernel keeps a
-    32 x K int8 slab of x in shared memory). Any M."""
+    K and N multiples of 128 (the GEMM's 128 x 128 tiles) and K at most
+    4096 (the Pallas kernel's VMEM slab; kept so the port routes as JAX
+    does). Any M."""
     if not _FUSED_ENABLED or m < 1:
         return False
     return k % 128 == 0 and n % 128 == 0 and 0 < k <= 4096 and n > 0
@@ -115,6 +120,32 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+# The tiles the GEMM's TMA copies move: 128 rows of 128 bytes of K.
+_BOX = (128, 128)
+
+
+def weight_spec(kq: torch.Tensor):
+    """The tensor-map spec of an int8 kernel `[K, N]` stored K-major (the
+    layout `quantize_linear` stores, also one slice of a stacked
+    `[depth, K, N]` tree), taken as it is: no copy. Raises ValueError on
+    another layout or a misaligned one."""
+    if kq.dtype != torch.int8 or kq.dim() != 2:
+        raise ValueError(f"kernel_q must be int8 [K, N]; got {kq.dtype} "
+                         f"{tuple(kq.shape)}")
+    k, n = kq.shape
+    if kq.stride() != (1, k):
+        raise ValueError(
+            f"the int8 GEMM kernel reads kernel_q K-major (strides (1, {k}), "
+            f"as quantize_linear stores it); got strides {kq.stride()}")
+    return _tma.tensor_map_spec(kq, order=(0, 1), box=_BOX)
+
+
+def codes_spec(codes: torch.Tensor):
+    """The tensor-map spec of the quantized activations `[M, K]`,
+    row-major."""
+    return _tma.tensor_map_spec(codes, order=(1, 0), box=_BOX)
+
+
 def _launch(x2d: torch.Tensor, kq: torch.Tensor, w_scale: torch.Tensor,
             bias: torch.Tensor) -> torch.Tensor:
     m, k = x2d.shape
@@ -124,7 +155,8 @@ def _launch(x2d: torch.Tensor, kq: torch.Tensor, w_scale: torch.Tensor,
             f"the int8 GEMM kernel does not take (M, K, N) = {(m, k, n)}: "
             f"K and N must be multiples of 128, K at most 4096 "
             f"(int8_gemm_eligible)")
-    x2d, kq = _aligned(x2d), _aligned(kq)
+    b_spec = weight_spec(kq)
+    x2d = _aligned(x2d)
     w_scale = _aligned(w_scale.to(torch.float32))
     bias = _aligned(bias.to(torch.float32))
     for name, t in (("kernel_q", kq), ("w_scale", w_scale), ("bias", bias)):
@@ -136,16 +168,21 @@ def _launch(x2d: torch.Tensor, kq: torch.Tensor, w_scale: torch.Tensor,
     fn = lib.int8_gemm
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, p]
+        fn.argtypes = [p] * 7 + [i] * 4 + [p] * 3
         fn.restype = ctypes.c_int
         lib.int8_gemm_error_string.argtypes = [i]
         lib.int8_gemm_error_string.restype = ctypes.c_char_p
+    codes = torch.empty((m, k), dtype=torch.int8, device=x2d.device)
+    x_scale = torch.empty((m,), dtype=torch.float32, device=x2d.device)
     out = torch.empty((m, n), dtype=x2d.dtype, device=x2d.device)
+    a_spec = _tma.as_c_array(codes_spec(codes))
+    b_spec = _tma.as_c_array(b_spec)
     with torch.cuda.device(x2d.device):
         stream = torch.cuda.current_stream(x2d.device).cuda_stream
-        rc = fn(x2d.data_ptr(), kq.data_ptr(), w_scale.data_ptr(),
-                bias.data_ptr(), out.data_ptr(),
-                int(x2d.dtype == torch.bfloat16), m, k, n, stream)
+        rc = fn(x2d.data_ptr(), codes.data_ptr(), x_scale.data_ptr(),
+                kq.data_ptr(), w_scale.data_ptr(), bias.data_ptr(),
+                out.data_ptr(), int(x2d.dtype == torch.bfloat16), m, k, n,
+                ctypes.addressof(a_spec), ctypes.addressof(b_spec), stream)
     if rc != 0:
         msg = lib.int8_gemm_error_string(rc).decode()
         raise RuntimeError(f"int8_gemm launch failed: {msg} ({rc})")
@@ -168,7 +205,7 @@ def fused_int8_linear(x: torch.Tensor,
 
 
 __all__ = [
-    "EPS", "INV_QMAX", "dequant_epilogue", "fused_int8_linear",
+    "EPS", "INV_QMAX", "codes_spec", "dequant_epilogue", "fused_int8_linear",
     "fused_int8_linear_plain", "int8_gemm_eligible", "int_mm",
-    "quantize_acts", "set_fused_enabled",
+    "quantize_acts", "set_fused_enabled", "weight_spec",
 ]

@@ -15,7 +15,9 @@ Nested dicts map to nested dicts and arrays to tensors. bf16 arrays (the
 `bfloat16` numpy dtype that JAX arrays carry) become bf16 tensors;
 `params_to_numpy` returns them as fp32 arrays (exact), since numpy itself
 has no bf16. An int8 tree (models/quantize.py: int8 `kernel_q`, fp32
-`w_scale`) crosses with its dtypes kept, both ways.
+`w_scale`) crosses with its dtypes kept, both ways; its `kernel_q` leaves
+are laid out K-major on the way in, as `quantize_linear` stores them (the
+same values and shape: the layout the int8 GEMMs read in place).
 
 Under tensor parallelism `params_from_numpy(tree, mesh=...)` gives this
 rank's shard (parallel/sharding.py `shard_params`); `gather_params` gives
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 
 from .models.layers import resolve_device
+from .models.quantize import k_major
 from .parallel.sharding import shard_params
 
 
@@ -53,7 +56,8 @@ def params_from_numpy(tree: Mapping[str, Any], device="cuda", mesh=None):
 
 def _from_numpy(tree, dev):
     if isinstance(tree, Mapping):
-        return {k: _from_numpy(v, dev) for k, v in tree.items()}
+        return {k: (k_major(_from_numpy(v, dev)) if k == "kernel_q"
+                    else _from_numpy(v, dev)) for k, v in tree.items()}
     if hasattr(tree, "_asdict"):  # a NamedTuple such as DeformableParams
         return _from_numpy(tree._asdict(), dev)
     return _to_tensor(tree, dev)

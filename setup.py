@@ -18,7 +18,7 @@ setup(
     ),
     # The PyTorch port's CUDA kernels are compiled from these sources with
     # nvcc at first use (dinov2_od_tpu_torch/ops/_build.py).
-    package_data={"dinov2_od_tpu_torch": ["csrc/*.cu"]},
+    package_data={"dinov2_od_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

@@ -151,16 +151,17 @@ def test_quantize_linear_matches_jax_on_stacked_leaves(jax_mods):
 
 
 def test_int8_kernels_are_stored_for_the_gemm_that_reads_them():
-    """Below K = 2048 kernel_q is stored K-major (cuBLASLt's int8 layout),
-    from K = 2048 N-contiguous (the fused kernel's): the same values."""
+    """Every kernel_q is stored K-major: below K = 2048 for cuBLASLt's s8
+    GEMM, from K = 2048 for the fused kernel's wgmma, which reads s8
+    operands K-major only. The same values and shapes as the JAX tree."""
     rng = np.random.default_rng(10)
-    for k, kmajor in ((768, True), (2048, False)):
+    for k in (768, 2048):
         w = torch.from_numpy(rng.normal(size=(2, k, 256)).astype(np.float32))
         q = pq.quantize_linear({"kernel": w, "bias": torch.zeros(2, 256)})
         kq = q["kernel_q"]
         assert kq.shape == (2, k, 256)
-        assert kq.stride()[-2:] == ((1, k) if kmajor else (256, 1))
-        assert kq[1].stride() == ((1, k) if kmajor else (256, 1))
+        assert kq.stride()[-2:] == (1, k)
+        assert kq[1].stride() == (1, k)
         codes = torch.clamp(torch.round(w / q["w_scale"][:, None, :]), -127,
                             127)
         assert torch.equal(kq.float(), codes)
