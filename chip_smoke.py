@@ -10,8 +10,8 @@ non-zero and prints no result:
 1. card    - the card's name and power limit, from nvidia-smi;
 2. build   - every CUDA kernel of the port, compiled with nvcc for sm_90a
              from the sources in the checkout, one nvcc per source at once;
-             ptxas's registers and spills of each kernel of the two TMA +
-             wgmma sources (B6, B5b), which must not spill;
+             ptxas's registers and spills of each kernel of the four TMA +
+             wgmma sources (B6, B5b, B5f, B4b), which must not spill;
 3. kernels - each kernel against its plain PyTorch version at the shapes
              of the main paths, within stated tolerances, and timed
              (device time from torch.profiler; CUDA events as event_ms)
@@ -396,9 +396,10 @@ TRACE_RUNS = (("ViT-B/224 b32 train", {}),
                                      "BENCH_BATCH": "8"}))
 
 
-# The sources redesigned for Hopper with TMA and wgmma (B6, B5b): ptxas
-# must report no spills for any of their kernels.
-HOPPER_SOURCES = ("int8_gemm", "flash_attn_bhsd_bwd")
+# The sources redesigned for Hopper with TMA and wgmma (B6, B5b, B5f,
+# B4b): ptxas must report no spills for any of their kernels.
+HOPPER_SOURCES = ("int8_gemm", "flash_attn_bhsd_bwd", "flash_attn_bhsd_fwd",
+                  "flash_attn_allheads_bwd")
 
 
 def log(msg: str) -> None:
@@ -1094,7 +1095,8 @@ def phase_bhsd_kernels(seed: int):
                                   "flash_attn_bhsd_fwd.cu",
                         "replaces": "dinov2_od_tpu/ops/flash_attention.py:99",
                         "replaces_function": "_fwd_kernel",
-                        "max_abs_err": err_o, **frow}
+                        "max_abs_err": err_o, **frow,
+                        "ptxas": ptxas_report("flash_attn_bhsd_fwd")}
                     entries["flash_attn_bhsd_bwd"] = {
                         "name": "flash_attn_bhsd_bwd", **common,
                         "source": "dinov2_od_tpu_torch/csrc/"
@@ -1275,7 +1277,7 @@ def phase_allheads_kernels(seed: int):
                         "replaces_function": "_bwd_kernel_allheads",
                         "max_abs_err": max(err.values()),
                         "max_rel_err": max(rel.values()), **brow,
-                        "ptxas": ptxas_report("flash_attn_bhsd_bwd")}
+                        "ptxas": ptxas_report("flash_attn_allheads_bwd")}
             log("kernels: flash_attn_allheads " + json.dumps(row))
             del q, k, v, do, o, lse, got, again, ref, o_c, got_c, o_ref
             torch.cuda.empty_cache()

@@ -36,31 +36,55 @@
 // Design. The TPU kernel holds a head's whole [Sq, Sk] logits in VMEM and
 // takes dq, dk and dv from them in one pass. A Hopper block has 227 KB, and
 // summing dq across key-tile blocks needs atomics (B5b's route, which makes
-// dq's low bits vary from run to run). Here the grid splits in two roles,
-// one launch: blocks [0, n_key_tiles) of each (head, batch) own 128 keys (8
-// warps of 16) and loop over 64-row q/dO tiles, adding p^T dO into dv and
-// ds^T q into dk in fp32 registers (the transposed orientation makes p^T and
-// ds^T A operands straight from the accumulators), as B5b does, without its
-// dq share; blocks past them own 128 query rows (8 warps of 16), keep their
-// q (scaled) and dO (scaled) fragments in registers, stream 64-key K/V
-// tiles, recompute s, p, dp and ds, and add ds k into a dq accumulator in
-// registers, which each block writes once. Seven products per (q tile, key
-// tile) pair where the TPU kernel takes five, in exchange for no atomics: dq,
-// dk and dv are all deterministic. Tiles arrive by cp.async, double
-// buffered; all products run on mma.sync m16n8k16 (bf16 in, fp32
-// accumulate), operands needed transposed are read with ldmatrix.trans. fp32
-// inputs take CUDA-core kernels with the same two roles (one thread per key,
-// one per query row), since the tensor cores would round to tf32.
+// dq's low bits vary from run to run). Here the work splits into units of
+// 64 rows in two roles, one launch, one unit a block:
+// - a dkv unit owns 64 keys of one (batch, head) and loops over 64-row
+//   q/dO tiles: s^T = k . q'^T and dp^T = v . dO'^T (wgmma, both operands
+//   in shared memory), p^T and ds^T in registers, dv += p^T . dO and
+//   dk += ds^T . q (wgmma with A from registers and B MN-major through the
+//   transpose bit): B5b's path without its dq share;
+// - a dq unit owns 64 query rows and loops over 64-key K/V tiles:
+//   s = q' . k^T and dp = dO' . v^T, p and ds in registers, dq += ds . k
+//   (A from registers, k MN-major), written once.
+// Seven products per (q tile, key tile) pair where the TPU kernel takes
+// five, in exchange for no atomics: dq, dk and dv are deterministic. The
+// work counts units, not 128-row blocks, so at 257 tokens the one-row
+// tail units are a fifth of the work, not a third; the role whose units
+// walk more tiles comes first, so the longest units start first. A
+// persistent grid, one block a multiprocessor, holds a producer warpgroup
+// and two consumer warpgroups; each consumer takes its own units (every
+// other one, in turn with the other blocks) and has its own producer
+// thread, which brings a unit's own two tiles (refilled as soon as the
+// consumer's last product of a unit has read them) and the streamed tiles
+// through a 4-stage mbarrier ring by TMA (4-D tensor maps over
+// [B, S, H, 64] with the real strides, 128-byte swizzle; rows out of
+// bounds read as zeros, the masks stay explicit). setmaxnreg gives the
+// consumers 232 registers, the producer warpgroup 40; ptxas fits the
+// consumers in the 168 a thread that one block of 384 threads a
+// multiprocessor leaves, without spills (two blocks of 256 threads, 128
+// registers each, spilled, and ptxas serialised their wgmma). The
+// contract rounds the scaled operands: a dq unit scales its own q and dO
+// in place once; a dkv unit writes q' = bf(q * bf(scale*log2e)) and
+// dO' = bf(dO * bf(scale)) of the next tile into one slot while this
+// tile's dv and dk products run (s^T and dp^T, which read the slot, have
+// landed), with the tile's lse and delta, loaded a tile ahead. p's
+// exponentials are one SFU instruction each (ex2.approx.ftz: results
+// below 2^-126 flush to zero, where exp2f adds a denormal fix-up). fp32
+// inputs take CUDA-core kernels with the same two roles (one thread per
+// key, one per query row), since the tensor cores would round to tf32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
+using namespace hopper;
+
 typedef __nv_bfloat16 bf16;
-typedef __nv_bfloat162 bf162;
 
 constexpr int kHeadDim = 64;
 
@@ -87,405 +111,360 @@ struct Args {
 };
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core kernel
+// bf16 kernel: TMA, wgmma, a producer warpgroup and two consumer
+// warpgroups, each consumer on its own units
 // ---------------------------------------------------------------------------
 
-constexpr int kKeys = 128;  // keys per dk/dv block, 16 per warp
-constexpr int kRows = 128;  // query rows per dq block, 16 per warp
-constexpr int kTile = 64;   // rows of a streamed q/dO or K/V tile
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-// Row pitch of the shared tiles: 64 + 8 bf16 = 144 bytes keeps the 16-byte
-// cp.async/ldmatrix rows aligned and spreads the fragment loads of one warp
-// over all 32 banks.
-constexpr int kLd = kHeadDim + 8;
-// dk/dv role: k and v staging [kKeys][kLd] each, q and dO [2][kTile][kLd]
-// each, lse and delta of two q tiles. dq role: q and dO staging [kRows][kLd]
-// each, then K and V [2][kTile][kLd] each. The larger of the two.
-constexpr int kDkvSmem = (2 * kKeys + 4 * kTile) * kLd * 2 + 4 * kTile * 4;
-constexpr int kDqSmem = (2 * kRows + 4 * kTile) * kLd * 2;
-constexpr int kSmemBytes = kDkvSmem > kDqSmem ? kDkvSmem : kDqSmem;
+constexpr int kUnit = 64;    // rows of a unit and of a streamed tile
+constexpr int kStages = 4;   // each consumer's ring of streamed tile pairs
+constexpr int kRowBytes = kHeadDim * 2;  // 128: one swizzled row
+constexpr int kTile = kUnit * kRowBytes;  // 8 KB
+constexpr int kBf16Threads = 3 * 128;
+// setmaxnreg's split, 2 x 232 + 40 = 504 a thread triple of 3 x 168.
+constexpr int kConsumerRegs = 232;
+constexpr int kProducerRegs = 40;
 
-__device__ __forceinline__ uint32_t as_u32(bf162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+// Shared memory, from a 1024-byte boundary, one part a consumer: the
+// unit's own two tiles (k and v of a dkv unit, q' and dO' of a dq unit);
+// per stage the streamed pair (q and dO, or k and v); a dkv unit's q' and
+// dO' of one q tile; the lse and delta of two q tiles; the barriers.
+constexpr int kOffOwn = 0;
+constexpr int kOffStage = kOffOwn + 2 * kTile;
+constexpr int kStageBytes = 2 * kTile;
+constexpr int kOffScaled = kOffStage + kStages * kStageBytes;
+constexpr int kOffStats = kOffScaled + 2 * kTile;
+constexpr int kOffBar = kOffStats + 2 * 2 * kUnit * 4;
+constexpr int kNumBars = 2 + 2 * kStages;
+constexpr int kPartBytes = (kOffBar + kNumBars * 8 + 1023) / 1024 * 1024;
+constexpr int kBf16Smem = 1024 + 2 * kPartBytes;
+constexpr int kWgBar = 1;  // + c: consumer c's warpgroup alone
 
-__device__ __forceinline__ uint32_t raw_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+struct UnitArgs {
+  const float* lse;
+  const float* delta;
+  bf16* dq;
+  bf16* dk;
+  bf16* dv;
+  int Sq, Sk, H, kv_len, q_len;
+  int n_qu, n_ku;  // dq and dkv units of a (batch, head)
+  int bh;          // batch * heads
+  int n_units;     // bh * (n_qu + n_ku)
+  int dq_first;    // 1: the dq units come first
+  float qscale, doscale, scale;
+};
 
-// Two values multiplied by `mult` and rounded back to bf16, as JAX
-// multiplies a bf16 array by a Python scalar.
-__device__ __forceinline__ uint32_t scaled_pair(const bf16* p, float mult) {
-  const float2 f = __bfloat1622float2(*reinterpret_cast<const bf162*>(p));
-  return as_u32(__floats2bfloat162_rn(f.x * mult, f.y * mult));
-}
+struct Unit {
+  bool dq;     // a dq unit (else dkv)
+  int row0;    // its first query row (dq) or key (dkv)
+  int h, b;
+  int n_tiles;  // streamed tiles: key tiles (dq) or q tiles (dkv); 0 idle
+};
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  const int src_size = valid ? 16 : 0;  // 0: zero-fill, read nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr),
-               "l"(gmem), "r"(src_size)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* smem) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// Rows [row0, row0 + ROWS) of one head's [S, 64] matrix into a shared
-// tile; rows at or past `n_valid` are zero-filled.
-template <int ROWS>
-__device__ __forceinline__ void load_rows(bf16* tile, const bf16* base,
-                                          long long row_stride, int row0,
-                                          int n_valid, int tid) {
-#pragma unroll
-  for (int i = 0; i < (ROWS * kHeadDim / 8) / kThreads; ++i) {
-    const int c = tid + i * kThreads;
-    const int r = c >> 3;
-    const int col = (c & 7) * 8;
-    const int row = row0 + r;
-    const bool valid = row < n_valid;
-    const bf16* src = base + (valid ? row : 0) * row_stride + col;
-    cp_async16(tile + r * kLd + col, src, valid);
-  }
-}
-
-// lse and delta of q rows [q0, q0 + kTile); rows at or past q_len get
-// lse +inf, which makes their p exactly 0.
-__device__ __forceinline__ void load_stats(float* sl, float* sd, const Args& a,
-                                           long long bh, int q0, int tid) {
-  if (tid < kTile) {
-    const int r = q0 + tid;
-    sl[tid] = r < a.q_len ? a.lse[bh * a.Sq + r] : INFINITY;
-  } else if (tid < 2 * kTile) {
-    const int r = q0 + tid - kTile;
-    sd[tid - kTile] = r < a.q_len ? a.delta[bh * a.Sq + r] : 0.f;
-  }
-}
-
-// A fragments of the 16 x 64 row block at `rows` (row pitch kLd), each
-// value multiplied by `mult` in bf16 unless mult is 1.
-__device__ __forceinline__ void a_frags(uint32_t (&f)[kHeadDim / 16][4],
-                                        const bf16* rows, int g, int t,
-                                        float mult = 1.f) {
-#pragma unroll
-  for (int kk = 0; kk < kHeadDim / 16; ++kk) {
-    const int c = kk * 16 + t * 2;
-    const bf16* r0 = rows + g * kLd + c;
-    const bf16* r1 = rows + (g + 8) * kLd + c;
-    if (mult == 1.f) {
-      f[kk][0] = raw_pair(r0);
-      f[kk][1] = raw_pair(r1);
-      f[kk][2] = raw_pair(r0 + 8);
-      f[kk][3] = raw_pair(r1 + 8);
-    } else {
-      f[kk][0] = scaled_pair(r0, mult);
-      f[kk][1] = scaled_pair(r1, mult);
-      f[kk][2] = scaled_pair(r0 + 8, mult);
-      f[kk][3] = scaled_pair(r1 + 8, mult);
-    }
-  }
-}
-
-// acc[n] (16 x 8 tiles, n = 0..7) = A (16 x 64) . B^T, where B is a
-// 64 x 64 shared tile whose rows are the n index (row pitch kLd), each B
-// value multiplied by `mult` in bf16 first unless mult is 1.
-__device__ __forceinline__ void mma_abt(float (&acc)[8][4],
-                                        const uint32_t (&a)[4][4],
-                                        const bf16* b_rows, int g, int t,
-                                        float mult) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[n][j] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kHeadDim / 16; ++kk) {
-      const bf16* bp = b_rows + (n * 8 + g) * kLd + kk * 16 + t * 2;
-      if (mult == 1.f)
-        mma_16816(acc[n], a[kk], raw_pair(bp), raw_pair(bp + 8));
-      else
-        mma_16816(acc[n], a[kk], scaled_pair(bp, mult),
-                  scaled_pair(bp + 8, mult));
-    }
-  }
-}
-
-// The 16 x 64 fp32 accumulator x as bf16 A fragments of a product over
-// its 64 columns: accumulator tiles 2j and 2j+1 form k-step j.
-__device__ __forceinline__ void acc_to_a(uint32_t (&f)[4][4],
-                                         const float (&x)[8][4]) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    f[n >> 1][(n & 1) * 2 + 0] = as_u32(__floats2bfloat162_rn(x[n][0], x[n][1]));
-    f[n >> 1][(n & 1) * 2 + 1] = as_u32(__floats2bfloat162_rn(x[n][2], x[n][3]));
-  }
-}
-
-// acc[n] (16 x 8 tiles over 64 head dims) += A (16 x 64) . M, where M is a
-// 64 x 64 shared tile stored row-major over the contraction index, read
-// transposed with ldmatrix.trans.
-__device__ __forceinline__ void mma_am(float (&acc)[8][4],
-                                       const uint32_t (&a)[4][4],
-                                       const bf16* m, int lane) {
-  const int mi = lane >> 3;
-  const int mr = lane & 7;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-    for (int np = 0; np < kHeadDim / 16; ++np) {
-      uint32_t bf[4];
-      ldmatrix_x4_trans(
-          bf, m + (kk * 16 + (mi & 1) * 8 + mr) * kLd + (np * 2 + (mi >> 1)) * 8);
-      mma_16816(acc[np * 2], a[kk], bf[0], bf[1]);
-      mma_16816(acc[np * 2 + 1], a[kk], bf[2], bf[3]);
-    }
-  }
-}
-
-// Rows row and row + 8 of a 16 x 64 fp32 accumulator into a contiguous
-// [B, S, H, 64] bf16 output, rows at or past S skipped.
-__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[8][4],
-                                           int row, int S, int H, int h, int b,
-                                           int t) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int rr = row + r * 8;
-    if (rr >= S) continue;
-    bf16* op = out + ((static_cast<long long>(b) * S + rr) * H + h) * kHeadDim;
-#pragma unroll
-    for (int n = 0; n < kHeadDim / 8; ++n)
-      *reinterpret_cast<bf162*>(op + n * 8 + t * 2) =
-          __floats2bfloat162_rn(acc[n][2 * r], acc[n][2 * r + 1]);
-  }
-}
-
-// The dk/dv role: 128 keys, every q tile.
-__device__ __forceinline__ void dkdv_bf16(const Args& a, unsigned char* smem,
-                                          int key0, int h, int b) {
-  bf16* sK = reinterpret_cast<bf16*>(smem);  // the block's k rows
-  bf16* sV = sK + kKeys * kLd;               // the block's v rows
-  bf16* sQ = sV + kKeys * kLd;               // [2][kTile * kLd]
-  bf16* sDO = sQ + 2 * kTile * kLd;          // [2][kTile * kLd]
-  float* sL = reinterpret_cast<float*>(sDO + 2 * kTile * kLd);  // [2][kTile]
-  float* sD = sL + 2 * kTile;                                   // [2][kTile]
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const long long bh = static_cast<long long>(b) * a.H + h;
-  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.qs.b + h * a.qs.h;
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.ks.b + h * a.ks.h;
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vs.b + h * a.vs.h;
-  const bf16* dob =
-      static_cast<const bf16*>(a.dout) + b * a.dos.b + h * a.dos.h;
-
-  float dk[8][4], dv[8][4];
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dk[n][j] = dv[n][j] = 0.f;
-
-  if (key0 < a.kv_len) {  // a tile of masked keys only keeps dk = dv = 0
-    const int n_qt = (a.q_len + kTile - 1) / kTile;
-    load_rows<kKeys>(sK, kb, a.ks.s, key0, a.kv_len, tid);
-    load_rows<kKeys>(sV, vb, a.vs.s, key0, a.kv_len, tid);
-    load_rows<kTile>(sQ, qb, a.qs.s, 0, a.q_len, tid);
-    load_rows<kTile>(sDO, dob, a.dos.s, 0, a.q_len, tid);
-    cp_async_commit();
-    load_stats(sL, sD, a, bh, 0, tid);
-    cp_async_wait<0>();
-    __syncthreads();
-    uint32_t kf[4][4], vf[4][4];  // this warp's 16 keys of k and v
-    a_frags(kf, sK + warp * 16 * kLd, g, t);
-    a_frags(vf, sV + warp * 16 * kLd, g, t);
-    const int my_key = key0 + warp * 16 + g;  // rows my_key, my_key + 8
-    const bool kmask0 = my_key >= a.kv_len;
-    const bool kmask1 = my_key + 8 >= a.kv_len;
-
-    for (int qt = 0; qt < n_qt; ++qt) {
-      const int buf = qt & 1;
-      if (qt + 1 < n_qt) {
-        const int nb = buf ^ 1;
-        const int q1 = (qt + 1) * kTile;
-        load_rows<kTile>(sQ + nb * kTile * kLd, qb, a.qs.s, q1, a.q_len, tid);
-        load_rows<kTile>(sDO + nb * kTile * kLd, dob, a.dos.s, q1, a.q_len,
-                         tid);
-        cp_async_commit();
-        load_stats(sL + nb * kTile, sD + nb * kTile, a, bh, q1, tid);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const bf16* sq = sQ + buf * kTile * kLd;
-      const bf16* sdo = sDO + buf * kTile * kLd;
-      const float* lse = sL + buf * kTile;
-      const float* dlt = sD + buf * kTile;
-
-      // p^T = exp2(k . qs^T - lse): 16 keys x 64 queries.
-      float x[8][4];
-      mma_abt(x, kf, sq, g, t, a.qscale);
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const float l = lse[n * 8 + t * 2 + j];
-          x[n][j] = kmask0 ? 0.f : exp2f(x[n][j] - l);
-          x[n][2 + j] = kmask1 ? 0.f : exp2f(x[n][2 + j] - l);
-        }
-      uint32_t pf[4][4];
-      acc_to_a(pf, x);
-      mma_am(dv, pf, sdo, lane);  // dv += p^T . dO
-
-      // ds^T = p^T * (v . dos^T - delta * scale).
-      float dp[8][4];
-      mma_abt(dp, vf, sdo, g, t, a.doscale);
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const float d = dlt[n * 8 + t * 2 + j] * a.scale;
-          x[n][j] = x[n][j] * (dp[n][j] - d);
-          x[n][2 + j] = x[n][2 + j] * (dp[n][2 + j] - d);
-        }
-      uint32_t dsf[4][4];
-      acc_to_a(dsf, x);
-      mma_am(dk, dsf, sq, lane);  // dk += ds^T . q
-      __syncthreads();  // this q buffer is refilled next
-    }
-  }
-  const int row = key0 + warp * 16 + g;
-  store_rows(static_cast<bf16*>(a.dk), dk, row, a.Sk, a.H, h, b, t);
-  store_rows(static_cast<bf16*>(a.dv), dv, row, a.Sk, a.H, h, b, t);
-}
-
-// The dq role: 128 query rows, every key tile.
-__device__ __forceinline__ void dq_bf16(const Args& a, unsigned char* smem,
-                                        int q0, int h, int b) {
-  bf16* sQ = reinterpret_cast<bf16*>(smem);  // [kRows * kLd]
-  bf16* sDO = sQ + kRows * kLd;              // [kRows * kLd]
-  bf16* sK = sDO + kRows * kLd;              // [2][kTile * kLd]
-  bf16* sV = sK + 2 * kTile * kLd;           // [2][kTile * kLd]
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const long long bh = static_cast<long long>(b) * a.H + h;
-  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.qs.b + h * a.qs.h;
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.ks.b + h * a.ks.h;
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vs.b + h * a.vs.h;
-  const bf16* dob =
-      static_cast<const bf16*>(a.dout) + b * a.dos.b + h * a.dos.h;
-
-  float dq[8][4];
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dq[n][j] = 0.f;
-
-  if (q0 < a.q_len) {  // rows past q_len only keep dq = 0
-    const int n_kt = (a.kv_len + kTile - 1) / kTile;
-    load_rows<kRows>(sQ, qb, a.qs.s, q0, a.q_len, tid);
-    load_rows<kRows>(sDO, dob, a.dos.s, q0, a.q_len, tid);
-    load_rows<kTile>(sK, kb, a.ks.s, 0, a.kv_len, tid);
-    load_rows<kTile>(sV, vb, a.vs.s, 0, a.kv_len, tid);
-    cp_async_commit();
-    // lse and delta of rows g and g + 8 of this warp.
-    float lse[2], dlt[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = q0 + warp * 16 + g + r * 8;
-      const bool live = row < a.q_len;
-      lse[r] = live ? a.lse[bh * a.Sq + row] : INFINITY;
-      dlt[r] = live ? a.delta[bh * a.Sq + row] * a.scale : 0.f;
-    }
-    cp_async_wait<0>();
-    __syncthreads();
-    uint32_t qf[4][4], dof[4][4];  // this warp's 16 rows, scaled in bf16
-    a_frags(qf, sQ + warp * 16 * kLd, g, t, a.qscale);
-    a_frags(dof, sDO + warp * 16 * kLd, g, t, a.doscale);
-
-    for (int kt = 0; kt < n_kt; ++kt) {
-      const int buf = kt & 1;
-      if (kt + 1 < n_kt) {
-        const int nb = buf ^ 1;
-        const int k1 = (kt + 1) * kTile;
-        load_rows<kTile>(sK + nb * kTile * kLd, kb, a.ks.s, k1, a.kv_len, tid);
-        load_rows<kTile>(sV + nb * kTile * kLd, vb, a.vs.s, k1, a.kv_len, tid);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const bf16* sk = sK + buf * kTile * kLd;
-      const bf16* sv = sV + buf * kTile * kLd;
-      const int key0 = kt * kTile;
-
-      // p = exp2(qs . k^T - lse): 16 rows x 64 keys.
-      float x[8][4];
-      mma_abt(x, qf, sk, g, t, 1.f);
-      float dp[8][4];
-      mma_abt(dp, dof, sv, g, t, 1.f);  // dp = dos . v^T
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const bool live = key0 + n * 8 + t * 2 + j < a.kv_len;
-          const float p0 = live ? exp2f(x[n][j] - lse[0]) : 0.f;
-          const float p1 = live ? exp2f(x[n][2 + j] - lse[1]) : 0.f;
-          x[n][j] = p0 * (dp[n][j] - dlt[0]);
-          x[n][2 + j] = p1 * (dp[n][2 + j] - dlt[1]);
-        }
-      uint32_t dsf[4][4];
-      acc_to_a(dsf, x);
-      mma_am(dq, dsf, sk, lane);  // dq += ds . k
-      __syncthreads();  // this K/V buffer is refilled next
-    }
-  }
-  store_rows(static_cast<bf16*>(a.dq), dq, q0 + warp * 16 + g, a.Sq, a.H, h,
-             b, t);
-}
-
-__global__ void __launch_bounds__(kThreads, 1) allheads_bwd_bf16_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  if (static_cast<int>(blockIdx.x) < a.n_key_blocks)
-    dkdv_bf16(a, smem, blockIdx.x * kKeys, h, b);
+__device__ __forceinline__ Unit unit_of(const UnitArgs& a, int u) {
+  const int n_first = a.dq_first ? a.n_qu : a.n_ku;
+  const int n_second = a.dq_first ? a.n_ku : a.n_qu;
+  const bool first = u < a.bh * n_first;
+  const int n_role = first ? n_first : n_second;
+  if (!first) u -= a.bh * n_first;
+  const int bh = u / n_role;
+  Unit out;
+  out.dq = first == static_cast<bool>(a.dq_first);
+  out.row0 = (u % n_role) * kUnit;
+  out.h = bh % a.H;
+  out.b = bh / a.H;
+  // A unit past the live rows walks no tile and only writes zeros.
+  if (out.dq)
+    out.n_tiles = out.row0 < a.q_len ? (a.kv_len + kUnit - 1) / kUnit : 0;
   else
-    dq_bf16(a, smem, (blockIdx.x - a.n_key_blocks) * kRows, h, b);
+    out.n_tiles = out.row0 < a.kv_len ? (a.q_len + kUnit - 1) / kUnit : 0;
+  return out;
+}
+
+// The tile at `src` (q then dO, 16 KB) into `dst` as q' and dO': 8 uint4
+// a thread of the warpgroup, four loads in flight.
+__device__ __forceinline__ void scale_pair(const uint8_t* src, uint8_t* dst,
+                                           int wt, float qscale,
+                                           float doscale) {
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+  uint4* d = reinterpret_cast<uint4*>(dst);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    uint4 v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) v[u] = s[half * 512 + u * 128 + wt];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      d[half * 512 + u * 128 + wt] =
+          scaled8(v[u], half == 0 ? qscale : doscale);
+  }
+}
+
+// x (64 x 64) = a . b^T, both K-major 64 x 64 bf16 tiles in shared
+// memory, 16 head dims = 32 bytes a step; issued, not committed.
+__device__ __forceinline__ void issue_abt(float (&x)[32], const uint8_t* a,
+                                          const uint8_t* b) {
+  const uint64_t da = desc_sw128(a, 16, 1024);
+  const uint64_t db = desc_sw128(b, 16, 1024);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_bf16_ss<0, 0>(x, da + 2 * kk, db + 2 * kk, kk > 0);
+}
+
+// x (64 x 64) += f . m, f the A fragments of a 64 x 64 bf16 operand in
+// registers, m a 64 x 64 tile in shared memory read MN-major (16 rows =
+// 2048 bytes a step); issued, not committed.
+__device__ __forceinline__ void issue_fm(float (&x)[32],
+                                         const uint32_t (&f)[4][4],
+                                         const uint8_t* m) {
+  const uint64_t dm = desc_sw128(m, 1024, 1024);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_bf16_rs<1>(x, f[kk], dm + 128 * kk, 1);
+}
+
+__global__ void __launch_bounds__(kBf16Threads, 1)
+    allheads_bwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                             const __grid_constant__ CUtensorMap k_map,
+                             const __grid_constant__ CUtensorMap v_map,
+                             const __grid_constant__ CUtensorMap do_map,
+                             const UnitArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem0 = align1024(smem_raw);
+  const int wg = threadIdx.x >> 7;
+  const int wt = threadIdx.x & 127;
+  const int lane = wt & 31;
+  // Consumer c (warpgroup c + 1) and its producer (warp c of warpgroup 0)
+  // share part c of shared memory and take units c + 2 * block, then every
+  // 2 * grid further: the units come longest first.
+  const int c = wg == 0 ? wt >> 5 : wg - 1;
+  uint8_t* smem = smem0 + (c & 1) * kPartBytes;
+  uint64_t* own_full = reinterpret_cast<uint64_t*>(smem + kOffBar);
+  uint64_t* own_empty = own_full + 1;  // the unit's products are issued
+  uint64_t* full = own_full + 2;       // a streamed pair landed
+  uint64_t* empty = full + kStages;    // the consumer is done with it
+  const int first_unit = 2 * blockIdx.x + c;
+  const int stride = 2 * gridDim.x;
+  if (threadIdx.x == 0 || threadIdx.x == 32) {
+    mbar_init(own_full, 1);
+    mbar_init(own_empty, 4);  // one arrival a consumer warp
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producers: lane 0 of warps 0 and 1 issue every TMA copy ----
+    regs_dealloc<kProducerRegs>();
+    if (c < 2 && lane == 0) {
+      int it = 0;  // streamed tiles so far, over all of this consumer's units
+      int n = 0;   // units with tiles so far
+      for (int u = first_unit; u < a.n_units; u += stride) {
+        const Unit un = unit_of(a, u);
+        if (un.n_tiles == 0) continue;
+        const CUtensorMap* own0 = un.dq ? &q_map : &k_map;
+        const CUtensorMap* own1 = un.dq ? &do_map : &v_map;
+        const CUtensorMap* st0 = un.dq ? &k_map : &q_map;
+        const CUtensorMap* st1 = un.dq ? &v_map : &do_map;
+        mbar_wait(own_empty, (n & 1) ^ 1);
+        mbar_expect_tx(own_full, 2 * kTile);
+        tma_load_4d(smem + kOffOwn, own0, own_full, 0, un.h, un.row0, un.b);
+        tma_load_4d(smem + kOffOwn + kTile, own1, own_full, 0, un.h, un.row0,
+                    un.b);
+        for (int i = 0; i < un.n_tiles; ++i, ++it) {
+          const int s = it % kStages;
+          mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+          mbar_expect_tx(&full[s], 2 * kTile);
+          uint8_t* st = smem + kOffStage + s * kStageBytes;
+          tma_load_4d(st, st0, &full[s], 0, un.h, i * kUnit, un.b);
+          tma_load_4d(st + kTile, st1, &full[s], 0, un.h, i * kUnit, un.b);
+        }
+        ++n;
+      }
+    }
+    return;
+  }
+
+  regs_alloc<kConsumerRegs>();
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int r0 = (wt >> 5) * 16 + g;  // rows r0 and r0 + 8 of a unit
+  uint8_t* own = smem + kOffOwn;
+  float* stats = reinterpret_cast<float*>(smem + kOffStats);
+  int it = 0;
+  int n = 0;
+  for (int u = first_unit; u < a.n_units; u += stride) {
+    const Unit un = unit_of(a, u);
+    const int h = un.h;
+    const int b = un.b;
+    const int row = un.row0 + r0;
+    if (un.n_tiles == 0) {  // rows past the live ones: zeros
+      float zero[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) zero[i] = 0.f;
+      if (un.dq) {
+        store_acc_rows(a.dq, zero, row, a.Sq, a.H, h, b, t);
+      } else {
+        store_acc_rows(a.dk, zero, row, a.Sk, a.H, h, b, t);
+        store_acc_rows(a.dv, zero, row, a.Sk, a.H, h, b, t);
+      }
+      continue;
+    }
+    const long long row_base = (static_cast<long long>(b) * a.H + h) * a.Sq;
+
+    if (un.dq) {
+      // ---- dq unit: query rows row0 .. row0 + 63, every K / V tile ----
+      const bool live0 = row < a.q_len;
+      const bool live1 = row + 8 < a.q_len;
+      // lse (+inf past q_len: p = 0 there) and delta * scale of the rows.
+      const float lse0 = live0 ? a.lse[row_base + row] : INFINITY;
+      const float lse1 = live1 ? a.lse[row_base + row + 8] : INFINITY;
+      const float dl0 = live0 ? a.delta[row_base + row] * a.scale : 0.f;
+      const float dl1 = live1 ? a.delta[row_base + row + 8] * a.scale : 0.f;
+      mbar_wait(own_full, n & 1);
+      // q' and dO' in place: the unscaled rows are not needed here.
+      scale_pair(own, own, wt, a.qscale, a.doscale);
+      fence_proxy_async();
+      named_barrier(kWgBar + c, 128);
+      float dq[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+      // s = q' . k^T and dp = dO' . v^T (64 rows x 64 keys) of key tile
+      // kt + 1 are issued while dq += ds . k of tile kt runs.
+      for (int kt = 0; kt < un.n_tiles; ++kt) {
+        const int cur = it + kt;
+        const int s = cur % kStages;
+        mbar_wait(&full[s], (cur / kStages) & 1);
+        const uint8_t* st = smem + kOffStage + s * kStageBytes;
+        // s = q' . k^T and dp = dO' . v^T: 64 rows x 64 keys.
+        float sc[32], dp[32];
+        wgmma_fence();
+        issue_abt(sc, own, st);
+        issue_abt(dp, own + kTile, st + kTile);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        fence_regs(dp);
+        if (kt == un.n_tiles - 1 && lane == 0) mbar_arrive(own_empty);
+        // ds as bf16 A fragments: k-step kk takes keys 16 kk .. 16 kk + 15.
+        uint32_t dsf[4][4];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int key = kt * kUnit + 8 * j + 2 * t;
+          const bool k0 = key < a.kv_len;
+          const bool k1 = key + 1 < a.kv_len;
+          const float p0 = k0 ? exp2_ftz(sc[4 * j] - lse0) : 0.f;
+          const float p1 = k1 ? exp2_ftz(sc[4 * j + 1] - lse0) : 0.f;
+          const float p2 = k0 ? exp2_ftz(sc[4 * j + 2] - lse1) : 0.f;
+          const float p3 = k1 ? exp2_ftz(sc[4 * j + 3] - lse1) : 0.f;
+          dsf[j >> 1][(j & 1) * 2] =
+              pack_bf16(p0 * (dp[4 * j] - dl0), p1 * (dp[4 * j + 1] - dl0));
+          dsf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(
+              p2 * (dp[4 * j + 2] - dl1), p3 * (dp[4 * j + 3] - dl1));
+        }
+        // dq += ds . k: k MN-major.
+        wgmma_fence();
+        issue_fm(dq, dsf, st);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq);
+        if (lane == 0) mbar_arrive(&empty[s]);
+      }
+      store_acc_rows(a.dq, dq, row, a.Sq, a.H, h, b, t);
+    } else {
+      // ---- dkv unit: keys row0 .. row0 + 63, every q / dO tile ----
+      const bool mask0 = row >= a.kv_len;
+      const bool mask1 = row + 8 >= a.kv_len;
+      // Thread wt stages row wt % 64 of a q tile: its lse (wt < 64; +inf
+      // past q_len: p = 0 there) or its delta, loaded a tile ahead.
+      auto stat = [&](int qt) {
+        const int r = qt * kUnit + (wt & 63);
+        if (r >= a.q_len) return wt < 64 ? INFINITY : 0.f;
+        return wt < 64 ? a.lse[row_base + r] : a.delta[row_base + r];
+      };
+      float st_next = stat(0);
+      uint8_t* scaled = smem + kOffScaled;  // q' then dO' of one q tile
+      {
+        const int s = it % kStages;
+        mbar_wait(&full[s], (it / kStages) & 1);
+        scale_pair(smem + kOffStage + s * kStageBytes, scaled, wt, a.qscale,
+                   a.doscale);
+        stats[wt] = st_next;
+        st_next = 1 < un.n_tiles ? stat(1) : 0.f;
+        fence_proxy_async();
+        named_barrier(kWgBar + c, 128);
+      }
+      mbar_wait(own_full, n & 1);
+      float dk[32], dv[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+      for (int qt = 0; qt < un.n_tiles; ++qt) {
+        const int cur = it + qt;
+        const int s = cur % kStages;
+        const uint8_t* st = smem + kOffStage + s * kStageBytes;
+        const float* lse = stats + (qt & 1) * 2 * kUnit;
+        const float* dlt = lse + kUnit;
+        // s^T = k . q'^T and dp^T = v . dO'^T: 64 keys x 64 queries.
+        float sT[32], dpT[32];
+        wgmma_fence();
+        issue_abt(sT, own, scaled);
+        issue_abt(dpT, own + kTile, scaled + kTile);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sT);
+        fence_regs(dpT);
+        if (qt == un.n_tiles - 1 && lane == 0) mbar_arrive(own_empty);
+
+        // p^T and ds^T as bf16 A fragments: k-step kk takes accumulator
+        // columns 16kk .. 16kk + 15, i.e. elements 8kk .. 8kk + 7.
+        uint32_t pf[4][4], dsf[4][4];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = 8 * j + 2 * t;
+          const float d0 = dlt[col] * a.scale;
+          const float d1 = dlt[col + 1] * a.scale;
+          const float p0 = mask0 ? 0.f : exp2_ftz(sT[4 * j] - lse[col]);
+          const float p1 = mask0 ? 0.f : exp2_ftz(sT[4 * j + 1] - lse[col + 1]);
+          const float p2 = mask1 ? 0.f : exp2_ftz(sT[4 * j + 2] - lse[col]);
+          const float p3 = mask1 ? 0.f : exp2_ftz(sT[4 * j + 3] - lse[col + 1]);
+          pf[j >> 1][(j & 1) * 2] = pack_bf16(p0, p1);
+          pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+          dsf[j >> 1][(j & 1) * 2] =
+              pack_bf16(p0 * (dpT[4 * j] - d0), p1 * (dpT[4 * j + 1] - d1));
+          dsf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(
+              p2 * (dpT[4 * j + 2] - d0), p3 * (dpT[4 * j + 3] - d1));
+        }
+
+        // dv += p^T . dO and dk += ds^T . q: B MN-major, 16 q rows a step.
+        wgmma_fence();
+        issue_fm(dv, pf, st + kTile);
+        issue_fm(dk, dsf, st);
+        wgmma_commit();
+        // While they run: the next tile's q', dO' and row statistics, once
+        // every warp is past this tile's s^T and dp^T (they read q', dO').
+        named_barrier(kWgBar + c, 128);
+        if (qt + 1 < un.n_tiles) {
+          const int ns = (cur + 1) % kStages;
+          mbar_wait(&full[ns], ((cur + 1) / kStages) & 1);
+          scale_pair(smem + kOffStage + ns * kStageBytes, scaled, wt,
+                     a.qscale, a.doscale);
+          stats[((qt + 1) & 1) * 2 * kUnit + wt] = st_next;
+          st_next = qt + 2 < un.n_tiles ? stat(qt + 2) : 0.f;
+          fence_proxy_async();
+        }
+        wgmma_wait<0>();
+        fence_regs(dk);
+        fence_regs(dv);
+        named_barrier(kWgBar + c, 128);  // the copies are written
+        if (lane == 0) mbar_arrive(&empty[s]);
+      }
+      store_acc_rows(a.dk, dk, row, a.Sk, a.H, h, b, t);
+      store_acc_rows(a.dv, dv, row, a.Sk, a.H, h, b, t);
+    }
+    it += un.n_tiles;
+    ++n;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -544,8 +523,11 @@ __global__ void __launch_bounds__(kF32Block) allheads_bwd_f32_kernel(Args a) {
         load_row4(sm.own_a + r * kPad, kb, a.ks.s, key0 + r, a.kv_len, col);
         load_row4(sm.own_b + r * kPad, vb, a.vs.s, key0 + r, a.kv_len, col);
       }
-      const float* mk = sm.own_a + tid * kPad;
-      const float* mv = sm.own_b + tid * kPad;
+      // The own rows and the streamed rows are read from shared memory at
+      // each use (volatile): held in registers they would take 128 more
+      // beside dk and dv, and spill.
+      const volatile float* mk = sm.own_a + tid * kPad;
+      const volatile float* mv = sm.own_b + tid * kPad;
       const bool live = key < a.kv_len;
       for (int q0 = 0; q0 < a.q_len; q0 += kF32Stream) {
         __syncthreads();  // the previous tile is consumed (and own rows ready)
@@ -562,18 +544,20 @@ __global__ void __launch_bounds__(kF32Block) allheads_bwd_f32_kernel(Args a) {
         }
         __syncthreads();
         for (int j = 0; j < kF32Stream; ++j) {
+          const volatile float* qj = sm.sa[j];
+          const volatile float* doj = sm.sb[j];
           float s = 0.f, dp = 0.f;
 #pragma unroll
           for (int d = 0; d < kHeadDim; ++d) {
-            s = fmaf(sm.sa[j][d] * a.qscale, mk[d], s);
-            dp = fmaf(sm.sb[j][d] * a.doscale, mv[d], dp);
+            s = fmaf(qj[d] * a.qscale, mk[d], s);
+            dp = fmaf(doj[d] * a.doscale, mv[d], dp);
           }
           const float p = live ? exp2f(s - sm.sl[j]) : 0.f;
           const float ds = p * (dp - sm.sd[j] * a.scale);
 #pragma unroll
           for (int d = 0; d < kHeadDim; ++d) {
-            dv[d] = fmaf(p, sm.sb[j][d], dv[d]);
-            dk[d] = fmaf(ds, sm.sa[j][d], dk[d]);
+            dv[d] = fmaf(p, doj[d], dv[d]);
+            dk[d] = fmaf(ds, qj[d], dk[d]);
           }
         }
       }
@@ -608,8 +592,8 @@ __global__ void __launch_bounds__(kF32Block) allheads_bwd_f32_kernel(Args a) {
       load_row4(sm.own_a + r * kPad, qb, a.qs.s, q0 + r, a.q_len, col);
       load_row4(sm.own_b + r * kPad, dob, a.dos.s, q0 + r, a.q_len, col);
     }
-    const float* mq = sm.own_a + tid * kPad;
-    const float* mdo = sm.own_b + tid * kPad;
+    const volatile float* mq = sm.own_a + tid * kPad;  // as above
+    const volatile float* mdo = sm.own_b + tid * kPad;
     const float lse = live_row ? a.lse[bh * a.Sq + row] : INFINITY;
     const float dlt = live_row ? a.delta[bh * a.Sq + row] * a.scale : 0.f;
     for (int k0 = 0; k0 < a.kv_len; k0 += kF32Stream) {
@@ -623,15 +607,17 @@ __global__ void __launch_bounds__(kF32Block) allheads_bwd_f32_kernel(Args a) {
       __syncthreads();
       const int n = min(kF32Stream, a.kv_len - k0);
       for (int j = 0; j < n; ++j) {
+        const volatile float* kj = sm.sa[j];
+        const volatile float* vj = sm.sb[j];
         float s = 0.f, dp = 0.f;
 #pragma unroll
         for (int d = 0; d < kHeadDim; ++d) {
-          s = fmaf(mq[d] * a.qscale, sm.sa[j][d], s);
-          dp = fmaf(mdo[d] * a.doscale, sm.sb[j][d], dp);
+          s = fmaf(mq[d] * a.qscale, kj[d], s);
+          dp = fmaf(mdo[d] * a.doscale, vj[d], dp);
         }
         const float ds = exp2f(s - lse) * (dp - dlt);
 #pragma unroll
-        for (int d = 0; d < kHeadDim; ++d) dq[d] = fmaf(ds, sm.sa[j][d], dq[d]);
+        for (int d = 0; d < kHeadDim; ++d) dq[d] = fmaf(ds, kj[d], dq[d]);
       }
     }
   }
@@ -645,6 +631,7 @@ __global__ void __launch_bounds__(kF32Block) allheads_bwd_f32_kernel(Args a) {
   }
 }
 
+
 }  // namespace
 
 // Launches the backward on `stream` and returns the launch's cudaError_t
@@ -654,7 +641,9 @@ __global__ void __launch_bounds__(kF32Block) allheads_bwd_f32_kernel(Args a) {
 // rows at or past q_len (<= seq_q) are masked. Strides are in elements, in
 // the (batch, row, head) order of the model's [B, S, H, 64] layout; every
 // pointer and stride must keep 16-byte alignment and head_dim must be 64
-// (the Python wrapper checks both).
+// (the Python wrapper checks both). tma: for bf16, the tensor-map specs
+// (hopper.cuh) of q, k, v and dO, in that order, 16 int64 each (boxes of
+// 64 rows of one head); unused for fp32.
 extern "C" int flash_attn_allheads_bwd(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dq, void* dk, void* dv,
@@ -663,28 +652,59 @@ extern "C" int flash_attn_allheads_bwd(
     long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long do_sb, long long do_ss, long long do_sh,
-    void* stream) {
+    const long long* tma, void* stream) {
   if (head_dim != kHeadDim || kv_len < 1 || kv_len > seq_k || q_len < 1 ||
       q_len > seq_q)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int key_rows = is_bf16 ? kKeys : kF32Block;
-  const int q_rows = is_bf16 ? kRows : kF32Block;
-  const int n_key_blocks = (seq_k + key_rows - 1) / key_rows;
-  const int n_q_blocks = (seq_q + q_rows - 1) / q_rows;
-  Args a{q,      k,       v,      dout,         lse,     delta,
-         dq,     dk,      dv,     seq_q,        seq_k,   heads,
-         kv_len, q_len,   n_key_blocks, qscale, doscale, scale,
-         {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh},
-         {v_sb, v_ss, v_sh}, {do_sb, do_ss, do_sh}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(n_key_blocks + n_q_blocks, heads, batch);
   if (is_bf16) {
-    cudaError_t err = cudaFuncSetAttribute(
-        allheads_bwd_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmemBytes);
+    if (tma == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    CUtensorMap maps[4];
+    const void* ptrs[4] = {q, k, v, dout};
+    for (int i = 0; i < 4; ++i) {
+      const int rc = encode_tensor_map(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                                       ptrs[i], tma + i * kSpecLen,
+                                       CU_TENSOR_MAP_SWIZZLE_128B);
+      if (rc) return rc;
+    }
+    const int n_qu = (seq_q + kUnit - 1) / kUnit;
+    const int n_ku = (seq_k + kUnit - 1) / kUnit;
+    const long long bh = static_cast<long long>(batch) * heads;
+    const long long n_units = bh * (n_qu + n_ku);
+    if (n_units > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    // The role whose units walk more tiles first: a dq unit walks the
+    // key tiles, a dkv unit the query tiles.
+    const int dq_first =
+        (kv_len + kUnit - 1) / kUnit >= (q_len + kUnit - 1) / kUnit;
+    const UnitArgs ua{lse,    delta,   static_cast<bf16*>(dq),
+                      static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                      seq_q,  seq_k,   heads, kv_len, q_len, n_qu, n_ku,
+                      static_cast<int>(bh), static_cast<int>(n_units),
+                      dq_first, qscale, doscale, scale};
+    int dev = 0, n_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(allheads_bwd_bf16_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kBf16Smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    allheads_bwd_bf16_kernel<<<grid, kThreads, kSmemBytes, st>>>(a);
+    // A persistent grid: two units a block at a time, at most one block a
+    // multiprocessor.
+    const long long pairs = (n_units + 1) / 2;
+    const int grid = static_cast<int>(pairs < n_sm ? pairs : n_sm);
+    allheads_bwd_bf16_kernel<<<grid, kBf16Threads, kBf16Smem, st>>>(
+        maps[0], maps[1], maps[2], maps[3], ua);
   } else {
+    const int n_key_blocks = (seq_k + kF32Block - 1) / kF32Block;
+    const int n_q_blocks = (seq_q + kF32Block - 1) / kF32Block;
+    Args a{q,      k,       v,      dout,         lse,     delta,
+           dq,     dk,      dv,     seq_q,        seq_k,   heads,
+           kv_len, q_len,   n_key_blocks, qscale, doscale, scale,
+           {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh},
+           {v_sb, v_ss, v_sh}, {do_sb, do_ss, do_sh}};
+    const dim3 grid(n_key_blocks + n_q_blocks, heads, batch);
     allheads_bwd_f32_kernel<<<grid, kF32Block, 0, st>>>(a);
   }
   return static_cast<int>(cudaGetLastError());

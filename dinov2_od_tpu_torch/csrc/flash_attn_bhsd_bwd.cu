@@ -82,7 +82,6 @@ namespace {
 using namespace hopper;
 
 typedef __nv_bfloat16 bf16;
-typedef __nv_bfloat162 bf162;
 
 constexpr int kHeadDim = 64;
 
@@ -149,43 +148,6 @@ struct TileArgs {
   int Sq, Sk, H, kv_len, q_len;
   float qscale, doscale, scale;
 };
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  bf162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// 8 bf16 values multiplied by `mult` and rounded back to bf16, as JAX
-// multiplies a bf16 array by a Python scalar.
-__device__ __forceinline__ uint4 scaled8(uint4 u, float mult) {
-  bf162* h = reinterpret_cast<bf162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    h[i] = __floats2bfloat162_rn(f.x * mult, f.y * mult);
-  }
-  return u;
-}
-
-// Rows `row` and `row + 8` of a warp's share of a 64 x 64 fp32 wgmma
-// accumulator (elements 4j, 4j+1 and 4j+2, 4j+3 at columns 8j + 2t, +1)
-// into a contiguous [B, S, H, 64] bf16 output, rows at or past S skipped.
-__device__ __forceinline__ void store_acc_rows(bf16* out,
-                                               const float (&acc)[32],
-                                               int row, int S, int H, int h,
-                                               int b, int t) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int rr = row + 8 * r;
-    if (rr >= S) continue;
-    bf16* op = out + ((static_cast<long long>(b) * S + rr) * H + h) * kHeadDim +
-               2 * t;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      *reinterpret_cast<bf162*>(op + 8 * j) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
-  }
-}
 
 __global__ void __launch_bounds__(kBf16Threads, 1)
     bhsd_bwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,

@@ -21,22 +21,48 @@
 // What bounds it on an H100 at ViT-L/560, batch 8 (B=8, H=16, S=1601,
 // bf16): operations. The two products are 4*B*H*S^2*64 = 84.0 GFLOP,
 // 85 us at 989 TFLOP/s; q, k, v and o are 105 MB, 31 us at 3.35 TB/s.
+// A second floor of the same size: the 8*16*1601^2 = 328 M exponentials,
+// at 16 a clock on each of 132 SMs (the SFU), take about 88 us at 1.75 GHz.
+// So the exponentials of one warpgroup have to run under the products of
+// another, or the two floors add up.
 //
 // What cannot carry over from the TPU: `_fwd_kernel` stages the whole K/V
 // of one head in VMEM (404 KiB at 1616 tokens in bf16) and takes one
 // 816-row q block; a Hopper block has 227 KB of shared memory. So K/V
-// tiles of 64 keys stream through double-buffered shared memory (cp.async)
-// with an online softmax (running max and sum in fp32 registers), and the
-// [Sq, Sk] logits never leave registers.
+// tiles stream through shared memory with an online softmax (running max
+// and sum in fp32 registers), and the [Sq, Sk] logits never leave
+// registers.
 //
-// Design for long sequences: one thread block per (128-query tile, head,
-// batch), 8 warps of 16 query rows each, twice the rows of B1's block, so
-// each K/V tile read from L2 feeds twice the products (13 re-reads of a
-// head's K/V at 1601 tokens, not 26) while 8 x 16 x 13 = 1664 blocks stay
-// in flight. The q tile is staged once through the second K/V buffers and
-// kept as register fragments. Both products run on the tensor cores with
-// mma.sync m16n8k16 (bf16 in, fp32 accumulate); v is read transposed with
-// ldmatrix.trans. wgmma, TMA and warp specialisation are later work.
+// Design (FlashAttention-3's forward, https://arxiv.org/abs/2407.08608,
+// sections 3.1-3.2): a persistent grid, one block a streaming
+// multiprocessor, walks the (128-query tile, head, batch) tiles:
+// - a producer warp brings each tile's q rows once (two buffers, so the
+//   next tile's q lands while this one runs) and 128-key K and V tiles
+//   through a 3-stage mbarrier ring, by TMA (4-D tensor maps over
+//   [B, S, H, 64] with the real strides, 128-byte swizzle; rows out of
+//   bounds read as zeros, the key mask stays explicit);
+// - two consumer warpgroups own 64 query rows each. Each scales its rows
+//   to q' = bf(q * bf(scale*log2e)) in place once, then per K/V tile
+//   issues s = q' . k^T (wgmma m64n128k16, both operands in shared
+//   memory, k K-major) and, in a second group, the previous tile's
+//   o += p . v (wgmma m64n72k16 with p as the A operand from registers,
+//   the accumulator's layout being the A fragment's, v MN-major through
+//   the transpose bit); the softmax of this tile (mask, running max, p
+//   rounded to bf16) runs while that product is in flight, and o is
+//   rescaled once it has landed, by a warp whose rows' max moved;
+// - l comes out of the p . v product: B's columns 64 .. 71 are a tile of
+//   ones, so the tensor cores sum each row of the rounded p in fp32, which
+//   takes two instructions an element (unpacking p, adding) off the
+//   softmax;
+// - the two warpgroups take turns to issue their products (two named
+//   barriers, "ping-pong"), so one's exponentials run under the other's
+//   products;
+// - the loop is peeled (first tile, middle tiles, last p . v) and p's
+//   fragments move to the product's registers only after it has landed,
+//   so that ptxas sees fixed wgmma groups and serialises none of them;
+// - setmaxnreg gives the consumers 232 registers and the producer
+//   warpgroup 40 (ptxas fits the consumers in the 168 that 384 threads a
+//   multiprocessor leave, without spills).
 // fp32 route: the tensor cores would round to tf32, so fp32 inputs take a
 // CUDA-core kernel with one thread per query row.
 
@@ -45,7 +71,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 typedef __nv_bfloat16 bf16;
 typedef __nv_bfloat162 bf162;
@@ -58,254 +88,338 @@ struct Strides {
 };
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core kernel
+// bf16 kernel: TMA, wgmma, a producer warp and two consumer warpgroups
 // ---------------------------------------------------------------------------
 
-constexpr int kBlockK = 64;          // keys per shared K/V tile
-constexpr int kWarps = 8;            // 16 query rows each
-constexpr int kBlockQ = kWarps * 16;  // 128 query rows per block
-constexpr int kThreads = kWarps * 32;
-// Row pitch of the shared tiles: 64 + 8 bf16 = 144 bytes, which keeps the
-// 16-byte cp.async/ldmatrix rows aligned and spreads the fragment loads
-// of one warp over all 32 banks.
-constexpr int kLd = kHeadDim + 8;
+constexpr int kTileQ = 128;  // query rows a tile, 64 per consumer warpgroup
+constexpr int kTileK = 128;  // keys a K / V tile
+constexpr int kStages = 3;   // the K / V ring
+constexpr int kRowBytes = kHeadDim * 2;      // 128: one swizzled row
+constexpr int kQBytes = kTileQ * kRowBytes;  // 16 KB
+constexpr int kKBytes = kTileK * kRowBytes;  // 16 KB
+constexpr int kThreads = 3 * 128;
+// setmaxnreg's split, 2 x 232 + 40 = 504 a thread triple of 3 x 168.
+constexpr int kConsumerRegs = 232;
+constexpr int kProducerRegs = 40;
 
-__device__ __forceinline__ uint32_t as_u32(bf162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
+// Shared memory, from a 1024-byte boundary: two q tiles (this one and the
+// next); per stage a K and a V tile; a tile of ones; the barriers.
+constexpr int kOffQ = 0;
+constexpr int kOffStage = kOffQ + 2 * kQBytes;
+constexpr int kStageBytes = 2 * kKBytes;
+constexpr int kOffOnes = kOffStage + kStages * kStageBytes;
+constexpr int kOffBar = kOffOnes + kKBytes;
+constexpr int kNumBars = 4 + 2 * kStages;
+constexpr int kBf16Smem = 1024 + kOffBar + kNumBars * 8;
+// Named barriers (0 is __syncthreads'): consumer c's turn to issue is
+// kTurnBar + c (both consumers, 256 threads); kWgBar + c is consumer c's
+// warpgroup alone.
+constexpr int kTurnBar = 1;
+constexpr int kWgBar = 3;
+
+struct TileArgs {
+  bf16* o;
+  float* lse;
+  int Sq, H, kv_len;
+  int n_qt;     // query tiles of a head
+  int n_tiles;  // n_qt * H * B
+  float qscale;
+};
+
+// Consumer c waits for its turn to issue products, and hands the turn to
+// the other consumer ("ping-pong", FlashAttention-3 section 3.1), so that
+// one's softmax runs under the other's products.
+__device__ __forceinline__ void turn_wait(int c) {
+  named_barrier(kTurnBar + c, 256);
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  const int src_size = valid ? 16 : 0;  // 0: zero-fill, read nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr),
-               "l"(gmem), "r"(src_size)
-               : "memory");
+__device__ __forceinline__ void turn_pass(int c) {
+  named_barrier_arrive(kTurnBar + (c ^ 1), 256);
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+__device__ __forceinline__ const uint8_t* stage_of(const uint8_t* smem,
+                                                   int it) {
+  return smem + kOffStage + (it % kStages) * kStageBytes;
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* smem) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// Rows [row0, row0 + 64) of one head's [S, 64] matrix into a shared tile;
-// rows at or past `n_valid` are zero-filled.
-__device__ __forceinline__ void load_tile(bf16* tile, const bf16* base,
-                                          long long row_stride, int row0,
-                                          int n_valid, int tid) {
+// s = q' . k^T over one K tile (64 rows x 128 keys; both operands
+// K-major, 16 head dims = 32 bytes a step), one group.
+__device__ __forceinline__ void issue_s(float (&s)[64], uint64_t q_desc,
+                                        const uint8_t* sk) {
+  const uint64_t k_desc = desc_sw128(sk, 16, 1024);
 #pragma unroll
-  for (int i = 0; i < (kBlockK * kHeadDim / 8) / kThreads; ++i) {
-    const int c = tid + i * kThreads;
-    const int r = c >> 3;
-    const int col = (c & 7) * 8;
-    const int row = row0 + r;
-    const bool valid = row < n_valid;
-    const bf16* src = base + (valid ? row : 0) * row_stride + col;
-    cp_async16(tile + r * kLd + col, src, valid);
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_bf16_n128_ss<0, 0>(s, q_desc + 2 * kk, k_desc + 2 * kk, kk > 0);
+  wgmma_commit();
+}
+
+// acc += p . [v | 1] over one V tile (p from registers, v MN-major, 16
+// keys = 2048 bytes a step), one group: columns 64 .. 71 of B are the
+// ones tile (`ones`, the same swizzled layout), so acc's columns 64 .. 71
+// sum each row of the rounded p in fp32, the l of the contract.
+__device__ __forceinline__ void issue_pv(float (&acc)[36],
+                                         const uint32_t (&pf)[8][4],
+                                         const uint8_t* sv,
+                                         const uint8_t* ones) {
+  const uint64_t v_desc = desc_sw128(
+      sv, static_cast<uint32_t>(smem_u32(ones) - smem_u32(sv)), 1024);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_bf16_n72_rs<1>(acc, pf[kk], v_desc + 128 * kk, 1);
+  wgmma_commit();
+}
+
+// The online softmax of one K tile in a thread's rows r0 and r0 + 8 (the 4
+// threads of a group share each row): keys at or past kv_len masked, the
+// running max m and sum l updated, corr the factor that rescales o; p
+// rounded to bf16 and packed as the A fragments of p . v (k-step kk takes
+// keys 16 kk .. 16 kk + 15: accumulator elements 8 kk .. 8 kk + 7), l
+// summed from the rounded p.
+template <bool kRagged>
+__device__ __forceinline__ void softmax_tile(const float (&s)[64],
+                                             uint32_t (&pn)[8][4], float& m0,
+                                             float& m1, float& corr0,
+                                             float& corr1, int key0,
+                                             int kv_len, int t) {
+  // The logits with the key mask, in new registers: s itself is the
+  // accumulator of the next s product and is left as it is.
+  float x[64];
+#pragma unroll
+  for (int jj = 0; jj < 16; ++jj)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool masked = kRagged && key0 + 8 * jj + 2 * t + e >= kv_len;
+      x[4 * jj + e] = masked ? kMaskedLogit : s[4 * jj + e];
+      x[4 * jj + 2 + e] = masked ? kMaskedLogit : s[4 * jj + 2 + e];
+    }
+  float mx0 = m0, mx1 = m1;
+#pragma unroll
+  for (int jj = 0; jj < 16; ++jj) {
+    mx0 = fmaxf(mx0, fmaxf(x[4 * jj], x[4 * jj + 1]));
+    mx1 = fmaxf(mx1, fmaxf(x[4 * jj + 2], x[4 * jj + 3]));
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  corr0 = exp2_ftz(m0 - mx0);
+  corr1 = exp2_ftz(m1 - mx1);
+  m0 = mx0;
+  m1 = mx1;
+#pragma unroll
+  for (int jj = 0; jj < 16; ++jj) {
+    pn[jj >> 1][(jj & 1) * 2] = pack_bf16(exp2_ftz(x[4 * jj] - mx0),
+                                          exp2_ftz(x[4 * jj + 1] - mx0));
+    pn[jj >> 1][(jj & 1) * 2 + 1] = pack_bf16(exp2_ftz(x[4 * jj + 2] - mx1),
+                                              exp2_ftz(x[4 * jj + 3] - mx1));
   }
 }
 
-// Two q values scaled by bf(scale*log2e) and rounded back to bf16, as the
-// TPU kernel scales q in its own type.
-__device__ __forceinline__ uint32_t scaled_pair(const bf16* p, float qscale) {
-  const float2 f = __bfloat1622float2(*reinterpret_cast<const bf162*>(p));
-  return as_u32(__floats2bfloat162_rn(f.x * qscale, f.y * qscale));
+// The softmax of K tile j, the key mask applied only to a tile that
+// reaches past kv_len.
+__device__ __forceinline__ void softmax_at(const float (&s)[64],
+                                           uint32_t (&pn)[8][4], float& m0,
+                                           float& m1, float& corr0,
+                                           float& corr1, int key0, int kv_len,
+                                           int t) {
+  if (key0 + kTileK > kv_len)
+    softmax_tile<true>(s, pn, m0, m1, corr0, corr1, key0, kv_len, t);
+  else
+    softmax_tile<false>(s, pn, m0, m1, corr0, corr1, key0, kv_len, t);
 }
 
-__global__ void __launch_bounds__(kThreads)
-    bhsd_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, bf16* __restrict__ o,
-                         float* __restrict__ lse, int Sq, int H, int kv_len,
-                         float qscale, Strides qs, Strides ks, Strides vs) {
-  __shared__ __align__(16) bf16 sK[2][kBlockK * kLd];
-  __shared__ __align__(16) bf16 sV[2][kBlockK * kLd];
+// pf = pn by explicit moves, once the p . v that reads pf has landed: a
+// plain copy lets the compiler give pn pf's registers, so that the softmax
+// would write them while that product still reads them (and ptxas would
+// serialise every wgmma to keep it right).
+__device__ __forceinline__ void take_frags(uint32_t (&pf)[8][4],
+                                           const uint32_t (&pn)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      asm volatile("mov.b32 %0, %1;" : "=r"(pf[kk][i]) : "r"(pn[kk][i]));
+}
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;  // fragment row group
-  const int t = lane & 3;   // thread in group
-  const int q0 = blockIdx.x * kBlockQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+__global__ void __launch_bounds__(kThreads, 1)
+    bhsd_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map,
+                         const TileArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + kOffBar);  // [2]
+  uint64_t* q_empty = q_full + 2;  // [2]: both consumers took their last s
+  uint64_t* full = q_full + 4;     // K and V landed
+  uint64_t* empty = full + kStages;  // both consumers are done with them
+  const int wg = threadIdx.x >> 7;
+  const int wt = threadIdx.x & 127;
+  const int n_kt = (a.kv_len + kTileK - 1) / kTileK;
 
-  const bf16* qb = q + b * qs.b + h * qs.h;
-  const bf16* kb = k + b * ks.b + h * ks.h;
-  const bf16* vb = v + b * vs.b + h * vs.h;
-  const int n_tiles = (kv_len + kBlockK - 1) / kBlockK;
-
-  // The 128 q rows go through the second K/V buffers (rows 0-63 in sK[1],
-  // 64-127 in sV[1]), with the first K/V tile; rows past Sq are zeros.
-  load_tile(sK[1], qb, qs.s, q0, Sq, tid);
-  load_tile(sV[1], qb, qs.s, q0 + kBlockK, Sq, tid);
-  load_tile(sK[0], kb, ks.s, 0, kv_len, tid);
-  load_tile(sV[0], vb, vs.s, 0, kv_len, tid);
-  cp_async_commit();
-  cp_async_wait<0>();
+  // The ones tile of p . [v | 1]: bf16 1.0 throughout, so the swizzle
+  // does not matter.
+  uint8_t* ones = smem + kOffOnes;
+  for (int i = threadIdx.x; i < kKBytes / 16; i += kThreads)
+    reinterpret_cast<uint4*>(ones)[i] =
+        make_uint4(0x3f803f80u, 0x3f803f80u, 0x3f803f80u, 0x3f803f80u);
+  fence_proxy_async();
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&q_full[i], 1);
+      mbar_init(&q_empty[i], 8);  // one arrival a consumer warp
+    }
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    fence_barrier_init();
+  }
   __syncthreads();
 
-  uint32_t qf[kHeadDim / 16][4];  // A fragments of this warp's 16 q rows
-  {
-    const bf16* qw = (warp < 4 ? sK[1] : sV[1]) + (warp & 3) * 16 * kLd;
-#pragma unroll
-    for (int kk = 0; kk < kHeadDim / 16; ++kk) {
-      const int c = kk * 16 + t * 2;
-      qf[kk][0] = scaled_pair(qw + g * kLd + c, qscale);
-      qf[kk][1] = scaled_pair(qw + (g + 8) * kLd + c, qscale);
-      qf[kk][2] = scaled_pair(qw + g * kLd + c + 8, qscale);
-      qf[kk][3] = scaled_pair(qw + (g + 8) * kLd + c + 8, qscale);
-    }
-  }
-  __syncthreads();  // buffers 1 now take the second K/V tile
-
-  float acc[kHeadDim / 8][4];  // o accumulator, 8 tiles of 8 dims
-#pragma unroll
-  for (int n = 0; n < kHeadDim / 8; ++n)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[n][j] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g + 8
-  float l_run[2] = {0.f, 0.f};
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    if (kt + 1 < n_tiles) {
-      const int nb = (kt + 1) & 1;
-      load_tile(sK[nb], kb, ks.s, (kt + 1) * kBlockK, kv_len, tid);
-      load_tile(sV[nb], vb, vs.s, (kt + 1) * kBlockK, kv_len, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* sk = sK[kt & 1];
-    const bf16* sv = sV[kt & 1];
-
-    // s = q k^T over this tile's 64 keys: 8 tiles of 8 keys.
-    float s[kBlockK / 8][4];
-#pragma unroll
-    for (int n = 0; n < kBlockK / 8; ++n) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[n][j] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kHeadDim / 16; ++kk) {
-        const bf16* kp = sk + (n * 8 + g) * kLd + kk * 16 + t * 2;
-        mma_16816(s[n], qf[kk], *reinterpret_cast<const uint32_t*>(kp),
-                  *reinterpret_cast<const uint32_t*>(kp + 8));
+  if (wg == 0) {
+    // ---- producer: one thread issues every TMA copy ----
+    regs_dealloc<kProducerRegs>();
+    if (wt == 0) {
+      int it = 0;  // K / V tiles issued so far, over all of this block's tiles
+      int n = 0;
+      for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x, ++n) {
+        const int qt = tile % a.n_qt;
+        const int h = (tile / a.n_qt) % a.H;
+        const int b = tile / (a.n_qt * a.H);
+        const int qs = n & 1;  // q tiles alternate between two buffers
+        mbar_wait(&q_empty[qs], ((n >> 1) & 1) ^ 1);
+        mbar_expect_tx(&q_full[qs], kQBytes);
+        tma_load_4d(smem + kOffQ + qs * kQBytes, &q_map, &q_full[qs], 0, h,
+                    qt * kTileQ, b);
+        for (int j = 0; j < n_kt; ++j, ++it) {
+          const int s = it % kStages;
+          mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+          mbar_expect_tx(&full[s], kStageBytes);
+          uint8_t* st = smem + kOffStage + s * kStageBytes;
+          tma_load_4d(st, &k_map, &full[s], 0, h, j * kTileK, b);
+          tma_load_4d(st + kKBytes, &v_map, &full[s], 0, h, j * kTileK, b);
+        }
       }
     }
-    const int key0 = kt * kBlockK;
-    if (key0 + kBlockK > kv_len) {
-#pragma unroll
-      for (int n = 0; n < kBlockK / 8; ++n)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          if (key0 + n * 8 + t * 2 + j >= kv_len) {
-            s[n][j] = kMaskedLogit;
-            s[n][2 + j] = kMaskedLogit;
-          }
-    }
-
-    // Online softmax: the 4 threads of a group share each row.
-    float mx[2] = {m_run[0], m_run[1]};
-#pragma unroll
-    for (int n = 0; n < kBlockK / 8; ++n) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
-    }
-    float corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      corr[r] = exp2f(m_run[r] - mx[r]);
-      m_run[r] = mx[r];
-    }
-
-    // p in bf16, laid out as the A fragments of the p.v product: the
-    // accumulator of key tiles 2j and 2j+1 is the A operand of k-step j.
-    uint32_t pf[kBlockK / 16][4];
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int n = 0; n < kBlockK / 8; ++n) {
-      const bf162 p01 = __floats2bfloat162_rn(exp2f(s[n][0] - mx[0]),
-                                              exp2f(s[n][1] - mx[0]));
-      const bf162 p23 = __floats2bfloat162_rn(exp2f(s[n][2] - mx[1]),
-                                              exp2f(s[n][3] - mx[1]));
-      const float2 f01 = __bfloat1622float2(p01);
-      const float2 f23 = __bfloat1622float2(p23);
-      rs[0] += f01.x + f01.y;
-      rs[1] += f23.x + f23.y;
-      pf[n >> 1][(n & 1) * 2 + 0] = as_u32(p01);
-      pf[n >> 1][(n & 1) * 2 + 1] = as_u32(p23);
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
-      l_run[r] = l_run[r] * corr[r] + rs[r];
-    }
-#pragma unroll
-    for (int n = 0; n < kHeadDim / 8; ++n) {
-      acc[n][0] *= corr[0];
-      acc[n][1] *= corr[0];
-      acc[n][2] *= corr[1];
-      acc[n][3] *= corr[1];
-    }
-
-    // o += p v. ldmatrix.x4.trans hands each lane the B fragments of two
-    // 8-dim tiles for 16 keys: matrices (keys 0-7 | 8-15) x (tile 2j | 2j+1).
-    const int mi = lane >> 3;
-    const int mr = lane & 7;
-#pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-#pragma unroll
-      for (int np = 0; np < kHeadDim / 16; ++np) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(
-            vf, sv + (kk * 16 + (mi & 1) * 8 + mr) * kLd + (np * 2 + (mi >> 1)) * 8);
-        mma_16816(acc[np * 2], pf[kk], vf[0], vf[1]);
-        mma_16816(acc[np * 2 + 1], pf[kk], vf[2], vf[3]);
-      }
-    }
-    __syncthreads();  // this buffer is refilled two tiles on
+    return;
   }
 
+  // ---- consumer warpgroups: query rows 64 c .. 64 c + 63 of each tile ----
+  regs_alloc<kConsumerRegs>();
+  const int c = wg - 1;
+  const int lane = wt & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int r0 = (wt >> 5) * 16 + g;  // rows r0 and r0 + 8 of the 64
+  if (c == 1) turn_pass(c);  // consumer 0 issues first
+
+  float s[64];  // the logits of a K tile
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + r * 8;
-    if (row >= Sq) continue;
-    bf16* op = o + ((static_cast<long long>(b) * Sq + row) * H + h) * kHeadDim;
+  for (int i = 0; i < 64; ++i) s[i] = 0.f;
+
+  int it = 0;
+  int n = 0;
+  for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x, ++n) {
+    const int qt = tile % a.n_qt;
+    const int h = (tile / a.n_qt) % a.H;
+    const int b = tile / (a.n_qt * a.H);
+    const bool last_tile = tile + static_cast<int>(gridDim.x) >= a.n_tiles;
+
+    // q' = bf(q * qscale), in place: elementwise, so TMA's swizzle stays.
+    const int qs = n & 1;
+    uint8_t* my_q = smem + kOffQ + qs * kQBytes + c * 64 * kRowBytes;
+    const uint64_t q_desc = desc_sw128(my_q, 16, 1024);
+    mbar_wait(&q_full[qs], (n >> 1) & 1);
+    {
+      uint4* p = reinterpret_cast<uint4*>(my_q);
+      uint4 v[4];
 #pragma unroll
-    for (int n = 0; n < kHeadDim / 8; ++n)
-      *reinterpret_cast<bf162*>(op + n * 8 + t * 2) = __floats2bfloat162_rn(
-          acc[n][2 * r] / l_run[r], acc[n][2 * r + 1] / l_run[r]);
-    if (t == 0)
-      lse[(static_cast<long long>(b) * H + h) * Sq + row] =
-          m_run[r] + log2f(l_run[r]);
+      for (int u = 0; u < 4; ++u) v[u] = p[wt + 128 * u];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) p[wt + 128 * u] = scaled8(v[u], a.qscale);
+    }
+    fence_proxy_async();
+    named_barrier(kWgBar + c, 128);
+
+    float acc[36];  // o's 64 columns, then 8 copies of l
+#pragma unroll
+    for (int i = 0; i < 36; ++i) acc[i] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows r0, r0 + 8
+    float corr0, corr1;
+    uint32_t pf[8][4];  // p of the last K / V tile, A fragments of p . v
+
+    // Key tile 0: s alone.
+    mbar_wait(&full[it % kStages], (it / kStages) & 1);
+    turn_wait(c);
+    wgmma_fence();
+    issue_s(s, q_desc, stage_of(smem, it));
+    turn_pass(c);
+    wgmma_wait<0>();
+    fence_regs(s);
+    if (n_kt == 1 && lane == 0) mbar_arrive(&q_empty[qs]);
+    softmax_at(s, pf, m0, m1, corr0, corr1, 0, a.kv_len, t);
+    // Key tiles 1 ..: s of this tile and p . v of the last one in two
+    // groups; the softmax of this tile runs while p . v does.
+    for (int j = 1; j < n_kt; ++j) {
+      const int cur = it + j;
+      mbar_wait(&full[cur % kStages], (cur / kStages) & 1);
+      turn_wait(c);
+      wgmma_fence();
+      issue_s(s, q_desc, stage_of(smem, cur));
+      issue_pv(acc, pf, stage_of(smem, cur - 1) + kKBytes, ones);
+      turn_pass(c);
+      wgmma_wait<1>();
+      fence_regs(s);
+      if (j == n_kt - 1 && lane == 0) mbar_arrive(&q_empty[qs]);
+      uint32_t pn[8][4];
+      softmax_at(s, pn, m0, m1, corr0, corr1, j * kTileK, a.kv_len, t);
+      wgmma_wait<0>();  // p . v of the last tile has landed
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(&empty[(cur - 1) % kStages]);
+      // o and l rescaled to the new max, skipped by a warp whose rows'
+      // max did not move.
+      if (__any_sync(0xffffffffu, corr0 != 1.f || corr1 != 1.f)) {
+#pragma unroll
+        for (int i = 0; i < 9; ++i) {
+          acc[4 * i] *= corr0;
+          acc[4 * i + 1] *= corr0;
+          acc[4 * i + 2] *= corr1;
+          acc[4 * i + 3] *= corr1;
+        }
+      }
+      take_frags(pf, pn);
+    }
+    // p . v of the last key tile.
+    {
+      const int last = it + n_kt - 1;
+      turn_wait(c);
+      wgmma_fence();
+      issue_pv(acc, pf, stage_of(smem, last) + kKBytes, ones);
+      // Consumer 1's last issue has no one to hand the turn to.
+      if (!(c == 1 && last_tile)) turn_pass(c);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(&empty[last % kStages]);
+    }
+    it += n_kt;
+
+    // o = acc / l in bf16, [B, Sq, H, 64]; lse = m + log2(l), [B, H, Sq].
+    const float m_r[2] = {m0, m1};
+    const float l_r[2] = {acc[32], acc[34]};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = qt * kTileQ + c * 64 + r0 + 8 * r;
+      if (row >= a.Sq) continue;
+      bf16* op = a.o + ((static_cast<long long>(b) * a.Sq + row) * a.H + h) *
+                           kHeadDim + 2 * t;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        *reinterpret_cast<bf162*>(op + 8 * i) = __floats2bfloat162_rn(
+            acc[4 * i + 2 * r] / l_r[r], acc[4 * i + 2 * r + 1] / l_r[r]);
+      if (t == 0)
+        a.lse[(static_cast<long long>(b) * a.H + h) * a.Sq + row] =
+            m_r[r] + log2f(l_r[r]);
+    }
   }
 }
 
@@ -403,6 +517,7 @@ __global__ void __launch_bounds__(kF32Rows)
   }
 }
 
+
 }  // namespace
 
 // Launches the forward on `stream` and returns the launch's cudaError_t
@@ -411,6 +526,8 @@ __global__ void __launch_bounds__(kF32Rows)
 // masked. Strides are in elements, in the (batch, row, head) order of the
 // model's [B, S, H, 64] layout; every pointer and stride must keep 16-byte
 // alignment and head_dim must be 64 (the Python wrapper checks both).
+// tma: for bf16, the tensor-map specs (hopper.cuh) of q, k and v, in that
+// order, 16 int64 each (boxes of 128 rows of one head); unused for fp32.
 extern "C" int flash_attn_bhsd_fwd(const void* q, const void* k, const void* v,
                                    void* o, float* lse, int is_bf16, int batch,
                                    int seq_q, int seq_k, int heads,
@@ -419,18 +536,41 @@ extern "C" int flash_attn_bhsd_fwd(const void* q, const void* k, const void* v,
                                    long long q_sh, long long k_sb,
                                    long long k_ss, long long k_sh,
                                    long long v_sb, long long v_ss,
-                                   long long v_sh, void* stream) {
+                                   long long v_sh, const long long* tma,
+                                   void* stream) {
   if (head_dim != kHeadDim || seq_q < 1 || kv_len < 1 || kv_len > seq_k)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    const dim3 grid((seq_q + kBlockQ - 1) / kBlockQ, heads, batch);
-    bhsd_fwd_bf16_kernel<<<grid, kThreads, 0, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, seq_q, heads,
-        kv_len, qscale, qs, ks, vs);
+    if (tma == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    CUtensorMap maps[3];
+    const void* ptrs[3] = {q, k, v};
+    for (int i = 0; i < 3; ++i) {
+      const int rc = encode_tensor_map(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                                       ptrs[i], tma + i * kSpecLen,
+                                       CU_TENSOR_MAP_SWIZZLE_128B);
+      if (rc) return rc;
+    }
+    int dev = 0, n_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(bhsd_fwd_bf16_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kBf16Smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int n_qt = (seq_q + kTileQ - 1) / kTileQ;
+    const long long n_tiles = static_cast<long long>(n_qt) * heads * batch;
+    if (n_tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    const TileArgs ta{static_cast<bf16*>(o), lse, seq_q, heads, kv_len, n_qt,
+                      static_cast<int>(n_tiles), qscale};
+    const int grid = static_cast<int>(n_tiles < n_sm ? n_tiles : n_sm);
+    bhsd_fwd_bf16_kernel<<<grid, kThreads, kBf16Smem, st>>>(maps[0], maps[1],
+                                                            maps[2], ta);
   } else {
+    const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
+        vs{v_sb, v_ss, v_sh};
     const dim3 grid((seq_q + kF32Rows - 1) / kF32Rows, heads, batch);
     bhsd_fwd_f32_kernel<<<grid, kF32Rows, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the port's TMA + wgmma kernels
-// (int8_gemm.cu, flash_attn_bhsd_bwd.cu): mbarriers, TMA tile loads and
+// (int8_gemm.cu, flash_attn_bhsd_fwd.cu, flash_attn_bhsd_bwd.cu,
+// flash_attn_allheads_bwd.cu): mbarriers, named barriers, TMA tile loads and
 // bulk reduce-adds, wgmma descriptors and instructions, register
 // rebalancing, and the host-side encoder of TMA tensor maps.
 //
@@ -14,6 +15,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -83,6 +85,12 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // bar.sync on a named barrier (0 is __syncthreads') of `threads` threads.
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// bar.arrive on a named barrier of `threads` threads: counts this warp's
+// threads without waiting (the other side of a bar.sync).
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // Makes this thread's ordinary shared-memory writes visible to the async
@@ -233,6 +241,63 @@ __device__ __forceinline__ void wgmma_bf16_rs(float (&d)[32], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TB));
 }
 
+// d (64 x 128 fp32) += A (64 x 16 bf16, shared) . B (16 x 128 bf16,
+// shared); TA / TB: 1 for an MN-major operand. Element 4j + e of d holds
+// row 16 * warp + lane / 4 (+ 8 for e >= 2), column 8j + 2 (lane % 4) +
+// (e & 1), as in the 64-wide products.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_bf16_n128_ss(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// d (64 x 72 fp32) += A (64 x 16 bf16, registers in the accumulator
+// layout) . B (16 x 72 bf16, shared); TB: 1 for an MN-major B, whose
+// columns 64 .. 71 lie `lbo` bytes past the first 64 (desc_sw128).
+template <int TB>
+__device__ __forceinline__ void wgmma_bf16_n72_rs(float (&d)[36], const uint32_t (&a)[4], uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %41, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35}, "
+      "{%36, %37, %38, %39}, %40, p, 1, 1, %42;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TB));
+}
+
 // d (64 x 128 int32) += A (64 x 32 s8, shared, K-major) . B (32 x 128 s8,
 // shared, K-major).
 __device__ __forceinline__ void wgmma_s8_m64n128k32(int (&d)[64], uint64_t da, uint64_t db, int accumulate) {
@@ -261,6 +326,56 @@ __device__ __forceinline__ void wgmma_s8_m64n128k32(int (&d)[64], uint64_t da, u
         "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
         "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// 2^x by the SFU, denormal results flushed to zero (a p below 2^-126 adds
+// nothing that survives an fp32 sum with values near 1, nor a bf16
+// product).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ---------------------------------------------------------------------------
+// bf16 values and accumulator rows
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 8 bf16 values multiplied by `mult` and rounded back to bf16, as JAX
+// multiplies a bf16 array by a Python scalar.
+__device__ __forceinline__ uint4 scaled8(uint4 u, float mult) {
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    h[i] = __floats2bfloat162_rn(f.x * mult, f.y * mult);
+  }
+  return u;
+}
+
+// Rows `row` and `row + 8` of a warp's share of a 64 x 64 fp32 wgmma
+// accumulator (elements 4j, 4j+1 and 4j+2, 4j+3 at columns 8j + 2t, +1)
+// into a contiguous [B, S, H, 64] bf16 output, rows at or past S skipped.
+__device__ __forceinline__ void store_acc_rows(__nv_bfloat16* out,
+                                               const float (&acc)[32],
+                                               int row, int S, int H, int h,
+                                               int b, int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rr = row + 8 * r;
+    if (rr >= S) continue;
+    __nv_bfloat16* op =
+        out + ((static_cast<long long>(b) * S + rr) * H + h) * 64 + 2 * t;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(op + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+  }
 }
 
 // ---------------------------------------------------------------------------

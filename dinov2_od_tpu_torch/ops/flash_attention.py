@@ -316,21 +316,41 @@ def _launch(q, k, v, scale: float, kv_len: int):
     return o, lse
 
 
+def _head_specs(rows: int, *tensors):
+    """Tensor-map specs (ops/_tma.py) of [B, S, H, 64] operands in boxes of
+    `rows` rows of one head, through their real strides."""
+    order = (3, 2, 1, 0)  # head dim, head, row, batch
+    return [_tma.tensor_map_spec(t, order, (HEAD_DIM, 1, rows, 1))
+            for t in tensors]
+
+
+def bhsd_fwd_tma_specs(q, k, v):
+    """The tensor-map specs B5f's bf16 kernel reads its operands through, in
+    its order: q `[B, Sq, H, 64]` and k, v `[B, Sk, H, 64]`, each in boxes
+    of 128 rows of one head (a query tile, a key tile), through the real
+    strides, so the fused qkv slices are read in place. Raises ValueError
+    where TMA cannot address one of them."""
+    return _head_specs(128, q, k, v)
+
+
 def _launch_bhsd(q, k, v, scale: float, kv_len: int):
     b, sq, h, dh = q.shape
     sk = k.shape[1]
     _check_launch(q=q, k=k, v=v)
     lib, fn = _bound(_BHSD_KERNEL,
-                     [_P] * 5 + [_I] * 7 + [_F] + [_LL] * 9 + [_P])
+                     [_P] * 5 + [_I] * 7 + [_F] + [_LL] * 9 + [_P] * 2)
     o = torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    specs = (_tma.as_c_array(*bhsd_fwd_tma_specs(q, k, v))
+             if q.dtype == torch.bfloat16 else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), int(q.dtype == torch.bfloat16), b, sq, sk, h,
             dh, kv_len, _qscale(scale, q.dtype),
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], stream,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            None if specs is None else ctypes.addressof(specs), stream,
         )
     _raise_on(lib, _BHSD_KERNEL, rc)
     _build.launch_counts[_BHSD_KERNEL] += 1
@@ -547,10 +567,18 @@ def bhsd_bwd_tma_specs(q, k, v, do, dq_acc):
     real strides, so the fused qkv slices are read in place. Raises
     ValueError where TMA cannot address one of them."""
     order = (3, 2, 1, 0)  # head dim, head, row, batch
-    return [_tma.tensor_map_spec(t, order, (dims, 1, rows, 1))
-            for t, dims, rows in ((q, HEAD_DIM, 64), (k, HEAD_DIM, 128),
-                                  (v, HEAD_DIM, 128), (do, HEAD_DIM, 64),
-                                  (dq_acc, HEAD_DIM // 2, 16))]
+    return [*_head_specs(64, q), *_head_specs(128, k, v),
+            *_head_specs(64, do),
+            _tma.tensor_map_spec(dq_acc, order, (HEAD_DIM // 2, 1, 16, 1))]
+
+
+def allheads_bwd_tma_specs(q, k, v, do):
+    """The tensor-map specs B4b's bf16 kernel reads its operands through, in
+    its order: q and dO `[B, Sq, H, 64]`, k and v `[B, Sk, H, 64]`, each in
+    boxes of 64 rows of one head (a unit's own tile or a streamed one),
+    through the real strides, so a rank's fused qkv slices are read in
+    place. Raises ValueError where TMA cannot address one of them."""
+    return _head_specs(64, q, k, v, do)
 
 
 def _launch_bhsd_bwd(q, k, v, do, lse, delta, scale: float, kv_len: int,
@@ -595,10 +623,12 @@ def _launch_allheads_bwd(q, k, v, do, lse, delta, scale: float, kv_len: int,
     _check_launch(q=q, k=k, v=v, do=do)
     _check_rows(b, h, sq, lse=lse, delta=delta)
     lib, fn = _bound(_ALLHEADS_BWD_KERNEL,
-                     [_P] * 9 + [_I] * 8 + [_F] * 3 + [_LL] * 12 + [_P])
+                     [_P] * 9 + [_I] * 8 + [_F] * 3 + [_LL] * 12 + [_P] * 2)
     dq = torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, sk, h, dh), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
+    specs = (_tma.as_c_array(*allheads_bwd_tma_specs(q, k, v, do))
+             if q.dtype == torch.bfloat16 else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(
@@ -608,7 +638,8 @@ def _launch_allheads_bwd(q, k, v, do, lse, delta, scale: float, kv_len: int,
             b, sq, sk, h, dh, kv_len, q_len, _qscale(scale, q.dtype),
             _rounded(scale, q.dtype), float(scale),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *do.stride()[:3], stream,
+            *do.stride()[:3],
+            None if specs is None else ctypes.addressof(specs), stream,
         )
     _raise_on(lib, _ALLHEADS_BWD_KERNEL, rc)
     _build.launch_counts[_ALLHEADS_BWD_KERNEL] += 1
@@ -752,7 +783,8 @@ def flash_attention_lse(
 
 
 __all__ = [
-    "HEAD_DIM", "NEG_INF", "bhsd_bwd_tma_specs", "flash_attention",
+    "HEAD_DIM", "NEG_INF", "allheads_bwd_tma_specs", "bhsd_bwd_tma_specs",
+    "bhsd_fwd_tma_specs", "flash_attention",
     "flash_attention_allheads_bwd", "flash_attention_allheads_bwd_plain",
     "flash_attention_allheads_fwd", "flash_attention_allheads_fwd_plain",
     "flash_attention_bhsd_bwd",

@@ -1,15 +1,18 @@
 """The TMA arguments of the port's Hopper kernels, and the operands they
 are handed, on the CPU; the kernels themselves on the card.
 
-B6 (csrc/int8_gemm.cu) and B5b's bf16 kernel (csrc/flash_attn_bhsd_bwd.cu)
-load their tiles by TMA from tensor maps that their C entry points encode
-from specs computed in Python (ops/_tma.py). These tests hold the specs to
-the tensors they describe (dims innermost first, byte strides, boxes),
-including the fused qkv slices B5b reads in place and one slice of a
-stacked int8 tree that B6 reads without a copy, and check that a layout
-TMA cannot address raises. The `gpu`-marked tests hold both kernels
+B6 (csrc/int8_gemm.cu) and the bf16 kernels of B5b, B5f and B4b
+(csrc/flash_attn_bhsd_bwd.cu, csrc/flash_attn_bhsd_fwd.cu,
+csrc/flash_attn_allheads_bwd.cu) load their tiles by TMA from tensor maps
+that their C entry points encode from specs computed in Python
+(ops/_tma.py). These tests hold the specs to the tensors they describe
+(dims innermost first, byte strides, boxes), including the fused qkv
+slices the attention kernels read in place and one slice of a stacked
+int8 tree that B6 reads without a copy, and check that a layout TMA
+cannot address raises. The `gpu`-marked tests hold the four kernels
 against their plain versions on the card at the main paths' shapes
-(chip_smoke.py INT8_CASES and BHSD_CASES) and skip without one."""
+(chip_smoke.py INT8_CASES, BHSD_CASES and ALLHEADS_CASES) and skip
+without one."""
 
 import numpy as np
 import pytest
@@ -117,6 +120,76 @@ def test_bhsd_bwd_specs_raise_on_a_misaligned_stride():
     with pytest.raises(ValueError, match="dim 2"):
         fa.bhsd_bwd_tma_specs(q, ok, ok, ok, dq)
     fa.bhsd_bwd_tma_specs(ok, ok, ok, ok, dq)
+
+
+# ---- B5f's and B4b's tensor maps -------------------------------------------
+
+# (batch, Sq, Sk, heads): ViT-L/560's self-attention, ViT-B's 3 heads a rank
+# under 4-way tensor parallelism, and the cross shape (50 queries over 1601
+# keys).
+SPEC_SHAPES = [(8, 1601, 1601, 16), (32, 257, 257, 3), (8, 50, 1601, 16)]
+
+
+def _operands(b, sq, sk, h):
+    """q, k, v as the three views of one fused qkv GEMM output where
+    Sq == Sk (else contiguous), and a contiguous dO."""
+    if sq == sk:
+        qkv = torch.zeros((b, sq, 3 * h * DH), dtype=torch.bfloat16)
+        q, k, v = (t.view(b, sq, h, DH) for t in qkv.chunk(3, dim=-1))
+    else:
+        q = torch.zeros((b, sq, h, DH), dtype=torch.bfloat16)
+        k, v = (torch.zeros((b, sk, h, DH), dtype=torch.bfloat16)
+                for _ in range(2))
+    return q, k, v, torch.zeros((b, sq, h, DH), dtype=torch.bfloat16)
+
+
+def _head_map(t, rows):
+    """What a spec over [B, S, H, 64] `t` must hold: dims innermost first,
+    byte strides of head, row and batch, a box of `rows` rows of one
+    head."""
+    b, s, h, _ = t.shape
+    return (4, [DH, h, s, b], [t.stride(2) * 2, t.stride(1) * 2,
+                               t.stride(0) * 2], [DH, 1, rows, 1])
+
+
+@pytest.mark.parametrize("b,sq,sk,h", SPEC_SHAPES,
+                         ids=["vit_l_560", "tp_h3", "cross"])
+@pytest.mark.parametrize("kernel", ["b5f", "b4b"])
+def test_fwd_and_allheads_bwd_specs_describe_the_operands(kernel, b, sq, sk,
+                                                          h):
+    """B5f's maps (q, k, v in 128-row boxes: a query tile, a key tile) and
+    B4b's (q, k, v, dO in 64-row boxes: a unit's rows, a streamed tile)
+    start at each operand's own pointer and step by its real strides, so
+    the fused qkv slices are read in place (each row is the fused row,
+    3 * h * 64 bf16 long)."""
+    q, k, v, do = _operands(b, sq, sk, h)
+    if kernel == "b5f":
+        specs, tensors, rows = fa.bhsd_fwd_tma_specs(q, k, v), (q, k, v), 128
+    else:
+        specs = fa.allheads_bwd_tma_specs(q, k, v, do)
+        tensors, rows = (q, k, v, do), 64
+    assert len(specs) == len(tensors)
+    for spec, t in zip(specs, tensors):
+        assert _unpack(spec) == _head_map(t, rows)
+    if sq == sk:
+        assert _unpack(specs[0])[2][1] == 3 * h * DH * 2
+        assert k.data_ptr() - q.data_ptr() == h * DH * 2
+
+
+@pytest.mark.parametrize("kernel", ["b5f", "b4b"])
+def test_fwd_and_allheads_bwd_specs_raise_on_a_misaligned_stride(kernel):
+    base = torch.zeros(4 * 20 * 3 * 68, dtype=torch.bfloat16)
+    # Heads 68 bf16 apart (136 bytes: not a multiple of 16).
+    bad = base.as_strided((4, 20, 3, DH), (20 * 3 * 68, 3 * 68, 68, 1))
+    ok = torch.zeros((4, 20, 3, DH), dtype=torch.bfloat16)
+    fn = {"b5f": lambda *t: fa.bhsd_fwd_tma_specs(*t[:3]),
+          "b4b": fa.allheads_bwd_tma_specs}[kernel]
+    fn(ok, ok, ok, ok)
+    for i in range(3 if kernel == "b5f" else 4):
+        args = [ok, ok, ok, ok]
+        args[i] = bad
+        with pytest.raises(ValueError, match="dim 2"):
+            fn(*args)
 
 
 # ---- B6's operands ---------------------------------------------------------
@@ -243,6 +316,81 @@ def test_b5b_on_card_at_the_main_shapes(case):
     for g, r in zip(got, ref):
         err = (g.float() - r.float()).abs().max().item()
         assert err <= 2.0 ** -7 * max(1.0, r.float().abs().max().item())
+    assert not got[1][:, kv_len:].any() and not got[2][:, kv_len:].any()
+
+
+def _case_inputs(case, seed):
+    """q, k, v (fused qkv views where Sq == Sk) and dO on the card."""
+    b, sq, sk, h, _ = case
+    dt = torch.bfloat16
+    gen = torch.Generator().manual_seed(seed)
+    if sq == sk:
+        qkv = torch.randn((b, sq, 3 * h * DH), generator=gen).to("cuda", dt)
+        q, k, v = (t.view(b, sq, h, DH) for t in qkv.chunk(3, dim=-1))
+    else:
+        q = torch.randn((b, sq, h, DH), generator=gen).to("cuda", dt)
+        k, v = (torch.randn((b, sk, h, DH), generator=gen).to("cuda", dt)
+                for _ in range(2))
+    do = torch.randn((b, sq, h, DH), generator=gen).to("cuda", dt)
+    return q, k, v, do
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", BHSD_CASES[:4],
+                         ids=["vit_l_560", "masked", "cross", "h3"])
+def test_b5f_on_card_at_the_main_shapes(case):
+    """B5f's bf16 kernel against its plain version at chip_smoke.py's
+    BHSD_CASES: within TOL (o one bf16 ulp, 1e-2; the lse 3e-3, since the
+    kernel rounds p against its running max over 128-key tiles), one
+    launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    kv_len = case[4]
+    q, k, v, _ = _case_inputs(case, 2)
+    scale = DH ** -0.5
+    before = _build.launch_counts["flash_attn_bhsd_fwd"]
+    o, lse = fa.flash_attention_bhsd_fwd(q, k, v, scale=scale, kv_len=kv_len)
+    o_ref, lse_ref = fa.flash_attention_bhsd_fwd_plain(q, k, v, scale=scale,
+                                                       kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["flash_attn_bhsd_fwd"] == before + 1
+    assert (o.float() - o_ref.float()).abs().max().item() <= 1e-2
+    assert (lse - lse_ref).abs().max().item() <= 3e-3
+
+
+ALLHEADS_CASES = [(32, 257, 257, 3, 257), (32, 257, 257, 3, 200),
+                  (8, 50, 1601, 16, 1601), (4, 640, 640, 4, 600)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ALLHEADS_CASES,
+                         ids=["tp_h3", "masked", "cross", "s640"])
+def test_b4b_on_card_at_the_main_shapes(case):
+    """B4b's bf16 kernel against its plain version at chip_smoke.py's
+    ALLHEADS_CASES that the routing sends to it: within BWD_TOL (two bf16
+    ulps of the largest gradient), masked keys' dk and dv exactly 0, dq,
+    dk and dv bit-equal from run to run, one launch counted a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    kv_len = case[4]
+    q, k, v, do = _case_inputs(case, 3)
+    assert fa._allheads_bwd(q, k)
+    scale = DH ** -0.5
+    o, lse = fa.flash_attention_allheads_fwd_plain(q, k, v, scale=scale,
+                                                   kv_len=kv_len)
+    before = _build.launch_counts["flash_attn_allheads_bwd"]
+    got = fa.flash_attention_allheads_bwd(q, k, v, o, lse, do, scale=scale,
+                                          kv_len=kv_len)
+    again = fa.flash_attention_allheads_bwd(q, k, v, o, lse, do,
+                                            scale=scale, kv_len=kv_len)
+    ref = fa.flash_attention_allheads_bwd_plain(
+        q, k, v, do, lse, fa._delta(do, o, None), scale=scale, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["flash_attn_allheads_bwd"] == before + 2
+    for g, r, g2 in zip(got, ref, again):
+        err = (g.float() - r.float()).abs().max().item()
+        assert err <= 2.0 ** -7 * max(1.0, r.float().abs().max().item())
+        assert torch.equal(g, g2)
     assert not got[1][:, kv_len:].any() and not got[2][:, kv_len:].any()
 
 
