@@ -10,14 +10,20 @@ non-zero and prints no result:
 1. card    - the card's name and power limit, from nvidia-smi;
 2. build   - every CUDA kernel of the port, compiled with nvcc for sm_90a
              from the sources in the checkout, one nvcc per source at once;
-             ptxas's registers and spills of each kernel of the four TMA +
-             wgmma sources (B6, B5b, B5f, B4b), which must not spill;
+             ptxas's registers and spills of each kernel of the six TMA +
+             wgmma sources (B6, B5b, B5f, B4b, B2, B4f), which must not
+             spill;
 3. kernels - each kernel against its plain PyTorch version at the shapes
              of the main paths, within stated tolerances, and timed
              (device time from torch.profiler; CUDA events as event_ms)
              beside its bound, the plain version and a library call: the
-             flash-attention forward (B1) and backward (B2) at B=32,
-             S=257, H=12, dh=64, bf16 and fp32, all keys and kv_len=200;
+             flash-attention forward (B1) at B=32, S=257, H=12, dh=64,
+             bf16 and fp32, all keys and kv_len=200; the backward (B2) at
+             BWD_CASES (that shape, both kv_len, and ViT-L/518's 1370
+             tokens, 16 heads), bf16 and fp32, with a control (a key tile
+             dropped) that must fail, dq, dk, dv bit-equal from run to
+             run, timed on the step's strided qkv views beside SDPA's
+             backward on the same views;
              the fused quantize + int8 GEMM (B6) at the fc2 shapes of
              INT8_CASES, with a control (a K tile dropped) that must fail,
              its row-quantization and GEMM launches timed apart beside
@@ -172,6 +178,11 @@ REQUEST_SIZES = (8, 16, 4, 12)
 # an H100). fp32: CUDA cores against fp32 matmuls (TF32 off); measured
 # bit-identical, both sum each product in one sequential order.
 BWD_TOL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
+# B2's cases (batch, S, heads, kv_len): the train shape with all keys and
+# with the keys from 200 on masked, and ViT-L/14 at 518 px (1370 tokens, 16
+# heads), the longest configuration the flat rule (`_flat_eligible`, S <=
+# 1536) sends to B2.
+BWD_CASES = ((B, S, H, S), (B, S, H, KV_MASKED), (8, 1370, 16, 1370))
 # Train phase: steps on the fixed batch, and the step's gradient check.
 TRAIN_STEPS = 20
 MAX_BOXES = 25
@@ -396,10 +407,12 @@ TRACE_RUNS = (("ViT-B/224 b32 train", {}),
                                      "BENCH_BATCH": "8"}))
 
 
-# The sources redesigned for Hopper with TMA and wgmma (B6, B5b, B5f,
-# B4b): ptxas must report no spills for any of their kernels.
+# The sources redesigned for Hopper with TMA and wgmma (B6, B5b, B5f, B4b,
+# B2, B4f): ptxas must report no spills for any of their kernels, fp32
+# CUDA-core kernels included.
 HOPPER_SOURCES = ("int8_gemm", "flash_attn_bhsd_bwd", "flash_attn_bhsd_fwd",
-                  "flash_attn_allheads_bwd")
+                  "flash_attn_allheads_bwd", "flash_attn_bwd",
+                  "flash_attn_allheads_fwd")
 
 
 def log(msg: str) -> None:
@@ -567,11 +580,21 @@ def phase_kernels(seed: int):
     return entry
 
 
+def _spread_ms(fn, iters: int, repeats: int = 3):
+    """(median, min, max) device ms of `fn` over `repeats` profiler windows
+    of `iters` calls each: the run-to-run spread of one reading."""
+    runs = sorted(device_ms(fn, iters=iters) for _ in range(repeats))
+    return runs[len(runs) // 2], runs[0], runs[-1]
+
+
 def phase_bwd_kernel(seed: int):
-    """Flash-attention backward against its plain version; returns the
-    kernel's entry of the kernels line (launches filled in later)."""
+    """B2 against its plain version at BWD_CASES, bf16 and fp32, with a
+    control (the last key tile dropped) that must fail the same check and
+    dq, dk, dv bit-equal from run to run; timed at the train shape on the
+    step's strided qkv views beside SDPA's backward on the same views.
+    Returns the kernel's entry of the kernels line (launches filled in
+    later)."""
     import torch
-    import torch.nn.functional as F
 
     from dinov2_od_tpu_torch.ops import flash_attention as fa
 
@@ -579,72 +602,55 @@ def phase_bwd_kernel(seed: int):
     scale = DH ** -0.5
     entry = None
     failures = []
-    for dtype in (torch.bfloat16, torch.float32):
-        name = str(dtype).split(".")[-1]
-        # q, k, v as the three strided views of one fused qkv GEMM output,
-        # as the forward saved them.
-        qkv = torch.randn((B, S, 3 * H * DH), generator=gen).to("cuda", dtype)
-        q, k, v = (t.view(B, S, H, DH) for t in qkv.chunk(3, dim=-1))
-        do = torch.randn((B, S, H, DH), generator=gen).to("cuda", dtype)
-        for kv_len in (S, KV_MASKED):
+    for b, s, h, kv_len in BWD_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            # q, k, v as the three strided views of one fused qkv GEMM
+            # output, as the forward saved them.
+            q, k, v, do = _bhsd_inputs(gen, b, s, s, h, dtype)
             o, lse = fa.flash_attention_fwd(q, k, v, scale=scale,
                                             kv_len=kv_len)
             delta = fa._delta(do, o, None)
             got = fa.flash_attention_bwd(q, k, v, o, lse, do, scale=scale,
                                          kv_len=kv_len)
+            again = fa.flash_attention_bwd(q, k, v, o, lse, do, scale=scale,
+                                           kv_len=kv_len)
             ref = fa.flash_attention_bwd_plain(q, k, v, do, lse, delta,
                                                scale=scale, kv_len=kv_len)
+            # Control: the kernel handed a smaller kv_len than the check.
+            ctl_len = _last_tile_dropped(kv_len)
+            got_c = fa.flash_attention_bwd(q, k, v, o, lse, do, scale=scale,
+                                           kv_len=ctl_len)
             torch.cuda.synchronize()
-            err, abs_err = {}, {}
-            for gname, g, r in zip(("dq", "dk", "dv"), got, ref):
-                abs_err[gname] = (g.float() - r.float()).abs().max().item()
-                err[gname] = abs_err[gname] / max(
-                    1.0, r.float().abs().max().item())
+            err, abs_err = _grad_errs(got, ref)
+            ctl_err, _ = _grad_errs(got_c, ref)
             finite = all(bool(torch.isfinite(g).all()) for g in got)
             masked_zero = bool(not got[1][:, kv_len:].any()
                                and not got[2][:, kv_len:].any())
-            def kernel():
-                fa._launch_bwd(q, k, v, do, lse, delta, scale, kv_len)
-
-            ms = device_ms(kernel, iters=50)
-            event_ms = time_ms(kernel, iters=50)
-            plain_ms = device_ms(lambda: fa.flash_attention_bwd_plain(
-                q, k, v, do, lse, delta, scale=scale, kv_len=kv_len),
-                iters=5)
-            # The library yardstick: SDPA forward + backward on the first
-            # kv_len keys, less SDPA forward alone.
-            qt, kt, vt = (t.transpose(1, 2).detach().clone()
-                          .requires_grad_(True)
-                          for t in (q, k[:, :kv_len], v[:, :kv_len]))
-            dot = do.transpose(1, 2)
-
-            def sdpa_fwd_bwd():
-                out = F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
-                torch.autograd.grad(out, (qt, kt, vt), dot)
-
-            def sdpa_fwd():
-                with torch.no_grad():
-                    F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
-
-            library_ms = (device_ms(sdpa_fwd_bwd, iters=20)
-                          - device_ms(sdpa_fwd, iters=20))
-            bound_ms, bound_by = attention_bwd_bound(name, kv_len)
+            deterministic = all(torch.equal(x, y) for x, y in zip(got, again))
             row = {
-                "dtype": name, "kv_len": kv_len, "shape": [B, S, H, DH],
+                "dtype": name, "kv_len": kv_len, "shape": [b, s, h, DH],
                 "max_abs_err": abs_err, "max_rel_err": err,
                 "masked_dk_dv_exactly_zero": masked_zero,
-                "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
-                "library_ms": library_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by,
+                "dq_dk_dv_run_to_run_equal": deterministic,
+                "control_kv_len": ctl_len, "control_rel_err": ctl_err,
             }
-            log("kernels: flash_attn_bwd " + json.dumps(row))
             tol = BWD_TOL[name]
             bad = [g for g, e in err.items() if e > tol]
-            if not finite or bad or not masked_zero:
+            if not finite or bad or not masked_zero or not deterministic:
                 failures.append(
-                    f"{name} kv_len={kv_len}: errors {err} (tol {tol}), "
-                    f"finite={finite}, masked dk/dv zero={masked_zero}")
-            if name == "bfloat16" and kv_len == S:
+                    f"{name} {row['shape']} kv_len={kv_len}: errors {err} "
+                    f"(tol {tol}), finite={finite}, masked dk/dv "
+                    f"zero={masked_zero}, deterministic {deterministic}")
+            if max(ctl_err.values()) <= tol:
+                failures.append(f"{name} {row['shape']}: the control "
+                                f"(kv_len {ctl_len}) passes the check")
+            if (b, s, h) == (B, S, H):
+                row.update(_time_bwd(q, k, v, do, o, lse, delta, kv_len,
+                                     name, spread=name == "bfloat16"
+                                     and kv_len == S))
+            log("kernels: flash_attn_bwd " + json.dumps(row))
+            if name == "bfloat16" and (b, s, h, kv_len) == BWD_CASES[0]:
                 entry = {
                     "name": "flash_attn_bwd",
                     "route": "cuda",
@@ -655,16 +661,72 @@ def phase_bwd_kernel(seed: int):
                     "launches_per_step": 0,
                     "max_abs_err": max(abs_err.values()),
                     "max_rel_err": max(err.values()),
-                    "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by,
-                    "library_ms": library_ms,
+                    **{key: row[key] for key in (
+                        "ms", "ms_min", "ms_max", "event_ms", "plain_ms",
+                        "bound_ms", "bound_by", "library_ms",
+                        "library_clone_ms")},
+                    "ptxas": ptxas_report("flash_attn_bwd"),
                 }
-            del qt, kt, vt
-        del qkv, q, k, v, do
+            del q, k, v, do, o, lse, got, again, ref, got_c
+            torch.cuda.empty_cache()
     if failures:
         raise AssertionError("backward kernel disagrees with its plain "
                              "version: " + "; ".join(failures))
     return entry
+
+
+def _time_bwd(q, k, v, do, o, lse, delta, kv_len, name, spread):
+    """B2's device and event times on the step's strided qkv views beside
+    its bound, its plain version and SDPA's backward (forward + backward
+    less forward) on the same views, and on contiguous copies as earlier
+    runs took it. `spread`: B2 and SDPA over three profiler windows each,
+    with their least and largest readings."""
+    import torch
+    import torch.nn.functional as F
+
+    from dinov2_od_tpu_torch.ops import flash_attention as fa
+
+    scale = DH ** -0.5
+    b, s, h, _ = q.shape
+
+    def kernel():
+        fa._launch_bwd(q, k, v, do, lse, delta, scale, kv_len)
+
+    def sdpa_bwd_ms(copies: bool, repeats: int):
+        # SDPA on the first kv_len keys, [B, H, S, 64] views of the same
+        # storage (last dim contiguous), or contiguous copies of them.
+        views = [t.detach().transpose(1, 2) for t in
+                 (q, k[:, :kv_len], v[:, :kv_len])]
+        qt, kt, vt = ((t.clone() if copies else t).requires_grad_(True)
+                      for t in views)
+        dot = do.transpose(1, 2)
+
+        def fwd_bwd():
+            out = F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+            torch.autograd.grad(out, (qt, kt, vt), dot)
+
+        def fwd():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+
+        both = _spread_ms(fwd_bwd, 100, repeats)
+        alone = _spread_ms(fwd, 100, repeats)
+        return [x - y for x, y in zip(both, alone)]
+
+    repeats = 3 if spread else 1
+    ms = _spread_ms(kernel, 200, repeats)
+    lib = sdpa_bwd_ms(False, repeats)
+    bound_ms, bound_by = attention_bwd_bound(name, kv_len, b, s, s, h)
+    return {
+        "ms": ms[0], "ms_min": ms[1], "ms_max": ms[2],
+        "event_ms": time_ms(kernel, iters=200),
+        "plain_ms": device_ms(lambda: fa.flash_attention_bwd_plain(
+            q, k, v, do, lse, delta, scale=scale, kv_len=kv_len), iters=5),
+        "library_ms": lib[0], "library_ms_min": lib[1],
+        "library_ms_max": lib[2],
+        "library_clone_ms": sdpa_bwd_ms(True, 1)[0],
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
 
 
 def _requests(seed: int, image_size: int, sizes=REQUEST_SIZES):
@@ -1268,7 +1330,8 @@ def phase_allheads_kernels(seed: int):
                                   "flash_attn_allheads_fwd.cu",
                         "replaces": "dinov2_od_tpu/ops/flash_attention.py:231",
                         "replaces_function": "_fwd_kernel_allheads",
-                        "max_abs_err": err_o, **frow}
+                        "max_abs_err": err_o, **frow,
+                        "ptxas": ptxas_report("flash_attn_allheads_fwd")}
                     entries["flash_attn_allheads_bwd"] = {
                         "name": "flash_attn_allheads_bwd", **common,
                         "source": "dinov2_od_tpu_torch/csrc/"
@@ -2625,7 +2688,7 @@ def profile_device(fn, unprofiled_ms: float, what: str, steps: int = 5,
         "idle_share": max(0.0, 1 - total / unprofiled_ms),
         "gemm_share": share("gemm", "nvjet", "xmma", "cutlass"),
         "flash_fwd_share": share("flash_fwd", "bhsd_fwd", "allheads_fwd"),
-        "flash_bwd_share": share("dkdv_", "dq_bf16", "dq_f32", "bhsd_bwd",
+        "flash_bwd_share": share("flat_bwd", "dkdv_", "dq_f32", "bhsd_bwd",
                                  "allheads_bwd"),
         "int8_gemm_share": share("int8_gemm_kernel", "int8_quantize_rows"),
         "layer_norm_share": share("layer_norm"),

@@ -28,34 +28,28 @@
 //
 // Design. The TPU kernel walks its key blocks in order and carries dq in
 // a revisited fp32 output; Hopper's blocks run in no order, so nothing
-// can be carried between them. Two passes instead, each deterministic
-// (no atomics: two runs give bit-identical gradients):
-// - dkdv: one thread block per (64-key tile, head, batch) keeps dk and dv
-//   for its keys in fp32 registers and streams 64-query tiles of q and dO
-//   (with their lse and delta) through double-buffered shared memory
-//   (cp.async). Each warp owns 16 keys and works in the transposed
-//   orientation (keys as rows), so s^T, p^T and ds^T are A operands
-//   straight from the accumulators.
-// - dq: one thread block per (64-query tile, head, batch) keeps dq in fp32
-//   registers and streams 64-key tiles of k and v, recomputing p and ds.
-// Both recompute s and dp, 7 products where the TPU kernel did 5: the
-// price of writing dq once, without atomics. All products run on the
-// tensor cores with mma.sync m16n8k16 (bf16 in, fp32 accumulate); the
-// operands that are needed transposed (dO and q in dkdv, k in dq) are
-// read with ldmatrix.trans. No sequence padding: ragged last tiles are
-// zero-filled on load and masked. fp32 inputs take CUDA-core kernels with
-// one thread per key (dkdv) or per query (dq), since the tensor cores
-// would round to tf32.
+// can be carried between them, and summing dq across key tiles by atomics
+// would make its low bits vary from run to run. The bf16 kernel is the one
+// the all-heads backward (B4b) launches, `bwd_units::body` in
+// flash_bwd_units.cuh, whose note gives the design: one persistent launch
+// of 64-row dkv units (dk and dv of 64 keys over every q tile) and dq
+// units (dq of 64 rows over every key tile), a producer warpgroup bringing
+// the tiles by TMA through the real strides and two consumer warpgroups on
+// wgmma; seven products per tile pair where the TPU kernel does five (s
+// and dp recomputed so that dq is written once), no atomics, so dq, dk and
+// dv are bit-equal from run to run. At the train shape that is 3840 units
+// of 5 tiles, about 14.5 a consumer warpgroup. fp32 inputs take CUDA-core
+// kernels in two passes, one thread per key (dkdv) or per query (dq),
+// since the tensor cores would round to tf32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+#include "flash_bwd_units.cuh"
 
-typedef __nv_bfloat16 bf16;
-typedef __nv_bfloat162 bf162;
+namespace {
 
 constexpr int kHeadDim = 64;
 
@@ -81,389 +75,17 @@ struct Args {
 };
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core kernels
+// bf16 kernel: the shared units kernel (flash_bwd_units.cuh) under this
+// source's own name
 // ---------------------------------------------------------------------------
 
-constexpr int kTile = 64;  // rows of a q, dO, k or v tile
-constexpr int kWarps = 4;  // 16 rows each
-constexpr int kThreads = kWarps * 32;
-// Row pitch of the shared tiles: 64 + 8 bf16 = 144 bytes keeps the
-// 16-byte cp.async/ldmatrix rows aligned and spreads the fragment loads
-// of one warp over all 32 banks.
-constexpr int kLd = kHeadDim + 8;
-
-__device__ __forceinline__ uint32_t as_u32(bf162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t raw_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Two values multiplied by `mult` and rounded back to bf16, as JAX
-// multiplies a bf16 array by a Python scalar.
-__device__ __forceinline__ uint32_t scaled_pair(const bf16* p, float mult) {
-  const float2 f = __bfloat1622float2(*reinterpret_cast<const bf162*>(p));
-  return as_u32(__floats2bfloat162_rn(f.x * mult, f.y * mult));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  const int src_size = valid ? 16 : 0;  // 0: zero-fill, read nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr),
-               "l"(gmem), "r"(src_size)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* smem) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// Rows [row0, row0 + 64) of one head's [S, 64] matrix into a shared tile;
-// rows at or past `n_valid` are zero-filled.
-__device__ __forceinline__ void load_tile(bf16* tile, const bf16* base,
-                                          long long row_stride, int row0,
-                                          int n_valid, int tid) {
-#pragma unroll
-  for (int i = 0; i < (kTile * kHeadDim / 8) / kThreads; ++i) {
-    const int c = tid + i * kThreads;
-    const int r = c >> 3;
-    const int col = (c & 7) * 8;
-    const int row = row0 + r;
-    const bool valid = row < n_valid;
-    const bf16* src = base + (valid ? row : 0) * row_stride + col;
-    cp_async16(tile + r * kLd + col, src, valid);
-  }
-}
-
-// A fragments of the 16 x 64 row block at `rows` (row pitch kLd), each
-// value multiplied by `mult` in bf16 (mult 1 leaves it as it is).
-__device__ __forceinline__ void a_frags(uint32_t (&f)[kHeadDim / 16][4],
-                                        const bf16* rows, int g, int t,
-                                        float mult) {
-#pragma unroll
-  for (int kk = 0; kk < kHeadDim / 16; ++kk) {
-    const int c = kk * 16 + t * 2;
-    f[kk][0] = scaled_pair(rows + g * kLd + c, mult);
-    f[kk][1] = scaled_pair(rows + (g + 8) * kLd + c, mult);
-    f[kk][2] = scaled_pair(rows + g * kLd + c + 8, mult);
-    f[kk][3] = scaled_pair(rows + (g + 8) * kLd + c + 8, mult);
-  }
-}
-
-// acc[n] (16 x 8 tiles, n = 0..7) += A (16 x 64) . B^T, where B is a
-// 64 x 64 shared tile whose rows are the n index (row pitch kLd), each B
-// value multiplied by `mult` in bf16 first.
-__device__ __forceinline__ void mma_abt(float (&acc)[8][4],
-                                        const uint32_t (&a)[4][4],
-                                        const bf16* b_rows, int g, int t,
-                                        float mult, bool scale_b) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[n][j] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kHeadDim / 16; ++kk) {
-      const bf16* bp = b_rows + (n * 8 + g) * kLd + kk * 16 + t * 2;
-      const uint32_t b0 = scale_b ? scaled_pair(bp, mult) : raw_pair(bp);
-      const uint32_t b1 =
-          scale_b ? scaled_pair(bp + 8, mult) : raw_pair(bp + 8);
-      mma_16816(acc[n], a[kk], b0, b1);
-    }
-  }
-}
-
-// The 16 x 64 fp32 accumulator x as bf16 A fragments of a product over
-// its 64 columns: accumulator tiles 2j and 2j+1 form k-step j.
-__device__ __forceinline__ void acc_to_a(uint32_t (&f)[4][4],
-                                         const float (&x)[8][4]) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    f[n >> 1][(n & 1) * 2 + 0] = as_u32(__floats2bfloat162_rn(x[n][0], x[n][1]));
-    f[n >> 1][(n & 1) * 2 + 1] = as_u32(__floats2bfloat162_rn(x[n][2], x[n][3]));
-  }
-}
-
-// acc[n] (16 x 8 tiles over 64 head dims) += A (16 x 64) . M, where M is a
-// 64 x 64 shared tile stored row-major over the contraction index, read
-// transposed with ldmatrix.trans.
-__device__ __forceinline__ void mma_am(float (&acc)[8][4],
-                                       const uint32_t (&a)[4][4],
-                                       const bf16* m, int lane) {
-  const int mi = lane >> 3;
-  const int mr = lane & 7;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-    for (int np = 0; np < kHeadDim / 16; ++np) {
-      uint32_t bf[4];
-      ldmatrix_x4_trans(
-          bf, m + (kk * 16 + (mi & 1) * 8 + mr) * kLd + (np * 2 + (mi >> 1)) * 8);
-      mma_16816(acc[np * 2], a[kk], bf[0], bf[1]);
-      mma_16816(acc[np * 2 + 1], a[kk], bf[2], bf[3]);
-    }
-  }
-}
-
-// Rows row and row + 8 of a 16 x 64 fp32 accumulator into a contiguous
-// [B, S, H, 64] bf16 output, rows at or past S skipped.
-__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[8][4],
-                                          int row, int S, int H, int h, int b,
-                                          int t) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int rr = row + r * 8;
-    if (rr >= S) continue;
-    bf16* op = out + ((static_cast<long long>(b) * S + rr) * H + h) * kHeadDim;
-#pragma unroll
-    for (int n = 0; n < kHeadDim / 8; ++n)
-      *reinterpret_cast<bf162*>(op + n * 8 + t * 2) =
-          __floats2bfloat162_rn(acc[n][2 * r], acc[n][2 * r + 1]);
-  }
-}
-
-// dk and dv for one (64-key tile, head, batch). The block's k and v tiles
-// are staged in the second q/dO buffers, turned into register fragments,
-// and the buffers then carry the stream of q/dO tiles (37 KB of static
-// shared memory in all).
-__global__ void __launch_bounds__(kThreads)
-    dkdv_bf16_kernel(Args a) {
-  __shared__ __align__(16) bf16 sQ[2][kTile * kLd];
-  __shared__ __align__(16) bf16 sDO[2][kTile * kLd];
-  __shared__ float sL[2][kTile];
-  __shared__ float sD[2][kTile];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int key0 = blockIdx.x * kTile;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int S = a.S;
-  const long long bh = static_cast<long long>(b) * a.H + h;
-
-  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.qs.b + h * a.qs.h;
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.ks.b + h * a.ks.h;
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vs.b + h * a.vs.h;
-  const bf16* dob =
-      static_cast<const bf16*>(a.dout) + b * a.dos.b + h * a.dos.h;
-
-  float dk[8][4], dv[8][4];
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dk[n][j] = dv[n][j] = 0.f;
-
-  if (key0 < a.kv_len) {  // a tile of masked keys only keeps dk = dv = 0
-    const int n_qt = (S + kTile - 1) / kTile;
-    load_tile(sQ[1], kb, a.ks.s, key0, a.kv_len, tid);
-    load_tile(sDO[1], vb, a.vs.s, key0, a.kv_len, tid);
-    load_tile(sQ[0], qb, a.qs.s, 0, S, tid);
-    load_tile(sDO[0], dob, a.dos.s, 0, S, tid);
-    cp_async_commit();
-    // Rows past S: lse +inf makes p exactly 0.
-    if (tid < kTile) {
-      sL[0][tid] = tid < S ? a.lse[bh * S + tid] : INFINITY;
-    } else {
-      const int r = tid - kTile;
-      sD[0][r] = r < S ? a.delta[bh * S + r] : 0.f;
-    }
-    cp_async_wait<0>();
-    __syncthreads();
-    uint32_t kf[4][4], vf[4][4];  // this warp's 16 keys of k and v
-    a_frags(kf, sQ[1] + warp * 16 * kLd, g, t, 1.f);
-    a_frags(vf, sDO[1] + warp * 16 * kLd, g, t, 1.f);
-    __syncthreads();  // buffer 1 now takes the second q/dO tile
-    const int my_key = key0 + warp * 16 + g;  // rows my_key, my_key + 8
-    const bool kmask0 = my_key >= a.kv_len;
-    const bool kmask1 = my_key + 8 >= a.kv_len;
-
-    for (int qt = 0; qt < n_qt; ++qt) {
-      const int buf = qt & 1;
-      if (qt + 1 < n_qt) {
-        const int nb = buf ^ 1;
-        const int q1 = (qt + 1) * kTile;
-        load_tile(sQ[nb], qb, a.qs.s, q1, S, tid);
-        load_tile(sDO[nb], dob, a.dos.s, q1, S, tid);
-        cp_async_commit();
-        if (tid < kTile) {
-          sL[nb][tid] = q1 + tid < S ? a.lse[bh * S + q1 + tid] : INFINITY;
-        } else {
-          const int r = tid - kTile;
-          sD[nb][r] = q1 + r < S ? a.delta[bh * S + q1 + r] : 0.f;
-        }
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const bf16* sq = sQ[buf];
-      const bf16* sdo = sDO[buf];
-      const float* lse = sL[buf];
-      const float* dlt = sD[buf];
-
-      // p^T = exp2(k . qs^T - lse): 16 keys x 64 queries.
-      float x[8][4];
-      mma_abt(x, kf, sq, g, t, a.qscale, true);
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const float l = lse[n * 8 + t * 2 + j];
-          x[n][j] = kmask0 ? 0.f : exp2f(x[n][j] - l);
-          x[n][2 + j] = kmask1 ? 0.f : exp2f(x[n][2 + j] - l);
-        }
-      uint32_t pf[4][4];
-      acc_to_a(pf, x);
-      mma_am(dv, pf, sdo, lane);  // dv += p^T . dO
-
-      // ds^T = p^T * (v . dos^T - delta * scale).
-      float dp[8][4];
-      mma_abt(dp, vf, sdo, g, t, a.doscale, true);
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const float d = dlt[n * 8 + t * 2 + j] * a.scale;
-          x[n][j] = x[n][j] * (dp[n][j] - d);
-          x[n][2 + j] = x[n][2 + j] * (dp[n][2 + j] - d);
-        }
-      uint32_t dsf[4][4];
-      acc_to_a(dsf, x);
-      mma_am(dk, dsf, sq, lane);  // dk += ds^T . q
-      __syncthreads();  // this buffer is refilled two tiles on
-    }
-  }
-  const int row = key0 + warp * 16 + g;
-  store_rows(static_cast<bf16*>(a.dk), dk, row, S, a.H, h, b, t);
-  store_rows(static_cast<bf16*>(a.dv), dv, row, S, a.H, h, b, t);
-}
-
-// dq for one (64-query tile, head, batch). The block's q and dO tiles are
-// staged in the second k/v buffers, turned into register fragments, and
-// the buffers then carry the stream of k/v tiles (37 KB of static shared
-// memory in all).
-__global__ void __launch_bounds__(kThreads)
-    dq_bf16_kernel(Args a) {
-  __shared__ __align__(16) bf16 sK[2][kTile * kLd];
-  __shared__ __align__(16) bf16 sV[2][kTile * kLd];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int q0 = blockIdx.x * kTile;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int S = a.S;
-  const long long bh = static_cast<long long>(b) * a.H + h;
-
-  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.qs.b + h * a.qs.h;
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.ks.b + h * a.ks.h;
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vs.b + h * a.vs.h;
-  const bf16* dob =
-      static_cast<const bf16*>(a.dout) + b * a.dos.b + h * a.dos.h;
-  const int n_kt = (a.kv_len + kTile - 1) / kTile;
-
-  load_tile(sK[1], qb, a.qs.s, q0, S, tid);
-  load_tile(sV[1], dob, a.dos.s, q0, S, tid);
-  load_tile(sK[0], kb, a.ks.s, 0, a.kv_len, tid);
-  load_tile(sV[0], vb, a.vs.s, 0, a.kv_len, tid);
-  cp_async_commit();
-
-  const int row = q0 + warp * 16 + g;  // rows row, row + 8
-  float lse[2], dlt[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int rr = row + r * 8;
-    lse[r] = rr < S ? a.lse[bh * S + rr] : INFINITY;
-    dlt[r] = (rr < S ? a.delta[bh * S + rr] : 0.f) * a.scale;
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-  uint32_t qf[4][4], dof[4][4];  // this warp's 16 rows of qs and dos
-  a_frags(qf, sK[1] + warp * 16 * kLd, g, t, a.qscale);
-  a_frags(dof, sV[1] + warp * 16 * kLd, g, t, a.doscale);
-  __syncthreads();  // buffer 1 now takes the second k/v tile
-
-  float dq[8][4];
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dq[n][j] = 0.f;
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < n_kt) {
-      const int nb = buf ^ 1;
-      load_tile(sK[nb], kb, a.ks.s, (kt + 1) * kTile, a.kv_len, tid);
-      load_tile(sV[nb], vb, a.vs.s, (kt + 1) * kTile, a.kv_len, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* sk = sK[buf];
-    const bf16* sv = sV[buf];
-    const int key0 = kt * kTile;
-
-    // p = exp2(qs . k^T - lse): 16 queries x 64 keys.
-    float x[8][4];
-    mma_abt(x, qf, sk, g, t, 1.f, false);
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const bool masked = key0 + n * 8 + t * 2 + j >= a.kv_len;
-        x[n][j] = masked ? 0.f : exp2f(x[n][j] - lse[0]);
-        x[n][2 + j] = masked ? 0.f : exp2f(x[n][2 + j] - lse[1]);
-      }
-    // ds = p * (dos . v^T - delta * scale).
-    float dp[8][4];
-    mma_abt(dp, dof, sv, g, t, 1.f, false);
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        x[n][j] = x[n][j] * (dp[n][j] - dlt[0]);
-        x[n][2 + j] = x[n][2 + j] * (dp[n][2 + j] - dlt[1]);
-      }
-    uint32_t dsf[4][4];
-    acc_to_a(dsf, x);
-    mma_am(dq, dsf, sk, lane);  // dq += ds . k
-    __syncthreads();  // this buffer is refilled two tiles on
-  }
-  store_rows(static_cast<bf16*>(a.dq), dq, row, S, a.H, h, b, t);
+__global__ void __launch_bounds__(bwd_units::kThreads, 1)
+    flat_bwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map,
+                         const __grid_constant__ CUtensorMap do_map,
+                         const bwd_units::UnitArgs a) {
+  bwd_units::body(q_map, k_map, v_map, do_map, a);
 }
 
 // ---------------------------------------------------------------------------
@@ -519,8 +141,11 @@ __global__ void __launch_bounds__(kF32Rows) dkdv_f32_kernel(Args a) {
       load_row4(sK + r * kPad, kb, a.ks.s, key0 + r, a.kv_len, col);
       load_row4(sV + r * kPad, vb, a.vs.s, key0 + r, a.kv_len, col);
     }
-    const float* mk = sK + tid * kPad;
-    const float* mv = sV + tid * kPad;
+    // The own rows and the streamed rows are read from shared memory at
+    // each use (volatile): held in registers they would take 128 more
+    // beside dk and dv, and spill.
+    const volatile float* mk = sK + tid * kPad;
+    const volatile float* mv = sV + tid * kPad;
     const bool live = key < a.kv_len;
     for (int q0 = 0; q0 < S; q0 += kF32Stream) {
       __syncthreads();  // the previous tile is consumed (and sK/sV ready)
@@ -538,18 +163,20 @@ __global__ void __launch_bounds__(kF32Rows) dkdv_f32_kernel(Args a) {
       __syncthreads();
       if (!live) continue;
       for (int j = 0; j < kF32Stream; ++j) {
+        const volatile float* qj = sQ[j];
+        const volatile float* doj = sDO[j];
         float s = 0.f, dp = 0.f;
 #pragma unroll
         for (int d = 0; d < kHeadDim; ++d) {
-          s = fmaf(sQ[j][d] * a.qscale, mk[d], s);
-          dp = fmaf(sDO[j][d] * a.doscale, mv[d], dp);
+          s = fmaf(qj[d] * a.qscale, mk[d], s);
+          dp = fmaf(doj[d] * a.doscale, mv[d], dp);
         }
         const float p = exp2f(s - sL[j]);
         const float ds = p * (dp - sD[j] * a.scale);
 #pragma unroll
         for (int d = 0; d < kHeadDim; ++d) {
-          dv[d] = fmaf(p, sDO[j][d], dv[d]);
-          dk[d] = fmaf(ds, sQ[j][d], dk[d]);
+          dv[d] = fmaf(p, doj[d], dv[d]);
+          dk[d] = fmaf(ds, qj[d], dk[d]);
         }
       }
     }
@@ -595,8 +222,8 @@ __global__ void __launch_bounds__(kF32Rows) dq_f32_kernel(Args a) {
   }
   const float lse = row < S ? a.lse[bh * S + row] : INFINITY;
   const float dlt = (row < S ? a.delta[bh * S + row] : 0.f) * a.scale;
-  const float* mq = sQ + tid * kPad;
-  const float* mdo = sDO + tid * kPad;
+  const volatile float* mq = sQ + tid * kPad;  // as in dkdv_f32_kernel
+  const volatile float* mdo = sDO + tid * kPad;
 
   float dq[kHeadDim];
 #pragma unroll
@@ -613,15 +240,17 @@ __global__ void __launch_bounds__(kF32Rows) dq_f32_kernel(Args a) {
     __syncthreads();
     const int n = min(kF32Stream, a.kv_len - key0);
     for (int j = 0; j < n; ++j) {
+      const volatile float* kj = sK[j];
+      const volatile float* vj = sV[j];
       float s = 0.f, dp = 0.f;
 #pragma unroll
       for (int d = 0; d < kHeadDim; ++d) {
-        s = fmaf(mq[d] * a.qscale, sK[j][d], s);
-        dp = fmaf(mdo[d] * a.doscale, sV[j][d], dp);
+        s = fmaf(mq[d] * a.qscale, kj[d], s);
+        dp = fmaf(mdo[d] * a.doscale, vj[d], dp);
       }
       const float ds = exp2f(s - lse) * (dp - dlt);
 #pragma unroll
-      for (int d = 0; d < kHeadDim; ++d) dq[d] = fmaf(ds, sK[j][d], dq[d]);
+      for (int d = 0; d < kHeadDim; ++d) dq[d] = fmaf(ds, kj[d], dq[d]);
     }
   }
   if (row < S) {
@@ -636,11 +265,13 @@ __global__ void __launch_bounds__(kF32Rows) dq_f32_kernel(Args a) {
 
 }  // namespace
 
-// Launches the backward (the dkdv pass, then the dq pass) on `stream` and
-// returns the first launch error as a cudaError_t (0 on success).
-// is_bf16: 1 for bf16 inputs and outputs, 0 for fp32. Strides are in
-// elements; every pointer and stride must keep 16-byte alignment and
-// head_dim must be 64 (the Python wrapper checks both).
+// Launches the backward on `stream` and returns the first launch error as
+// a cudaError_t (0 on success): bf16, one launch; fp32, the dkdv pass, then
+// the dq pass. is_bf16: 1 for bf16 inputs and outputs, 0 for fp32. Strides
+// are in elements; every pointer and stride must keep 16-byte alignment
+// and head_dim must be 64 (the Python wrapper checks both). tma: for bf16,
+// the tensor-map specs (hopper.cuh) of q, k, v and dO, in that order, 16
+// int64 each (boxes of 64 rows of one head); unused for fp32.
 extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
                               const void* dout, const float* lse,
                               const float* delta, void* dq, void* dk,
@@ -651,27 +282,24 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
                               long long k_sb, long long k_ss, long long k_sh,
                               long long v_sb, long long v_ss, long long v_sh,
                               long long do_sb, long long do_ss,
-                              long long do_sh, void* stream) {
+                              long long do_sh, const long long* tma,
+                              void* stream) {
   if (head_dim != kHeadDim || kv_len < 1 || kv_len > seq)
     return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return bwd_units::launch(flat_bwd_bf16_kernel, q, k, v, dout, lse, delta,
+                             dq, dk, dv, batch, seq, seq, heads, kv_len, seq,
+                             qscale, doscale, scale, tma, st);
   Args a{q,      k,      v,      dout, lse,   delta,  dq,
          dk,     dv,     seq,    heads, kv_len, qscale, doscale,
          scale,  {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh},
          {v_sb, v_ss, v_sh}, {do_sb, do_ss, do_sh}};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    const dim3 grid((seq + kTile - 1) / kTile, heads, batch);
-    dkdv_bf16_kernel<<<grid, kThreads, 0, st>>>(a);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dq_bf16_kernel<<<grid, kThreads, 0, st>>>(a);
-  } else {
-    const dim3 grid((seq + kF32Rows - 1) / kF32Rows, heads, batch);
-    dkdv_f32_kernel<<<grid, kF32Rows, 0, st>>>(a);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dq_f32_kernel<<<grid, kF32Rows, 0, st>>>(a);
-  }
+  const dim3 grid((seq + kF32Rows - 1) / kF32Rows, heads, batch);
+  dkdv_f32_kernel<<<grid, kF32Rows, 0, st>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dq_f32_kernel<<<grid, kF32Rows, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

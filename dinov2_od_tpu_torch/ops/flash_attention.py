@@ -357,21 +357,33 @@ def _launch_bhsd(q, k, v, scale: float, kv_len: int):
     return o, lse
 
 
+def allheads_fwd_tma_specs(q, k, v):
+    """The tensor-map specs B4f's bf16 kernel reads its operands through, in
+    its order: q `[B, Sq, H, 64]` in boxes of 64 rows of one head (a unit's
+    query rows), k and v `[B, Sk, H, 64]` in boxes of 128 rows (a key
+    tile), through the real strides, so a rank's fused qkv slices are read
+    in place. Raises ValueError where TMA cannot address one of them."""
+    return [*_head_specs(64, q), *_head_specs(128, k, v)]
+
+
 def _launch_allheads(q, k, v, scale: float, kv_len: int):
     b, sq, h, dh = q.shape
     sk = k.shape[1]
     _check_launch(q=q, k=k, v=v)
     lib, fn = _bound(_ALLHEADS_KERNEL,
-                     [_P] * 5 + [_I] * 7 + [_F] + [_LL] * 9 + [_P])
+                     [_P] * 5 + [_I] * 7 + [_F] + [_LL] * 9 + [_P] * 2)
     o = torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    specs = (_tma.as_c_array(*allheads_fwd_tma_specs(q, k, v))
+             if q.dtype == torch.bfloat16 else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), int(q.dtype == torch.bfloat16), b, sq, sk, h,
             dh, kv_len, _qscale(scale, q.dtype),
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], stream,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            None if specs is None else ctypes.addressof(specs), stream,
         )
     _raise_on(lib, _ALLHEADS_KERNEL, rc)
     _build.launch_counts[_ALLHEADS_KERNEL] += 1
@@ -533,15 +545,28 @@ def _check_rows(b: int, h: int, sq: int, **tensors) -> None:
             raise ValueError(f"{name} must be a contiguous fp32 [B, H, Sq]")
 
 
+def flat_bwd_tma_specs(q, k, v, do):
+    """The tensor-map specs B2's bf16 kernel reads its operands through, in
+    its order: q, k, v and dO `[B, S, H, 64]`, each in boxes of 64 rows of
+    one head (a unit's own tile or a streamed one), through the real
+    strides, so the fused qkv slices are read in place. Raises ValueError
+    where TMA cannot address one of them."""
+    return _head_specs(64, q, k, v, do)
+
+
 def _launch_bwd(q, k, v, do, lse, delta, scale: float, kv_len: int):
+    """B2: dq, dk and dv written whole by one launch (bf16; fp32 takes two
+    CUDA-core passes), deterministic."""
     b, s, h, dh = q.shape
     _check_launch(q=q, k=k, v=v, do=do)
     _check_rows(b, h, s, lse=lse, delta=delta)
     lib, fn = _bound(_BWD_KERNEL,
-                     [_P] * 9 + [_I] * 6 + [_F] * 3 + [_LL] * 12 + [_P])
+                     [_P] * 9 + [_I] * 6 + [_F] * 3 + [_LL] * 12 + [_P] * 2)
     dq = torch.empty((b, s, h, dh), dtype=q.dtype, device=q.device)
     dk = torch.empty_like(dq)
     dv = torch.empty_like(dq)
+    specs = (_tma.as_c_array(*flat_bwd_tma_specs(q, k, v, do))
+             if q.dtype == torch.bfloat16 else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(
@@ -551,7 +576,8 @@ def _launch_bwd(q, k, v, do, lse, delta, scale: float, kv_len: int):
             kv_len, _qscale(scale, q.dtype),
             _rounded(scale, q.dtype), float(scale),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *do.stride()[:3], stream,
+            *do.stride()[:3],
+            None if specs is None else ctypes.addressof(specs), stream,
         )
     _raise_on(lib, _BWD_KERNEL, rc)
     _build.launch_counts[_BWD_KERNEL] += 1
@@ -783,13 +809,13 @@ def flash_attention_lse(
 
 
 __all__ = [
-    "HEAD_DIM", "NEG_INF", "allheads_bwd_tma_specs", "bhsd_bwd_tma_specs",
-    "bhsd_fwd_tma_specs", "flash_attention",
+    "HEAD_DIM", "NEG_INF", "allheads_bwd_tma_specs", "allheads_fwd_tma_specs",
+    "bhsd_bwd_tma_specs", "bhsd_fwd_tma_specs", "flash_attention",
     "flash_attention_allheads_bwd", "flash_attention_allheads_bwd_plain",
     "flash_attention_allheads_fwd", "flash_attention_allheads_fwd_plain",
     "flash_attention_bhsd_bwd",
     "flash_attention_bhsd_bwd_plain", "flash_attention_bhsd_fwd",
     "flash_attention_bhsd_fwd_plain", "flash_attention_bwd",
     "flash_attention_bwd_plain", "flash_attention_fwd",
-    "flash_attention_fwd_plain", "flash_attention_lse",
+    "flash_attention_fwd_plain", "flash_attention_lse", "flat_bwd_tma_specs",
 ]

@@ -208,9 +208,10 @@ KERNEL_NAMES = [
      "v_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16*, float*, int, "
      "int, int, float, (an",
      "flash_attn"),
-    ("(anonymous namespace)::dkdv_bf16_kernel((anonymous namespace)::Args)",
+    ("(anonymous namespace)::flat_bwd_bf16_kernel(CUtensorMap_st, CUtensorM"
+     "ap_st, CUtensorMap_st, CUtensorMap_st, bwd_units::UnitArgs)",
      "flash_attn"),
-    ("(anonymous namespace)::dq_bf16_kernel((anonymous namespace)::Args)",
+    ("(anonymous namespace)::dq_f32_kernel((anonymous namespace)::Args)",
      "flash_attn"),
     ("(anonymous namespace)::bhsd_fwd_bf16_kernel(__nv_bfloat16 const*, __nv"
      "_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16*, float*, int, i"
@@ -252,7 +253,7 @@ def test_trace_step_parser_sums_kernel_events_only(tmp_path):
         ev("nvjet_tst_64x8_64x16_4x1_v_bz_TNT", 300.0),
         ev("nvjet_tst_64x8_64x16_4x1_v_bz_TNT", 300.0),
         ev("(anonymous namespace)::flash_fwd_bf16_kernel(...)", 120.0),
-        ev("(anonymous namespace)::dq_bf16_kernel(...)", 60.0),
+        ev("(anonymous namespace)::flat_bwd_bf16_kernel(...)", 60.0),
         ev("void at::native::vectorized_elementwise_kernel<4, ...>", 90.0),
         ev("Memcpy DtoH (Device -> Pinned)", 40.0, cat="gpu_memcpy"),
         {"ph": "M", "name": "process_name", "pid": 0,

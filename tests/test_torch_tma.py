@@ -1,18 +1,19 @@
 """The TMA arguments of the port's Hopper kernels, and the operands they
 are handed, on the CPU; the kernels themselves on the card.
 
-B6 (csrc/int8_gemm.cu) and the bf16 kernels of B5b, B5f and B4b
+B6 (csrc/int8_gemm.cu) and the bf16 kernels of B5b, B5f, B4b, B2 and B4f
 (csrc/flash_attn_bhsd_bwd.cu, csrc/flash_attn_bhsd_fwd.cu,
-csrc/flash_attn_allheads_bwd.cu) load their tiles by TMA from tensor maps
+csrc/flash_attn_allheads_bwd.cu, csrc/flash_attn_bwd.cu,
+csrc/flash_attn_allheads_fwd.cu) load their tiles by TMA from tensor maps
 that their C entry points encode from specs computed in Python
 (ops/_tma.py). These tests hold the specs to the tensors they describe
 (dims innermost first, byte strides, boxes), including the fused qkv
 slices the attention kernels read in place and one slice of a stacked
 int8 tree that B6 reads without a copy, and check that a layout TMA
-cannot address raises. The `gpu`-marked tests hold the four kernels
+cannot address raises. The `gpu`-marked tests hold the six kernels
 against their plain versions on the card at the main paths' shapes
-(chip_smoke.py INT8_CASES, BHSD_CASES and ALLHEADS_CASES) and skip
-without one."""
+(chip_smoke.py INT8_CASES, BHSD_CASES, ALLHEADS_CASES and BWD_CASES) and
+skip without one."""
 
 import numpy as np
 import pytest
@@ -186,6 +187,63 @@ def test_fwd_and_allheads_bwd_specs_raise_on_a_misaligned_stride(kernel):
           "b4b": fa.allheads_bwd_tma_specs}[kernel]
     fn(ok, ok, ok, ok)
     for i in range(3 if kernel == "b5f" else 4):
+        args = [ok, ok, ok, ok]
+        args[i] = bad
+        with pytest.raises(ValueError, match="dim 2"):
+            fn(*args)
+
+
+# ---- B2's and B4f's tensor maps --------------------------------------------
+
+# (batch, S, heads) of B2: ViT-B/14 at 224 px (the train step's shape) and
+# ViT-L/14 at 518 px, the longest self-attention the flat rule sends to B2.
+B2_SPEC_SHAPES = [(32, 257, 12), (8, 1370, 16)]
+
+
+@pytest.mark.parametrize("b,s,h", B2_SPEC_SHAPES, ids=["vit_b_224",
+                                                       "vit_l_518"])
+def test_flat_bwd_specs_describe_the_fused_qkv_slices(b, s, h):
+    """B2's maps (q, k, v, dO in 64-row boxes of one head: a unit's own
+    tile or a streamed one) start at each operand's own pointer and step
+    by its real strides: q, k and v are read in place from the fused qkv
+    output (each row 3 * h * 64 bf16 long), dO is contiguous."""
+    q, k, v, do = _operands(b, s, s, h)
+    specs = fa.flat_bwd_tma_specs(q, k, v, do)
+    assert [_unpack(spec) for spec in specs] == [
+        _head_map(t, 64) for t in (q, k, v, do)]
+    assert _unpack(specs[0])[2][1] == 3 * h * DH * 2
+    assert _unpack(specs[3])[2][1] == h * DH * 2
+    assert v.data_ptr() - q.data_ptr() == 2 * h * DH * 2
+
+
+# A rank's q, k, v under 4-way tensor parallelism (3 heads at 257 tokens,
+# views of its fused qkv output) and the cross shape (50 queries over
+# ViT-L/560's 1601 keys).
+@pytest.mark.parametrize("b,sq,sk,h", [(32, 257, 257, 3), (8, 50, 1601, 16)],
+                         ids=["tp_h3", "cross"])
+def test_allheads_fwd_specs_describe_the_operands(b, sq, sk, h):
+    """B4f's maps: q in boxes of 64 rows of one head (a unit's query rows),
+    k and v in boxes of 128 rows (a key tile), each over its own pointer
+    and real strides."""
+    q, k, v, _ = _operands(b, sq, sk, h)
+    specs = fa.allheads_fwd_tma_specs(q, k, v)
+    assert [_unpack(spec) for spec in specs] == [
+        _head_map(q, 64), _head_map(k, 128), _head_map(v, 128)]
+    # Rows past the tensor's end read as zeros: the row dims are Sq and Sk.
+    assert _unpack(specs[0])[1][2] == sq and _unpack(specs[1])[1][2] == sk
+
+
+@pytest.mark.parametrize("kernel", ["b2", "b4f"])
+def test_flat_bwd_and_allheads_fwd_specs_raise_on_a_misaligned_stride(
+        kernel):
+    base = torch.zeros(4 * 20 * 3 * 68, dtype=torch.bfloat16)
+    # Heads 68 bf16 apart (136 bytes: not a multiple of 16).
+    bad = base.as_strided((4, 20, 3, DH), (20 * 3 * 68, 3 * 68, 68, 1))
+    ok = torch.zeros((4, 20, 3, DH), dtype=torch.bfloat16)
+    fn = {"b2": fa.flat_bwd_tma_specs,
+          "b4f": lambda *t: fa.allheads_fwd_tma_specs(*t[:3])}[kernel]
+    fn(ok, ok, ok, ok)
+    for i in range(4 if kernel == "b2" else 3):
         args = [ok, ok, ok, ok]
         args[i] = bad
         with pytest.raises(ValueError, match="dim 2"):
@@ -392,6 +450,73 @@ def test_b4b_on_card_at_the_main_shapes(case):
         assert err <= 2.0 ** -7 * max(1.0, r.float().abs().max().item())
         assert torch.equal(g, g2)
     assert not got[1][:, kv_len:].any() and not got[2][:, kv_len:].any()
+
+
+# B2's cases (batch, Sq, Sk, heads, kv_len): chip_smoke.py BWD_CASES, and
+# 17 tokens (one unit of each role, one tile).
+B2_CASES = [(32, 257, 257, 12, 257), (32, 257, 257, 12, 200),
+            (8, 1370, 1370, 16, 1370), (2, 17, 17, 2, 17)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", B2_CASES,
+                         ids=["vit_b_224", "masked", "vit_l_518", "short"])
+def test_b2_on_card_at_the_main_shapes(case):
+    """B2's bf16 kernel on the fused qkv views against its plain version at
+    chip_smoke.py's BWD_CASES: within BWD_TOL (two bf16 ulps of the largest
+    gradient), masked keys' dk and dv exactly 0, dq, dk and dv bit-equal
+    from run to run, one launch counted a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    kv_len = case[4]
+    q, k, v, do = _case_inputs(case, 4)
+    assert fa._flat_eligible(q, k)
+    scale = DH ** -0.5
+    o, lse = fa.flash_attention_fwd_plain(q, k, v, scale=scale,
+                                          kv_len=kv_len)
+    before = _build.launch_counts["flash_attn_bwd"]
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, scale=scale,
+                                 kv_len=kv_len)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, scale=scale,
+                                   kv_len=kv_len)
+    ref = fa.flash_attention_bwd_plain(
+        q, k, v, do, lse, fa._delta(do, o, None), scale=scale, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["flash_attn_bwd"] == before + 2
+    for g, r, g2 in zip(got, ref, again):
+        err = (g.float() - r.float()).abs().max().item()
+        assert err <= 2.0 ** -7 * max(1.0, r.float().abs().max().item())
+        assert torch.equal(g, g2)
+    assert not got[1][:, kv_len:].any() and not got[2][:, kv_len:].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ALLHEADS_CASES + [(4, 1024, 1024, 4, 1024),
+                                                   (2, 1, 100, 4, 77)],
+                         ids=["tp_h3", "masked", "cross", "s640", "s1024",
+                              "one_row"])
+def test_b4f_on_card_at_the_main_shapes(case):
+    """B4f's bf16 kernel against its plain version at every chip_smoke.py
+    ALLHEADS_CASES case (S 1024: the longest self-attention the forward
+    rule sends to it): within ALLHEADS_TOL (o 1e-2, one bf16 ulp; the lse
+    1e-3, since both take p against the exact row max), one launch
+    counted; and one query row over 77 live keys of 100 (a single K tile
+    in both passes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    kv_len = case[4]
+    q, k, v, _ = _case_inputs(case, 5)
+    assert fa._allheads_fwd(q, k)
+    scale = DH ** -0.5
+    before = _build.launch_counts["flash_attn_allheads_fwd"]
+    o, lse = fa.flash_attention_allheads_fwd(q, k, v, scale=scale,
+                                             kv_len=kv_len)
+    o_ref, lse_ref = fa.flash_attention_allheads_fwd_plain(
+        q, k, v, scale=scale, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["flash_attn_allheads_fwd"] == before + 1
+    assert (o.float() - o_ref.float()).abs().max().item() <= 1e-2
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
 
 
 def test_ptxas_summary_reads_registers_and_spills():
