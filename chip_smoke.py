@@ -10,15 +10,19 @@ non-zero and prints no result:
 1. card    - the card's name and power limit, from nvidia-smi;
 2. build   - every CUDA kernel of the port, compiled with nvcc for sm_90a
              from the sources in the checkout, one nvcc per source at once;
-             ptxas's registers and spills of each kernel of the six TMA +
-             wgmma sources (B6, B5b, B5f, B4b, B2, B4f), which must not
-             spill;
+             ptxas's registers and spills of each kernel of the eight TMA +
+             wgmma sources (B6, B5b, B5f, B4b, B2, B4f, B1, T1), which
+             must not spill nor have a wgmma serialised by ptxas;
 3. kernels - each kernel against its plain PyTorch version at the shapes
              of the main paths, within stated tolerances, and timed
              (device time from torch.profiler; CUDA events as event_ms)
              beside its bound, the plain version and a library call: the
-             flash-attention forward (B1) at B=32, S=257, H=12, dh=64,
-             bf16 and fp32, all keys and kv_len=200; the backward (B2) at
+             flash-attention forward (B1) at FWD_CASES (B=32, S=257,
+             H=12, dh=64 with all keys and kv_len=200, ViT-L/518's 1370
+             tokens, and the lengths about its tile edges at 4 images),
+             bf16 and fp32, each with a control (a key tile dropped) that
+             must fail, o and lse bit-equal from run to run, timed on the
+             fused qkv views beside SDPA; the backward (B2) at
              BWD_CASES (that shape, both kv_len, and ViT-L/518's 1370
              tokens, 16 heads), bf16 and fp32, with a control (a key tile
              dropped) that must fail, dq, dk, dv bit-equal from run to
@@ -107,10 +111,11 @@ non-zero and prints no result:
              step (its default) and BENCH_MODE=eval: bench.py's four keys,
              a positive images/s, the card's name in the metric, B1 and B2
              launched (B1 alone in eval) and nothing else;
-13. trace   - tools/trace_step.py over 3 steps of the ViT-B train step and
-             of the ViT-L/560 batch-8 forward: the groups sum to the total
-             device time, the flash group holds B1 and B2 (B5f at 560 px),
-             and the largest elementwise and copy kernels by name.
+13. trace   - tools/trace_step.py over 3 steps of the ViT-B train step, of
+             the ViT-B batch-32 forward and of the ViT-L/560 batch-8
+             forward: the groups sum to the total device time, the flash
+             group holds B1 and B2 (B1 alone in the ViT-B forward, B5f at
+             560 px), and the largest elementwise and copy kernels by name.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after. The line before the last is {"kernels": [...]}; the last
@@ -124,6 +129,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -140,12 +146,14 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 # The backbone's attention on both paths: ViT-B/14 at 224 px, batch 32.
 B, S, H, DH = 32, 257, 12, 64
 KV_MASKED = 200  # kv_len of the masked cases
-# Kernel against plain version, max abs error. bf16: both round p to bf16
+# B5f against its plain version, max abs error. bf16: both round p to bf16
 # (2^-9 relative), the kernel against its running max (online softmax),
 # the plain version against the row max, so p may round apart: l then
 # differs by at most 2^-9 relative, lse2 = m + log2 l by 2^-9 / ln 2 =
 # 2.8e-3, and o by about one bf16 ulp (2^-7 for |o| in [1, 2)). fp32: fp32
 # CUDA cores against fp32 matmuls (TF32 off) in another summation order.
+# B1 takes p against the exact row max (B4f's body) and is held to the
+# tighter ALLHEADS_TOL, which lies within this one.
 TOL = {
     "bfloat16": {"o": 1e-2, "lse": 3e-3},
     "float32": {"o": 1e-5, "lse": 1e-5},
@@ -168,6 +176,20 @@ MODEL_TOL = {
 # key); 192 also drops the last full 64-key tile.
 CONTROLS = (S - 1, 192)
 OUTPUTS = ("pred_logits", "pred_boxes")
+# B1's cases (batch, S, heads, kv_len): the serving shape with all keys and
+# with the keys from 200 on masked; ViT-L/14 at 518 px (1370 tokens, 16
+# heads), the longest self-attention the flat rule sends to B1; and, at 4
+# images, each length on either side of the design's tile edges (128 | 129,
+# the first to take the fitted 8-key tail; 256 | 257, ViT-B's; 264, the
+# last tail, | 265, a ragged 128-key tile; and tails behind five or more
+# full tiles, where the 5-stage ring must move past the tail's slot: 641,
+# 1025, ViT-B/14 at 448 px, and 1157, at 476 px), each with all keys, all
+# but one and one. Each case with a control (the last 64-key tile dropped,
+# where one is left) that must fail, and o and the lse bit-equal from run
+# to run.
+FWD_CASES = ((B, S, H, S), (B, S, H, KV_MASKED), (8, 1370, 16, 1370)) + tuple(
+    (4, s, H, kv) for s in (128, 129, 256, 257, 264, 265, 641, 1025, 1157)
+    for kv in (s, s - 1, 1))
 REQUEST_SIZES = (8, 16, 4, 12)
 # Backward kernel against its plain version: max abs error of each of dq,
 # dk, dv over max(1, its largest magnitude). bf16: both round p and ds to
@@ -270,7 +292,8 @@ LS, LH = 1601, 16  # its attention: 1601 tokens, 16 heads of 64
 # take any shape and are held to their plain versions there as well, as
 # the blocked kernels JAX runs with an explicit block_q). Tolerances: TOL
 # and BWD_TOL, for the reasons
-# given there (B5f's online softmax rounds p as B1's does); B5b's dq is
+# given there (B5f's online softmax rounds p apart from the plain version's
+# exact row max); B5b's dq is
 # summed over key tiles by fp32 reduce-adds in a varying order, a few fp32
 # ulps that stay far inside BWD_TOL's bf16 ulps.
 BHSD_CASES = ((LARGE_BATCH, LS, LS, LH, LS), (LARGE_BATCH, LS, LS, LH, 1500),
@@ -283,10 +306,12 @@ LARGE_REQUEST_SIZES = (3, 5, 2, 6)
 # the JAX rule sends to B4 both ways; and a length at each routing edge:
 # S 1024, the longest self-attention the forward rule sends to B4f (its
 # backward goes to B5b), and S 640, the longest the backward rule sends to
-# B4b. Both kernels are held to their plain versions at every case.
+# B4b; and S 641, a fitted 8-key tail behind five full key tiles (the
+# forward's 5-stage ring must move past the tail's slot). Both kernels are
+# held to their plain versions at every case.
 ALLHEADS_CASES = ((B, S, S, 3, S), (B, S, S, 3, KV_MASKED),
                   (LARGE_BATCH, 50, LS, LH, LS), (4, 1024, 1024, 4, 1024),
-                  (4, 640, 640, 4, 600))
+                  (4, 640, 640, 4, 600), (4, 641, 641, 4, 641))
 # B4f against its plain version, max abs error. bf16: both take p against
 # the exact row max and round it to bf16 at the same point, so p rounds
 # apart only where the two fp32 sums of s fall on either side of a bf16
@@ -362,9 +387,10 @@ TP_STEPS = 10
 # (B1), max abs error per output, each limit between the sound reading and
 # the controls' (every rank's B4f with the keys from S - 1 or 192 on
 # dropped). fp32: both sides fp32, kernels and partial sums in other
-# orders; bf16: B1's running max and B4f's exact one round p apart, and
-# the row-parallel GEMMs round their bf16 partial products before the sum,
-# so bf16 holds the 192 control only (as the large phase does).
+# orders; bf16: the row-parallel GEMMs round their bf16 partial products
+# before the sum, so bf16 holds the 192 control only (as the large phase
+# does). The limits were set while B1 took p against a running max, which
+# rounded p apart from B4f's exact one; B1 takes the exact max too now.
 TP_MODEL_TOL = {
     "float32": {"pred_logits": 1e-3, "pred_boxes": 1e-4},
     "bfloat16": {"pred_logits": 0.15, "pred_boxes": 0.015},
@@ -398,21 +424,29 @@ ROOFLINE_CASES = ((8, 16, 1376), (2, 16, 1616))
 # (2^-7 of it) plus the p flips' share. The control drops the last key
 # tile (32 of 1376 keys, 16 of 1616), which moves o by about 0.1 relative.
 T1_TOL = {"rel": 1e-3, "max_over_peak": 2.0 ** -6}
-# trace_step's runs: 3 ViT-B train steps (bench.py's default), then the
-# ViT-L/560 batch-8 forward, whose elementwise kernels are logged by name.
-TRACE_RUNS = (("ViT-B/224 b32 train", {}),
+# trace_step's runs: 3 ViT-B train steps (bench.py's default), the ViT-B
+# batch-32 forward, then the ViT-L/560 batch-8 forward, whose elementwise
+# kernels are logged by name; each with the flash kernels it must hold.
+TRACE_RUNS = (("ViT-B/224 b32 train", {},
+               ("flash_attn_fwd", "flash_attn_bwd")),
+              ("ViT-B/224 b32 eval", {"BENCH_MODE": "eval"},
+               ("flash_attn_fwd",)),
               ("ViT-L/560 b8 eval", {"BENCH_MODE": "eval",
                                      "BENCH_MODEL": "large",
                                      "BENCH_IMAGE_SIZE": "560",
-                                     "BENCH_BATCH": "8"}))
+                                     "BENCH_BATCH": "8"},
+               ("flash_attn_bhsd_fwd",)))
 
 
-# The sources redesigned for Hopper with TMA and wgmma (B6, B5b, B5f, B4b,
-# B2, B4f): ptxas must report no spills for any of their kernels, fp32
-# CUDA-core kernels included.
+# The sources designed for Hopper with TMA and wgmma, all eight (B6, B5b,
+# B5f, B4b, B2, B4f, B1, T1): ptxas must report no spills for any of their
+# kernels, fp32 CUDA-core kernels included, and must serialise no wgmma.
 HOPPER_SOURCES = ("int8_gemm", "flash_attn_bhsd_bwd", "flash_attn_bhsd_fwd",
                   "flash_attn_allheads_bwd", "flash_attn_bwd",
-                  "flash_attn_allheads_fwd")
+                  "flash_attn_allheads_fwd", "flash_attn_fwd",
+                  "attn_roofline")
+# ptxas's note that it serialised a kernel's wgmma instructions (C7510).
+WGMMA_SERIALIZED = "wgmma.mma_async instructions are serialized"
 
 
 def log(msg: str) -> None:
@@ -472,7 +506,9 @@ def phase_build():
             if "registers" in line or "spill" in line:
                 log(f"build: {name}: {line.strip()}")
     # The Hopper designs (TMA + wgmma): every kernel of their sources
-    # without spills.
+    # without spills, and no wgmma serialised.
+    from dinov2_od_tpu_torch.ops import _build as build
+
     for name in HOPPER_SOURCES:
         report = ptxas_report(name)
         log(f"build: {name}: ptxas " + json.dumps(report))
@@ -480,6 +516,10 @@ def phase_build():
                    if v["spill_stores"] or v["spill_loads"]}
         if spilled:
             raise AssertionError(f"{name}: ptxas spills in {spilled}")
+        serial = [line.strip() for line in build.ptxas_log(name).splitlines()
+                  if WGMMA_SERIALIZED in line]
+        if serial:
+            raise AssertionError(f"{name}: ptxas serialised wgmma: {serial}")
 
 
 def ptxas_report(source: str) -> dict:
@@ -496,18 +536,34 @@ def ptxas_report(source: str) -> dict:
             _build.ptxas_log(source)).items():
         fn = next((f for f in names if f in mangled), mangled)
         kind = ("<bf16>" if "nv_bfloat16" in mangled
-                else "<float>" if f"{fn}IfE" in mangled else "")
+                else "<float>" if f"{fn}IfE" in mangled
+                else _template_values(mangled, fn))
         out[fn + kind] = info
     if not out:
         raise AssertionError(f"ptxas reported no kernel of {source}")
     return out
 
 
+def _template_values(mangled: str, fn: str) -> str:
+    """The integer and bool template arguments of a mangled kernel name
+    (`fnILi2ELi4EE...` -> "<2, 4>", `fnILb1EE...` -> "<true>"), else ""."""
+    m = re.search(rf"{fn}I((?:L[a-z]n?\d+E)+)E", mangled)
+    if not m:
+        return ""
+    vals = []
+    for kind, val in re.findall(r"L([a-z])(n?\d+)E", m.group(1)):
+        val = val.replace("n", "-")
+        vals.append(("false", "true")[int(val)] if kind == "b" else val)
+    return "<" + ", ".join(vals) + ">"
+
+
 def phase_kernels(seed: int):
-    """Flash-attention forward against its plain version; returns the
-    kernel's entry of the kernels line (launches filled in later)."""
+    """B1 against its plain version at FWD_CASES, bf16 and fp32, each with a
+    control (the last key tile dropped) that must fail the same check and
+    o and the lse bit-equal from run to run; timed at the serving shape on
+    the fused qkv views beside SDPA. Returns the kernel's entry of the
+    kernels line (launches filled in later)."""
     import torch
-    import torch.nn.functional as F
 
     from dinov2_od_tpu_torch.ops import flash_attention as fa
 
@@ -515,51 +571,57 @@ def phase_kernels(seed: int):
     scale = DH ** -0.5
     entry = None
     failures = []
-    for dtype in (torch.bfloat16, torch.float32):
-        name = str(dtype).split(".")[-1]
-        # q, k, v as the three strided views of one fused qkv GEMM output,
-        # as the backbone hands them to the kernel.
-        qkv = torch.randn((B, S, 3 * H * DH), generator=gen)
-        qkv = qkv.to("cuda", dtype)
-        q, k, v = (t.view(B, S, H, DH) for t in qkv.chunk(3, dim=-1))
-        for kv_len in (S, KV_MASKED):
+    for b, s, h, kv_len in FWD_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            # q, k, v as the three strided views of one fused qkv GEMM
+            # output, as the backbone hands them to the kernel.
+            q, k, v, _ = _bhsd_inputs(gen, b, s, s, h, dtype)
             o, lse = fa.flash_attention_fwd(q, k, v, scale=scale,
                                             kv_len=kv_len)
+            o2, lse2 = fa.flash_attention_fwd(q, k, v, scale=scale,
+                                              kv_len=kv_len)
             o_ref, lse_ref = fa.flash_attention_fwd_plain(
                 q, k, v, scale=scale, kv_len=kv_len)
+            ctl_len = _last_tile_dropped(kv_len)
+            if ctl_len:
+                o_c, lse_c = fa.flash_attention_fwd(q, k, v, scale=scale,
+                                                    kv_len=ctl_len)
             torch.cuda.synchronize()
             err_o = (o.float() - o_ref.float()).abs().max().item()
             err_lse = (lse - lse_ref).abs().max().item()
             finite = bool(torch.isfinite(o).all() and torch.isfinite(lse).all())
-            def kernel():
-                fa.flash_attention_fwd(q, k, v, scale=scale, kv_len=kv_len)
-
-            ms = device_ms(kernel, iters=50)
-            event_ms = time_ms(kernel, iters=50)
-            plain_ms = device_ms(lambda: fa.flash_attention_fwd_plain(
-                q, k, v, scale=scale, kv_len=kv_len), iters=10)
-            # The library yardstick: SDPA on the first kv_len keys.
-            qt, kt, vt = (t.transpose(1, 2) for t in
-                          (q, k[:, :kv_len], v[:, :kv_len]))
-            library_ms = device_ms(
-                lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, scale=scale), iters=50)
-            bound_ms, bound_by = attention_bound(name, kv_len)
+            equal = bool(torch.equal(o, o2) and torch.equal(lse, lse2))
             row = {
-                "dtype": name, "kv_len": kv_len, "shape": [B, S, H, DH],
+                "dtype": name, "kv_len": kv_len, "shape": [b, s, h, DH],
+                "tail8": 128 < kv_len and 1 <= kv_len % 128 <= 8,
                 "max_abs_err_o": err_o, "max_abs_err_lse": err_lse,
-                "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
-                "library_ms": library_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by,
+                "o_lse_run_to_run_equal": equal,
             }
-            log("kernels: flash_attn_fwd " + json.dumps(row))
-            tol = TOL[name]
+            tol = ALLHEADS_TOL[name]
             if not finite or err_o > tol["o"] or err_lse > tol["lse"]:
                 failures.append(
-                    f"{name} kv_len={kv_len}: o err {err_o:.3g} "
-                    f"(tol {tol['o']}), lse err {err_lse:.3g} "
+                    f"{name} {row['shape']} kv_len={kv_len}: o err "
+                    f"{err_o:.3g} (tol {tol['o']}), lse err {err_lse:.3g} "
                     f"(tol {tol['lse']}), finite={finite}")
-            if name == "bfloat16" and kv_len == S:
+            if not equal:
+                failures.append(f"{name} {row['shape']} kv_len={kv_len}: "
+                                f"o or lse differ from run to run")
+            if ctl_len:
+                ctl_o = (o_c.float() - o_ref.float()).abs().max().item()
+                ctl_lse = (lse_c - lse_ref).abs().max().item()
+                row.update(control_kv_len=ctl_len, control_err_o=ctl_o,
+                           control_err_lse=ctl_lse)
+                if ctl_o <= tol["o"] and ctl_lse <= tol["lse"]:
+                    failures.append(f"{name} {row['shape']}: the control "
+                                    f"(kv_len {ctl_len}) passes the check")
+                del o_c, lse_c
+            if (b, s, h) == (B, S, H) and kv_len in (S, KV_MASKED):
+                row.update(_time_fwd(q, k, v, kv_len, name,
+                                     spread=name == "bfloat16"
+                                     and kv_len == S))
+            log("kernels: flash_attn_fwd " + json.dumps(row))
+            if name == "bfloat16" and (b, s, h, kv_len) == FWD_CASES[0]:
                 entry = {
                     "name": "flash_attn_fwd",
                     "route": "cuda",
@@ -569,15 +631,50 @@ def phase_kernels(seed: int):
                     "launches": 0,
                     "launches_per_forward": 0,
                     "max_abs_err": err_o,
-                    "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by,
-                    "library_ms": library_ms,
+                    **{key: row[key] for key in (
+                        "ms", "ms_min", "ms_max", "event_ms", "plain_ms",
+                        "bound_ms", "bound_by", "library_ms")},
+                    "kernel_ms": row["ms"],
+                    "ptxas": ptxas_report("flash_attn_fwd"),
                 }
-        del qkv, q, k, v
+            del q, k, v, o, lse, o2, lse2, o_ref, lse_ref
+            torch.cuda.empty_cache()
     if failures:
         raise AssertionError("kernel disagrees with its plain version: "
                              + "; ".join(failures))
     return entry
+
+
+def _time_fwd(q, k, v, kv_len, name, spread):
+    """B1's device and event times on the fused qkv views beside its
+    bound, its plain version and SDPA on the first kv_len keys of the same
+    views. `spread`: B1 and SDPA over three profiler windows each, with
+    their least and largest readings."""
+    import torch.nn.functional as F
+
+    from dinov2_od_tpu_torch.ops import flash_attention as fa
+
+    scale = DH ** -0.5
+
+    def kernel():
+        fa.flash_attention_fwd(q, k, v, scale=scale, kv_len=kv_len)
+
+    qt, kt, vt = (t.transpose(1, 2) for t in
+                  (q, k[:, :kv_len], v[:, :kv_len]))
+    repeats = 3 if spread else 1
+    ms = _spread_ms(kernel, 100, repeats)
+    lib = _spread_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, scale=scale), 100, repeats)
+    bound_ms, bound_by = attention_bound(name, kv_len)
+    return {
+        "ms": ms[0], "ms_min": ms[1], "ms_max": ms[2],
+        "event_ms": time_ms(kernel, iters=50),
+        "plain_ms": device_ms(lambda: fa.flash_attention_fwd_plain(
+            q, k, v, scale=scale, kv_len=kv_len), iters=10),
+        "library_ms": lib[0], "library_ms_min": lib[1],
+        "library_ms_max": lib[2],
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
 
 
 def _spread_ms(fn, iters: int, repeats: int = 3):
@@ -2516,7 +2613,7 @@ def phase_roofline_kernel(seed: int):
             **stages["mxu_only"], "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms,
             "library": "torch.matmul(torch.matmul(bf16 q', k^T), v)",
-            "stages": stages}
+            "stages": stages, "ptxas": ptxas_report("attn_roofline")}
 
 
 def phase_roofline_tool(kernels: dict):
@@ -2559,6 +2656,8 @@ def phase_roofline_tool(kernels: dict):
     entry = kernels["attn_roofline"]
     entry["launches"] = counts["attn_roofline"]
     entry["tool"] = recs
+    log("roofline tool: deltas " + json.dumps({
+        r["variant"]: r.get("delta_ms_vs_prev") for r in recs}))
     log(f"roofline tool: {time.perf_counter() - t0:.1f} s, launches "
         f"{counts['attn_roofline']} T1 + {counts['flash_attn_bhsd_fwd']} B5f; "
         f"{card_line()}")
@@ -2601,16 +2700,17 @@ def phase_bench():
 
 def phase_trace():
     """`trace_step` for TRACE_RUNS: the groups sum to the total device
-    time within 1%; the train step's flash group holds B1 and B2; the
-    ViT-L/560 forward's B5f; the largest elementwise and copy kernels are
-    logged by name."""
+    time within 1%; the flash group holds the run's kernels (B1 and B2 in
+    the ViT-B train step, B1 in its forward, B5f in the ViT-L/560
+    forward); the largest elementwise and copy kernels are logged by
+    name."""
     import io
 
     import torch
 
     from dinov2_od_tpu_torch.tools import trace_step
 
-    for what, env in TRACE_RUNS:
+    for what, env, want in TRACE_RUNS:
         out = io.StringIO()
         t0 = time.perf_counter()
         summary = trace_step.run(trace_step.parse_args(["--steps", "3"]), env,
@@ -2620,8 +2720,6 @@ def phase_trace():
         total = summary["device_ms_per_step"]
         groups = sum(summary["by_group"].values())
         src = summary["by_source"]
-        want = (("flash_attn_fwd", "flash_attn_bwd") if not env
-                else ("flash_attn_bhsd_fwd",))
         problems = []
         if not total > 0 or abs(groups - total) > 0.01 * total:
             problems.append(f"groups {groups} against the total {total}")

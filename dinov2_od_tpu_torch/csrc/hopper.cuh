@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's TMA + wgmma kernels
-// (int8_gemm.cu, flash_attn_bhsd_fwd.cu, flash_attn_bhsd_bwd.cu,
-// flash_attn_allheads_bwd.cu): mbarriers, named barriers, TMA tile loads and
-// bulk reduce-adds, wgmma descriptors and instructions, register
-// rebalancing, and the host-side encoder of TMA tensor maps.
+// (int8_gemm.cu, the flash-attention sources, attn_roofline.cu):
+// mbarriers, named barriers, TMA tile loads and bulk reduce-adds, wgmma
+// descriptors and instructions, register rebalancing, and the host-side
+// encoder of TMA tensor maps.
 //
 // The encoder (cuTensorMapEncodeTiled, a driver API function) is looked up
 // at run time through the runtime's driver entry point, so no library
@@ -271,6 +271,36 @@ __device__ __forceinline__ void wgmma_bf16_n128_ss(float (&d)[64], uint64_t da, 
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// d (64 x 8 fp32) += A (64 x 16 bf16, shared, K-major) . B (16 x 8 bf16,
+// shared, K-major): elements 0, 1 of d at row 16 * warp + lane / 4, 2, 3
+// eight rows below, columns 2 (lane % 4) + (e & 1).
+__device__ __forceinline__ void wgmma_bf16_n8_ss(float (&d)[4], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 32 fp32) += A (64 x 16 bf16, shared) . B (16 x 32 bf16, shared);
+// TA / TB: 1 for an MN-major operand.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_bf16_n32_ss(float (&d)[16], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
 }
 

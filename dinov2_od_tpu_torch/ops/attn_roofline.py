@@ -27,16 +27,19 @@ import ctypes
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, _tma
 from .flash_attention import _bound, _raise_on
 
 _KERNEL = "attn_roofline"
 _LOG2E = 1.4426950408889634
 HEAD_DIM = 64
 STAGES = ("mxu_only", "plus_max", "plus_exp2")
-# Longest S the kernel takes: a block keeps 32 rows of fp32 logits beside
-# two K/V tiles in its 227 KB of shared memory (csrc/attn_roofline.cu).
-MAX_SEQ = 1632
+# Longest S the kernel takes: a block keeps 32 rows of fp32 logits, in
+# 64-key blocks of 8 KB, beside two 8 KB K/V slots in its 227 KB of shared
+# memory (csrc/attn_roofline.cu).
+MAX_SEQ = 1664
+Q_ROWS = 32  # query rows of the kernel's unit (its q box)
+KEY_TILE = 64  # keys of its K and V boxes
 
 
 def q_multiplier(scale: float) -> float:
@@ -78,23 +81,32 @@ def attn_roofline_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.to(torch.bfloat16)
 
 
+def attn_roofline_tma_specs(q, k, v):
+    """The tensor-map specs T1's kernel reads its operands through
+    (ops/_tma.py), in its order: q `[B, H, S, 64]` in boxes of 32 rows of
+    one head (a unit's query rows), k and v in boxes of 64 rows (a key
+    tile), through the real strides. Raises ValueError where TMA cannot
+    address one of them."""
+    order = (3, 2, 1, 0)  # head dim, row, head, batch
+    return [_tma.tensor_map_spec(t, order, (HEAD_DIM, rows, 1, 1))
+            for t, rows in ((q, Q_ROWS), (k, KEY_TILE), (v, KEY_TILE))]
+
+
 def _launch(q, k, v, scale: float, stage: str, n_keys: int) -> torch.Tensor:
     """The kernel over the first `n_keys` keys: S for `attn_roofline`;
     fewer only for a control that must disagree with the plain version."""
     b, h, s, dh = q.shape
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     if not 1 <= n_keys <= s:
         raise ValueError(f"n_keys must lie in [1, {s}]; got {n_keys}")
+    specs = _tma.as_c_array(*attn_roofline_tma_specs(q, k, v))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib, fn = _bound(_KERNEL, [p] * 4 + [i] * 5 + [ctypes.c_float, p])
-    o = torch.empty_like(q)
+    lib, fn = _bound(_KERNEL, [p] * 4 + [i] * 6 + [ctypes.c_float, p, p])
+    o = torch.empty((b, h, s, dh), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                STAGES.index(stage), b * h, s, n_keys, dh,
-                q_multiplier(scale), stream)
+                STAGES.index(stage), b, h, s, n_keys, dh,
+                q_multiplier(scale), ctypes.addressof(specs), stream)
     _raise_on(lib, _KERNEL, rc)
     _build.launch_counts[_KERNEL] += 1
     return o
@@ -103,7 +115,8 @@ def _launch(q, k, v, scale: float, stage: str, n_keys: int) -> torch.Tensor:
 def attn_roofline(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   scale: float, stage: str) -> torch.Tensor:
     """o `[B, H, S, 64]` bf16 of one ablation stage, q, k, v bf16
-    `[B, H, S, 64]` with S <= MAX_SEQ. A CUDA tensor launches the kernel;
+    `[B, H, S, 64]` with S <= MAX_SEQ (views whose last dim is contiguous
+    and whose strides TMA can address). A CUDA tensor launches the kernel;
     a CPU tensor takes the plain version."""
     _check(q, k, v, stage)
     if q.shape[2] > MAX_SEQ:
@@ -117,4 +130,4 @@ def attn_roofline(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 __all__ = ["HEAD_DIM", "MAX_SEQ", "STAGES", "attn_roofline",
-           "attn_roofline_plain", "q_multiplier"]
+           "attn_roofline_plain", "attn_roofline_tma_specs", "q_multiplier"]

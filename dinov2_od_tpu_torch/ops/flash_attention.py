@@ -300,16 +300,20 @@ _P, _I, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
 def _launch(q, k, v, scale: float, kv_len: int):
     b, s, h, dh = q.shape
     _check_launch(q=q, k=k, v=v)
-    lib, fn = _bound(_KERNEL, [_P] * 5 + [_I] * 6 + [_F] + [_LL] * 9 + [_P])
+    lib, fn = _bound(_KERNEL,
+                     [_P] * 5 + [_I] * 6 + [_F] + [_LL] * 9 + [_P] * 2)
     o = torch.empty((b, s, h, dh), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    specs = (_tma.as_c_array(*flat_fwd_tma_specs(q, k, v))
+             if q.dtype == torch.bfloat16 else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), int(q.dtype == torch.bfloat16), b, s, h, dh,
             kv_len, _qscale(scale, q.dtype),
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], stream,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            None if specs is None else ctypes.addressof(specs), stream,
         )
     _raise_on(lib, _KERNEL, rc)
     _build.launch_counts[_KERNEL] += 1
@@ -322,6 +326,16 @@ def _head_specs(rows: int, *tensors):
     order = (3, 2, 1, 0)  # head dim, head, row, batch
     return [_tma.tensor_map_spec(t, order, (HEAD_DIM, 1, rows, 1))
             for t in tensors]
+
+
+def flat_fwd_tma_specs(q, k, v):
+    """The tensor-map specs B1's bf16 kernel reads its operands through, in
+    its order: q `[B, S, H, 64]` in boxes of 64 rows of one head (a unit's
+    query rows), k and v in boxes of 128 rows (a key tile), through the
+    real strides, so the fused qkv slices are read in place. B1 runs B4f's
+    body (csrc/flash_fwd_units.cuh), so these are B4f's boxes. Raises
+    ValueError where TMA cannot address one of them."""
+    return [*_head_specs(64, q), *_head_specs(128, k, v)]
 
 
 def bhsd_fwd_tma_specs(q, k, v):
@@ -363,7 +377,7 @@ def allheads_fwd_tma_specs(q, k, v):
     query rows), k and v `[B, Sk, H, 64]` in boxes of 128 rows (a key
     tile), through the real strides, so a rank's fused qkv slices are read
     in place. Raises ValueError where TMA cannot address one of them."""
-    return [*_head_specs(64, q), *_head_specs(128, k, v)]
+    return flat_fwd_tma_specs(q, k, v)
 
 
 def _launch_allheads(q, k, v, scale: float, kv_len: int):
@@ -818,4 +832,5 @@ __all__ = [
     "flash_attention_bhsd_fwd_plain", "flash_attention_bwd",
     "flash_attention_bwd_plain", "flash_attention_fwd",
     "flash_attention_fwd_plain", "flash_attention_lse", "flat_bwd_tma_specs",
+    "flat_fwd_tma_specs",
 ]

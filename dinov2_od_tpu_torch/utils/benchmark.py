@@ -137,12 +137,13 @@ def device_ms(fn, iters: int, warmup: int = 3, only: str = "") -> float:
     torch.profiler over `iters` calls. Gaps between launches do not count,
     so a contended host, which stretches back-to-back CUDA-event timings
     of short kernels, does not inflate it. torch.profiler has returned no
-    kernel events for one window in a few hundred on an H100, so a second
-    window is taken before that fails."""
+    kernel events for one window in a few hundred on an H100, and once for
+    two windows in a row, so up to four windows are taken before that
+    fails."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(2):
+    for _ in range(4):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()

@@ -36,7 +36,11 @@ SCALE = 1.0 / np.sqrt(DH)  # the tool's numpy float64 scale
 #   2^-9 and about half the outputs (the control below: 46-58% equal).
 REL_TOL = 4e-3
 EQUAL_SHARE = 0.99
-SHAPES = [(1, 2, 48, 64), (2, 1, 80, 64)]
+# [B, H, S, 64]: 48 and 80 rows, and each side of the kernel's 32-row unit
+# (32, 40; 72 past two units).
+SHAPES = [(1, 2, 48, 64), (2, 1, 80, 64), (1, 2, 32, 64), (1, 2, 40, 64),
+          (2, 1, 72, 64)]
+SHAPE_IDS = ["48x2h", "80x2b", "32x2h", "40x2h", "72x2b"]
 
 
 @pytest.fixture(scope="module")
@@ -97,7 +101,7 @@ def _bf16_q_plain(q, k, v, stage):
 
 
 @pytest.mark.parametrize("stage", t1.STAGES)
-@pytest.mark.parametrize("shape", SHAPES, ids=["48x2h", "80x2b"])
+@pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
 def test_plain_matches_jax_kernel(jax_t1, shape, stage):
     arrays = _inputs(shape)
     ref = jax_t1(*arrays, stage)
@@ -145,8 +149,10 @@ def test_production_routing_matches_the_jax_dispatch(seq, kernel):
 @pytest.mark.gpu
 @pytest.mark.parametrize("stage", t1.STAGES)
 @pytest.mark.parametrize("shape", [(8, 16, 1376, 64), (2, 16, 1616, 64),
-                                   (1, 3, 1632, 64), (2, 2, 98, 64)],
-                         ids=["tool_default", "vit_l_560", "limit", "ragged"])
+                                   (1, 3, t1.MAX_SEQ, 64), (2, 2, 98, 64),
+                                   *SHAPES[2:]],
+                         ids=["tool_default", "vit_l_560", "limit", "ragged",
+                              *SHAPE_IDS[2:]])
 def test_kernel_matches_plain_on_card(shape, stage):
     """T1 against its plain version on the card; tolerance and its reason:
     chip_smoke.py T1_TOL."""

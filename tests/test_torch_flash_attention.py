@@ -69,6 +69,39 @@ def test_plain_matches_jax_kernel(jnp, dtype, case):
     assert err_lse <= TOL[dtype]["lse"], err_lse
 
 
+# B1's tile edges (csrc/flash_fwd_units.cuh): 128-key tiles, and the fitted
+# 8-key tail that kv_len 129 .. 136 and 257 .. 264 take. Each length on
+# either side of an edge, with all keys, all but one and one; and tails
+# behind five or more full tiles, where the kernel's 5-stage ring must move
+# past the tail's slot: 641 (5 x 128 + 1), 1025 (ViT-B/14 at 448 px) and
+# 1157 (at 476 px).
+EDGE_CASES = [(s, kv) for s in (128, 129, 256, 257, 264, 265, 641, 1025,
+                                1157)
+              for kv in (s, s - 1, 1)]
+
+
+@pytest.mark.parametrize("case", EDGE_CASES,
+                         ids=lambda c: f"s{c[0]}_kv{c[1]}")
+def test_plain_matches_jax_kernel_at_tile_edges(jnp, case):
+    """The plain version (what B1 is held to on the card) against the JAX
+    flat kernel in interpret mode, bf16, at B1's tile edges."""
+    from dinov2_od_tpu.ops.flash_attention import (
+        flash_attention_lse as jax_flash_lse,
+    )
+
+    s, kv_len = case
+    arrs, (q, k, v) = _qkv(13, 1, s, 2, "bfloat16")
+    jq, jk, jv = (jnp.asarray(a, "bfloat16") for a in arrs)
+    o_ref, lse_ref = jax_flash_lse(jq, jk, jv, scale=DH ** -0.5,
+                                   interpret=True, flat=True, kv_len=kv_len)
+    o, lse = fa.flash_attention_lse(q, k, v, scale=DH ** -0.5, kv_len=kv_len)
+    assert o.shape == (1, s, 2, DH) and lse.shape == (1, s, 2)
+    err_o = np.abs(np.asarray(o_ref, np.float32) - o.float().numpy()).max()
+    err_lse = np.abs(np.asarray(lse_ref) - lse.numpy()).max()
+    assert err_o <= TOL["bfloat16"]["o"], err_o
+    assert err_lse <= TOL["bfloat16"]["lse"], err_lse
+
+
 def test_log2_lse_and_masked_keys():
     """The log2 lse is the natural one over ln 2, and keys at or past
     kv_len carry no weight: changing them changes nothing."""
@@ -170,6 +203,35 @@ def test_kernel_matches_plain_on_card(dtype, kv_len):
                                                   kv_len=kv_len)
     torch.cuda.synchronize()
     assert _build.launch_counts["flash_attn_fwd"] == before + 1
+    assert (o.float() - o_ref.float()).abs().max().item() <= tol[0]
+    assert (lse - lse_ref).abs().max().item() <= tol[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", EDGE_CASES,
+                         ids=lambda c: f"s{c[0]}_kv{c[1]}")
+def test_kernel_matches_plain_at_tile_edges_on_card(dtype, case):
+    """B1 at its tile edges (4 images, 12 heads, the fused qkv views):
+    within chip_smoke.py's ALLHEADS_TOL (both take p against the exact row
+    max), o and the lse bit-equal from run to run, one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tol = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 1e-3)}[dtype]
+    s, kv_len = case
+    gen = torch.Generator().manual_seed(s + kv_len)
+    qkv = torch.randn((4, s, 3 * 12 * DH), generator=gen)
+    qkv = qkv.to("cuda", getattr(torch, dtype))
+    q, k, v = (t.view(4, s, 12, DH) for t in qkv.chunk(3, dim=-1))
+    before = _build.launch_counts["flash_attn_fwd"]
+    o, lse = fa.flash_attention_fwd(q, k, v, scale=0.125, kv_len=kv_len)
+    o2, lse2 = fa.flash_attention_fwd(q, k, v, scale=0.125, kv_len=kv_len)
+    o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, scale=0.125,
+                                                  kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["flash_attn_fwd"] == before + 2
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
     assert (o.float() - o_ref.float()).abs().max().item() <= tol[0]
     assert (lse - lse_ref).abs().max().item() <= tol[1]
 

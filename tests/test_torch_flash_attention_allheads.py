@@ -203,6 +203,38 @@ def test_routing_matches_jax(jax_mods, b):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 641, 641, 3, 641),
+                                   (2, 1025, 1025, 3, 1025),
+                                   (2, 1157, 1157, 3, 1157),
+                                   (2, 50, 1157, 3, 1157)],
+                         ids=["s641", "s1025", "s1157", "cross1157"])
+def test_forward_tail_past_five_tiles_on_card(shape):
+    """B4f, bf16, where kv_len is a fitted 8-key tail behind five or more
+    full 128-key tiles (csrc/flash_fwd_units.cuh): the 5-stage ring must
+    move past the tail's slot. Within ALLHEADS_TOL, o and the lse bit-equal
+    from run to run, one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    b, sq, sk, h, kv_len = shape
+    gen = torch.Generator().manual_seed(sk)
+    q = torch.randn((b, sq, h, DH), generator=gen).to("cuda", torch.bfloat16)
+    k, v = (torch.randn((b, sk, h, DH), generator=gen).to(
+        "cuda", torch.bfloat16) for _ in range(2))
+    before = _build.launch_counts["flash_attn_allheads_fwd"]
+    o, lse = fa.flash_attention_allheads_fwd(q, k, v, scale=SCALE,
+                                             kv_len=kv_len)
+    o2, lse2 = fa.flash_attention_allheads_fwd(q, k, v, scale=SCALE,
+                                               kv_len=kv_len)
+    o_ref, lse_ref = fa.flash_attention_allheads_fwd_plain(
+        q, k, v, scale=SCALE, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["flash_attn_allheads_fwd"] == before + 2
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert (o.float() - o_ref.float()).abs().max().item() <= 1e-2
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(32, 257, 257, 3, 257),
                                    (32, 257, 257, 3, 200),

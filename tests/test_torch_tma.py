@@ -1,19 +1,20 @@
 """The TMA arguments of the port's Hopper kernels, and the operands they
 are handed, on the CPU; the kernels themselves on the card.
 
-B6 (csrc/int8_gemm.cu) and the bf16 kernels of B5b, B5f, B4b, B2 and B4f
+B6 (csrc/int8_gemm.cu), the bf16 kernels of B5b, B5f, B4b, B2, B4f and B1
 (csrc/flash_attn_bhsd_bwd.cu, csrc/flash_attn_bhsd_fwd.cu,
 csrc/flash_attn_allheads_bwd.cu, csrc/flash_attn_bwd.cu,
-csrc/flash_attn_allheads_fwd.cu) load their tiles by TMA from tensor maps
+csrc/flash_attn_allheads_fwd.cu, csrc/flash_attn_fwd.cu) and T1
+(csrc/attn_roofline.cu) load their tiles by TMA from tensor maps
 that their C entry points encode from specs computed in Python
 (ops/_tma.py). These tests hold the specs to the tensors they describe
 (dims innermost first, byte strides, boxes), including the fused qkv
 slices the attention kernels read in place and one slice of a stacked
 int8 tree that B6 reads without a copy, and check that a layout TMA
-cannot address raises. The `gpu`-marked tests hold the six kernels
-against their plain versions on the card at the main paths' shapes
-(chip_smoke.py INT8_CASES, BHSD_CASES, ALLHEADS_CASES and BWD_CASES) and
-skip without one."""
+cannot address raises. The `gpu`-marked tests hold the kernels against
+their plain versions on the card at the main paths' shapes (chip_smoke.py
+INT8_CASES, BHSD_CASES, ALLHEADS_CASES, BWD_CASES and FWD_CASES) and skip
+without one."""
 
 import numpy as np
 import pytest
@@ -233,7 +234,23 @@ def test_allheads_fwd_specs_describe_the_operands(b, sq, sk, h):
     assert _unpack(specs[0])[1][2] == sq and _unpack(specs[1])[1][2] == sk
 
 
-@pytest.mark.parametrize("kernel", ["b2", "b4f"])
+@pytest.mark.parametrize("b,s,h", B2_SPEC_SHAPES, ids=["vit_b_224",
+                                                       "vit_l_518"])
+def test_flat_fwd_specs_describe_the_fused_qkv_slices(b, s, h):
+    """B1's maps (B4f's body: q in 64-row boxes of one head, a unit's rows;
+    k and v in 128-row boxes, a key tile) start at each slice of the fused
+    qkv output and step by the fused row; the row dims are S, so a key or
+    row past it reads as zero."""
+    q, k, v, _ = _operands(b, s, s, h)
+    specs = fa.flat_fwd_tma_specs(q, k, v)
+    assert [_unpack(spec) for spec in specs] == [
+        _head_map(q, 64), _head_map(k, 128), _head_map(v, 128)]
+    assert _unpack(specs[0])[2][1] == 3 * h * DH * 2
+    assert all(_unpack(spec)[1][2] == s for spec in specs)
+    assert specs == fa.allheads_fwd_tma_specs(q, k, v)
+
+
+@pytest.mark.parametrize("kernel", ["b2", "b4f", "b1"])
 def test_flat_bwd_and_allheads_fwd_specs_raise_on_a_misaligned_stride(
         kernel):
     base = torch.zeros(4 * 20 * 3 * 68, dtype=torch.bfloat16)
@@ -241,13 +258,62 @@ def test_flat_bwd_and_allheads_fwd_specs_raise_on_a_misaligned_stride(
     bad = base.as_strided((4, 20, 3, DH), (20 * 3 * 68, 3 * 68, 68, 1))
     ok = torch.zeros((4, 20, 3, DH), dtype=torch.bfloat16)
     fn = {"b2": fa.flat_bwd_tma_specs,
-          "b4f": lambda *t: fa.allheads_fwd_tma_specs(*t[:3])}[kernel]
+          "b4f": lambda *t: fa.allheads_fwd_tma_specs(*t[:3]),
+          "b1": lambda *t: fa.flat_fwd_tma_specs(*t[:3])}[kernel]
     fn(ok, ok, ok, ok)
     for i in range(4 if kernel == "b2" else 3):
         args = [ok, ok, ok, ok]
         args[i] = bad
         with pytest.raises(ValueError, match="dim 2"):
             fn(*args)
+
+
+# ---- T1's tensor maps ------------------------------------------------------
+
+
+def _bhsd_map(t, rows):
+    """What a spec over [B, H, S, 64] `t` must hold: dims innermost first,
+    byte strides of row, head and batch, a box of `rows` rows of one
+    head."""
+    b, h, s, _ = t.shape
+    return (4, [DH, s, h, b], [t.stride(2) * 2, t.stride(1) * 2,
+                               t.stride(0) * 2], [DH, rows, 1, 1])
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "bshd_view"])
+def test_roofline_specs_describe_the_operands(layout):
+    """T1's maps: q in boxes of 32 rows of one head (a unit's rows), k and v
+    in boxes of 64 rows (a key tile), over the tool's contiguous
+    [8, 16, 1376, 64] and over [B, H, S, 64] views of [B, S, H, 64]
+    tensors, through their real strides."""
+    from dinov2_od_tpu_torch.ops import attn_roofline as t1
+
+    if layout == "contiguous":
+        q, k, v = (torch.zeros((8, 16, 1376, DH), dtype=torch.bfloat16)
+                   for _ in range(3))
+    else:
+        q, k, v = (torch.zeros((2, 1616, 16, DH), dtype=torch.bfloat16)
+                   .transpose(1, 2) for _ in range(3))
+    specs = t1.attn_roofline_tma_specs(q, k, v)
+    assert [_unpack(spec) for spec in specs] == [
+        _bhsd_map(q, 32), _bhsd_map(k, 64), _bhsd_map(v, 64)]
+
+
+def test_roofline_specs_raise_on_what_tma_cannot_address():
+    from dinov2_od_tpu_torch.ops import attn_roofline as t1
+
+    ok = torch.zeros((1, 2, 40, DH), dtype=torch.bfloat16)
+    # Rows 68 bf16 apart (136 bytes: not a multiple of 16).
+    bad = torch.zeros(2 * 40 * 68, dtype=torch.bfloat16).as_strided(
+        (1, 2, 40, DH), (2 * 40 * 68, 40 * 68, 68, 1))
+    t1.attn_roofline_tma_specs(ok, ok, ok)
+    for i in range(3):
+        args = [ok, ok, ok]
+        args[i] = bad
+        with pytest.raises(ValueError, match="multiples of 16"):
+            t1.attn_roofline_tma_specs(*args)
+    with pytest.raises(ValueError, match="contiguous"):
+        t1.attn_roofline_tma_specs(ok.transpose(2, 3), ok, ok)
 
 
 # ---- B6's operands ---------------------------------------------------------
@@ -517,6 +583,54 @@ def test_b4f_on_card_at_the_main_shapes(case):
     assert _build.launch_counts["flash_attn_allheads_fwd"] == before + 1
     assert (o.float() - o_ref.float()).abs().max().item() <= 1e-2
     assert (lse - lse_ref).abs().max().item() <= 1e-3
+
+
+# B1's cases (batch, S, heads, kv_len): chip_smoke.py FWD_CASES' main
+# shapes (the serving shape with all keys and with 200, ViT-L/518).
+B1_CASES = [(32, 257, 12, 257), (32, 257, 12, 200), (8, 1370, 16, 1370)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", B1_CASES,
+                         ids=["vit_b_224", "masked", "vit_l_518"])
+def test_b1_on_card_at_the_main_shapes(case):
+    """B1's bf16 kernel on the fused qkv views against its plain version:
+    within ALLHEADS_TOL (B4f's body, p against the exact row max), o and
+    the lse bit-equal from run to run, one launch counted a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    b, s, h, kv_len = case
+    q, k, v, _ = _case_inputs((b, s, s, h, kv_len), 6)
+    scale = DH ** -0.5
+    before = _build.launch_counts["flash_attn_fwd"]
+    o, lse = fa.flash_attention_fwd(q, k, v, scale=scale, kv_len=kv_len)
+    o2, lse2 = fa.flash_attention_fwd(q, k, v, scale=scale, kv_len=kv_len)
+    o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, scale=scale,
+                                                  kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["flash_attn_fwd"] == before + 2
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert (o.float() - o_ref.float()).abs().max().item() <= 1e-2
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+
+
+@pytest.mark.gpu
+def test_t1_on_card_reads_strided_views():
+    """T1 over [B, H, S, 64] views of [B, S, H, 64] tensors (TMA through the
+    real strides) gives what it gives on contiguous copies."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from dinov2_od_tpu_torch.ops import attn_roofline as t1
+
+    gen = torch.Generator().manual_seed(7)
+    q, k, v = (torch.randn((2, 300, 4, DH), generator=gen).to(
+        "cuda", torch.bfloat16).transpose(1, 2) for _ in range(3))
+    for stage in t1.STAGES:
+        out = t1.attn_roofline(q, k, v, scale=0.125, stage=stage)
+        ref = t1.attn_roofline(q.contiguous(), k.contiguous(),
+                               v.contiguous(), scale=0.125, stage=stage)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
 
 
 def test_ptxas_summary_reads_registers_and_spills():
