@@ -72,24 +72,40 @@ non-zero and prints no result:
              against plain attention (fp32 and bf16, a limit per leaf
              group), beside controls (the backward with keys dropped) that
              must fail the same check; images/s of the train step;
-7. prefix  - the same train step with the frozen prefix in int8
+7. train cli - the training CLI from a dataset to a checkpoint to the
+             server: packed synthetic splits (640 train, 64 val images at
+             224 px, 100 GT slots, no Pillow), `train.cli.main` for 2
+             epochs of 20 ViT-B/14 bf16 steps at batch 32 through the
+             auction matcher with validation (COCO AP) and a checkpoint
+             each epoch; exactly 12 B1 + 2 B2 a step and 12 B1 a val
+             batch, the auction once a step, finite losses whose last
+             epoch's mean is below the first's; the auction on the card
+             against its eager CPU run on the matcher's inputs, timed
+             beside scipy's JV on the same costs; a checkpoint's save and
+             restore timed; a resume from checkpoint_epoch_0 within
+             CLI_RESUME_*; `--only_evaluate` in bf16 and int8 (12 B6 a
+             val batch, AP within CLI_INT8_AP_TOL);
+             Predictor.from_checkpoint equal to the in-memory Predictor;
+             serve.main in a thread (GET endpoints, concurrent POST
+             /detect, 12 B1 a batch);
+8. prefix  - the same train step with the frozen prefix in int8
              (prefix_int8): 10 steps with the same checks, 12 B1, 2 B2 and
              10 B6 launches per step; one step's loss and gradients against
              B6's plain version, with a control that must fail; images/s
              beside the bf16 step's;
-8. large   - the long-sequence serving path: a full-width ViT-L/14 at
+9. large   - the long-sequence serving path: a full-width ViT-L/14 at
              560 px (1601 tokens) + deformable DETR Predictor (batch 8)
              behind a DynamicBatcher answers concurrent requests; 24 B5f
              and no B1 launches per device batch; detector_apply with the
              kernels against plain attention (fp32 and bf16), beside
              controls (keys dropped) that must fail; images/s of the
              batch-8 forward plus top-k;
-9. large train - 10 full-width train steps of that model at batch 8 (bf16
+10. large train - 10 full-width train steps of that model at batch 8 (bf16
              backbone, LoRA r=2 on the last 2 blocks): the train phase's
              checks, 24 B5f + 2 B5b and no B1/B2 launches per step, the
              gradient check against plain attention and B5b's plain
              version with controls (B5b dropping keys); images/s.
-10. tp      - the train step under Megatron tensor parallelism on a
+11. tp      - the train step under Megatron tensor parallelism on a
              ('data', 'model') mesh of 1 x 4: four ranks, processes on the
              one card in a gloo process group (host-staged collectives),
              each holding its shard of the full-width ViT-B/14 detector
@@ -102,16 +118,16 @@ non-zero and prints no result:
              and 2 B4b launches per rank per step, no other flash kernel.
              Each rank's step time is printed, labelled as four ranks
              sharing one card: it is not a tensor-parallel speed.
-11. roofline tool - the port's tools/bench_attn_roofline.py at its
+12. roofline tool - the port's tools/bench_attn_roofline.py at its
              defaults, in-process: its four JSON lines (mxu_only, plus_max,
              plus_exp2, production) in order with the JAX tool's keys, T1
              launched exactly by the stages' calls and production through
              B5f and nothing else;
-12. bench   - dinov2_od_tpu_torch.bench in-process, the ViT-B/224 b32 train
+13. bench   - dinov2_od_tpu_torch.bench in-process, the ViT-B/224 b32 train
              step (its default) and BENCH_MODE=eval: bench.py's four keys,
              a positive images/s, the card's name in the metric, B1 and B2
              launched (B1 alone in eval) and nothing else;
-13. trace   - tools/trace_step.py over 3 steps of the ViT-B train step, of
+14. trace   - tools/trace_step.py over 3 steps of the ViT-B train step, of
              the ViT-B batch-32 forward and of the ViT-L/560 batch-8
              forward: the groups sum to the total device time, the flash
              group holds B1 and B2 (B1 alone in the ViT-B forward, B5f at
@@ -273,6 +289,32 @@ INT8_MODEL_TOL = {
 # an H100 (PERF.md), sound | control: loss 0 | 2.4e-3, lora 0 | 0.176,
 # decoder 0 | 0.169.
 INT8_TRAIN_STEPS = 10
+# Train CLI phase: `python -m dinov2_od_tpu_torch.train` on packed synthetic
+# splits (make_sample rectangles, up to 4 a 224 px image, the category ids
+# of write_coco_dataset), ViT-B/14 bf16 at batch 32 with the default 100
+# GT slots (the auction matcher), 2 epochs of 20 steps, validation and a
+# checkpoint each epoch; 2 validation batches an epoch.
+CLI_TRAIN_IMAGES, CLI_VAL_IMAGES, CLI_EPOCHS = 640, 64, 2
+CLI_BATCH = 32
+# A run resumed from checkpoint_epoch_0 repeats epoch 1. Its first step
+# is the same function of the same params (restored bit for bit), batch
+# and dropout seed, so its loss must equal the uninterrupted run's within
+# CLI_RESUME_FIRST_TOL, relative (the forward has no atomics). After it,
+# the deformable gathers' backward adds with atomics on CUDA, so the
+# gradients' low bits vary from run to run; Adam carries them on, and
+# where two of the auction's bids nearly tie a step can match another
+# query and move its loss by a few percent: each later loss within
+# CLI_RESUME_TOL, relative, and the epoch's mean loss within
+# CLI_RESUME_MEAN_TOL. The first chip run read 0 on the first step, at
+# most 4.1e-2 on a later one and 7.4e-3 on the mean (NVIDIA H100 80GB
+# HBM3, 700 W). Bit-equality of a resume is held on the CPU
+# (tests/test_torch_train_loop.py).
+CLI_RESUME_FIRST_TOL = 1e-6
+CLI_RESUME_TOL = 0.1
+CLI_RESUME_MEAN_TOL = 0.02
+# int8 evaluation of the final checkpoint against the bf16 evaluation of
+# the same checkpoint: |AP_int8 - AP_bf16| (COCO AP in [0, 1]).
+CLI_INT8_AP_TOL = 0.02
 INT8_GRAD_TOL = {"loss": 1e-6, "lora": 1e-5, "decoder": 1e-5,
                  "projection": 1e-5}
 
@@ -1884,6 +1926,438 @@ def phase_train(seed: int, kernels: dict, profile: bool = False) -> float:
     return ips
 
 
+class _MemoryDataset:
+    """Packed-format examples from `make_sample` arrays (no Pillow): uint8
+    images, targets padded to `max_boxes`, the category ids 10, 20, ... of
+    write_coco_dataset, and for the val split its COCO annotation file."""
+
+    def __init__(self, rng, n, first_id, image_size, max_boxes, coco_path):
+        from dinov2_od_tpu_torch.data.synthetic import make_sample
+
+        self.examples = []
+        self.coco = {"images": [], "annotations": [], "categories": [
+            {"id": 10 * (i + 1), "name": f"color_{i}"} for i in range(6)]}
+        for img_id in range(first_id, first_id + n):
+            img, boxes, labels = make_sample(rng, image_size, max_objects=4)
+            k = len(labels)
+            ex = {"images": (img * 255).astype(np.uint8),
+                  "boxes": np.zeros((max_boxes, 4), np.float32),
+                  "labels": np.zeros((max_boxes,), np.int32),
+                  "valid": np.arange(max_boxes) < k,
+                  "image_id": np.int64(img_id),
+                  "orig_size": np.asarray([image_size] * 2, np.int32)}
+            ex["boxes"][:k], ex["labels"][:k] = boxes, labels
+            self.examples.append(ex)
+            self.coco["images"].append({"id": img_id, "width": image_size,
+                                        "height": image_size,
+                                        "file_name": f"{img_id:012d}.png"})
+            for b, lab in zip(boxes, labels):
+                cx, cy, bw, bh = (float(v) * image_size for v in b)
+                self.coco["annotations"].append({
+                    "id": len(self.coco["annotations"]) + 1,
+                    "image_id": img_id, "category_id": 10 * (int(lab) + 1),
+                    "bbox": [cx - bw / 2, cy - bh / 2, bw, bh],
+                    "area": bw * bh, "iscrowd": 0})
+        self.coco_path = coco_path
+        self.label_to_cat_id = {i: 10 * (i + 1) for i in range(6)}
+        self.num_classes = 6
+        self.images_dir = None
+        with open(coco_path, "w") as f:
+            json.dump(self.coco, f)
+
+    def __len__(self):
+        return len(self.examples)
+
+    def get_example(self, i):
+        return self.examples[i]
+
+
+def _cli_splits(seed: int, root: str, image_size: int):
+    """Packed train and val splits under `root` (pack_dataset's format)."""
+    import os
+
+    from dinov2_od_tpu_torch.data.packed import pack_dataset
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, n, first in (("train", CLI_TRAIN_IMAGES, 1),
+                           ("val", CLI_VAL_IMAGES, CLI_TRAIN_IMAGES + 1)):
+        ds = _MemoryDataset(rng, n, first, image_size, 100,
+                            os.path.join(root, f"{name}.json"))
+        out[name] = pack_dataset(ds, os.path.join(root, name))
+    return out
+
+
+def _epoch_logs(out_dir: str, epochs):
+    import os
+
+    logs = {}
+    for e in epochs:
+        with open(os.path.join(out_dir, f"train_epoch_{e}.json")) as f:
+            logs[e] = json.load(f)
+    return logs
+
+
+def _ap(out_dir: str, epoch: int) -> dict:
+    import os
+
+    with open(os.path.join(out_dir, f"metrics_epoch_{epoch}.json")) as f:
+        return json.load(f)
+
+
+def _cli_serve(final: str, seed: int, image_size: int):
+    """serve.main in a thread on a free port with the final checkpoint:
+    its GET endpoints, then concurrent POST /detect requests (PNG bodies)
+    through its DynamicBatcher; 12 B1 launches a device batch."""
+    import base64
+    import io
+    import urllib.request
+
+    from PIL import Image
+
+    from dinov2_od_tpu_torch import serve
+    from dinov2_od_tpu_torch.ops import _build
+
+    ready, result = [], {}
+    args = ["--checkpoint", final, "--image_size", str(image_size),
+            "--batch_size", "16", "--host", "127.0.0.1", "--port", "0",
+            "--max_batch", "16", "--batch_wait_ms", "50"]
+    _build.reset_launch_counts()
+    thread = threading.Thread(target=lambda: result.setdefault(
+        "rc", serve.main(args, on_ready=ready.append)))
+    thread.start()
+    try:
+        for _ in range(3000):
+            if ready or not thread.is_alive():
+                break
+            thread.join(timeout=0.1)
+        if not ready:
+            raise AssertionError("serve.main did not start")
+        url = f"http://127.0.0.1:{ready[0].server_address[1]}"
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            health = json.load(r)
+        rng = np.random.default_rng(seed)
+
+        def png():
+            arr = (rng.uniform(size=(image_size, image_size, 3))
+                   * 255).astype(np.uint8)
+            buf = io.BytesIO()
+            Image.fromarray(arr).save(buf, format="PNG")
+            return base64.b64encode(buf.getvalue()).decode()
+
+        bodies = [json.dumps({"images": [png() for _ in range(n)],
+                              "score_threshold": 0.0}).encode()
+                  for n in (3, 5, 2, 6)]
+        answers, errors = [None] * len(bodies), []
+
+        def client(i):
+            req = urllib.request.Request(
+                url + "/detect", data=bodies[i],
+                headers={"Content-Type": "application/json"})
+            try:
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    answers[i] = json.load(r)["detections"]
+            except Exception as e:  # reported below; the phase fails
+                errors.append(repr(e))
+
+        clients = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(bodies))]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=300)
+        with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+            metrics = r.read().decode()
+    finally:
+        if ready:
+            ready[0].shutdown()
+        thread.join(timeout=120)
+    counts = dict(_build.launch_counts)
+    if errors or thread.is_alive() or result.get("rc") != 0:
+        raise AssertionError(f"serve.main: {errors}, rc {result.get('rc')}")
+    if health.get("status") != "ok" or any(
+            a is None or len(a) != n or not all(len(d) for d in a)
+            for a, n in zip(answers, (3, 5, 2, 6))):
+        raise AssertionError(f"serve.main answers: {health}, {answers}")
+    batches = int(re.search(r"serving_device_batches_total (\d+)",
+                            metrics).group(1))
+    want = _counts(flash_attn_fwd=12 * (batches + 1))  # + the warm-up
+    if counts != want or "serving_images_total 16" not in metrics:
+        raise AssertionError(f"serve.main launches {counts} for {batches} "
+                             f"batcher batches + 1 warm-up; expected {want}"
+                             f"\n{metrics}")
+    log(f"train cli: serve.main on the final checkpoint: /healthz {health}; "
+        f"4 concurrent /detect requests of 3, 5, 2, 6 PNG images in "
+        f"{batches} batcher batches, launches {counts}")
+    return counts
+
+
+def phase_train_cli(seed: int, kernels: dict, bare_ips: float):
+    """The training CLI from a packed COCO-format dataset to a checkpoint
+    to the server: `train.cli.main` for 2 epochs through the auction
+    matcher with validation and checkpoints, a resume, an int8 evaluation,
+    `Predictor.from_checkpoint` and `serve.main`."""
+    import os
+    import tempfile
+
+    import torch
+
+    from dinov2_od_tpu_torch.config import (
+        MatcherConfig, detector_config_for_model_name)
+    from dinov2_od_tpu_torch.inference import Predictor
+    from dinov2_od_tpu_torch.ops import _build, matching
+    from dinov2_od_tpu_torch.ops.hungarian import hungarian_assign_batched
+    from dinov2_od_tpu_torch.train import checkpoint as ckpt
+    from dinov2_od_tpu_torch.train import cli, loop
+    from dinov2_od_tpu_torch.train.state import tree_leaves
+    from dinov2_od_tpu_torch.train.step import make_eval_step
+
+    image_size = 224
+    steps = CLI_EPOCHS * (CLI_TRAIN_IMAGES // CLI_BATCH)
+    val_batches = -(-CLI_VAL_IMAGES // CLI_BATCH)
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="train_cli_", dir=build) as root:
+        t0 = time.perf_counter()
+        splits = _cli_splits(seed, root, image_size)
+        log(f"train cli: packed {CLI_TRAIN_IMAGES} train and "
+            f"{CLI_VAL_IMAGES} val images at {image_size} px (up to 4 "
+            f"objects, 100 GT slots) in {time.perf_counter() - t0:.1f} s")
+        out = os.path.join(root, "out")
+        common = ["--packed_train_data", splits["train"],
+                  "--packed_val_data", splits["val"],
+                  "--dino_model", "facebook/dinov2-base",
+                  "--image_size", str(image_size),
+                  "--backbone_dtype", "bfloat16",
+                  "--batch_size", str(CLI_BATCH),
+                  "--num_epochs", str(CLI_EPOCHS), "--val_frequency", "1",
+                  "--checkpoint_frequency", "1", "--log_frequency", "5"]
+
+        # The main path: counts to 0, `main`, the counts read. The loop's
+        # final state is kept from its return value for the Predictor
+        # check below.
+        real_run, state = loop.run_training, {}
+
+        def keep_state(*a, **k):
+            state["s"] = real_run(*a, **k)
+            return state["s"]
+
+        loop.run_training = keep_state
+        _build.reset_launch_counts()
+        matching.reset_solver_stats()
+        t0 = time.perf_counter()
+        try:
+            rc = cli.main(common + ["--output_dir", out])
+        finally:
+            loop.run_training = real_run
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(_build.launch_counts)
+        solver = dict(matching.solver_stats)
+        want = _counts(flash_attn_fwd=12 * (steps + CLI_EPOCHS * val_batches),
+                       flash_attn_bwd=2 * steps)
+        logs = _epoch_logs(out, range(CLI_EPOCHS))
+        losses = [x for e in range(CLI_EPOCHS) for x in logs[e]["losses"]]
+        log(f"train cli: main() rc {rc} in {wall:.1f} s: {steps} steps, "
+            f"epoch mean losses "
+            f"{[logs[e]['mean_loss'] for e in range(CLI_EPOCHS)]}, launches "
+            f"{counts}, matcher {solver}")
+        if rc != 0:
+            raise AssertionError(f"train cli: main returned {rc}")
+        if counts != want:
+            raise AssertionError(f"train cli launches {counts}; expected "
+                                 f"{want} (12 B1 + 2 B2 a step, 12 B1 a val "
+                                 f"batch)")
+        if solver["auction"] != steps or solver["jv"]:
+            raise AssertionError(f"train cli matcher {solver}: expected the "
+                                 f"auction once a step")
+        if len(losses) != steps or not np.isfinite(losses).all():
+            raise AssertionError(f"train cli losses: {losses}")
+        if not logs[CLI_EPOCHS - 1]["mean_loss"] < logs[0]["mean_loss"]:
+            raise AssertionError("train cli: the last epoch's mean loss is "
+                                 "not below the first's")
+        for e in range(CLI_EPOCHS):
+            m = _ap(out, e)
+            if not all(np.isfinite(m[k]) for k in ("AP", "AP50", "AP75")):
+                raise AssertionError(f"metrics_epoch_{e}.json: {m}")
+            if not os.path.isdir(os.path.join(out, f"checkpoint_epoch_{e}")):
+                raise AssertionError(f"no checkpoint_epoch_{e}")
+        for name in ("flash_attn_fwd", "flash_attn_bwd"):
+            kernels[name]["launches"] += counts[name]
+            kernels[name]["launches_train_cli"] = counts[name]
+        log("train cli: " + json.dumps({
+            "metric": "training loop images/s per epoch (packed loader, "
+                      "copies, steps with the auction at 100 GT slots), "
+                      "beside the bare step's (phase train: fixed batch, "
+                      "25 GT slots, JV)",
+            "loop_images_per_s": [logs[e]["images_per_sec"]
+                                  for e in range(CLI_EPOCHS)],
+            "bare_step_images_per_s": bare_ips,
+            "val_AP": [_ap(out, e)["AP"] for e in range(CLI_EPOCHS)],
+            "card": card_line()}))
+
+        # The matcher at these shapes: the auction against the JV host
+        # solve on the same costs, from the trained model's predictions.
+        det = state["s"].params
+        cfg16 = dataclasses.replace(
+            detector_config_for_model_name("facebook/dinov2-base"),
+            backbone=dataclasses.replace(
+                detector_config_for_model_name(
+                    "facebook/dinov2-base").backbone, dtype="bfloat16"))
+        from dinov2_od_tpu_torch.data.packed import PackedDataset
+        from dinov2_od_tpu_torch.config import TrainConfig
+
+        batch = PackedDataset(splits["train"]).get_batch(range(CLI_BATCH))
+        gt = [torch.from_numpy(batch[k]).cuda()
+              for k in ("labels", "boxes", "valid")]
+        pred = make_eval_step(TrainConfig(detector=cfg16))(
+            det, torch.from_numpy(batch["images"]).cuda())
+        args = (pred["pred_logits"], pred["pred_boxes"], *gt)
+        auction_cfg, jv_cfg = MatcherConfig(), MatcherConfig(assignment="jv")
+        cost = matching.matching_cost_matrix(*args, auction_cfg)
+        # The auction on the card (its rounds replayed as a CUDA graph)
+        # against its eager run on the CPU, on the inputs the matcher
+        # gives it: the same assignment bit for bit, in as many rounds.
+        seen, real_auction = [], matching.auction_assign
+        matching.auction_assign = (
+            lambda *a, **k: seen.append((a, k)) or real_auction(*a, **k))
+        try:
+            matching.hungarian_match(*args, auction_cfg)
+        finally:
+            matching.auction_assign = real_auction
+        a_args, a_kw = seen[0]
+        on_card = real_auction(*a_args, **a_kw)
+        on_cpu = real_auction(*(x.cpu() for x in a_args), **a_kw)
+        if not (torch.equal(on_card[0].cpu(), on_cpu[0])
+                and on_card[1] == on_cpu[1]):
+            raise AssertionError(f"the auction on the card ({on_card[1]} "
+                                 f"rounds) differs from its CPU run "
+                                 f"({on_cpu[1]} rounds)")
+        log(f"train cli: the auction on the card equals its eager CPU run "
+            f"on the matcher's inputs ({on_card[1]} rounds, "
+            f"{int((on_card[0] >= 0).sum())} columns assigned)")
+        for _ in range(2):  # warm both (scipy's import included)
+            matching.hungarian_match(*args, auction_cfg)
+            hungarian_assign_batched(cost, gt[2])
+        torch.cuda.synchronize()
+        matching.reset_solver_stats()
+        reps = 10
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            a = matching.hungarian_match(*args, auction_cfg)
+        torch.cuda.synchronize()
+        auction_ms = (time.perf_counter() - t0) / reps * 1e3
+        rounds = matching.solver_stats["auction_rounds"] / reps
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            j = matching.hungarian_match(*args, jv_cfg)
+        torch.cuda.synchronize()
+        jv_ms = (time.perf_counter() - t0) / reps * 1e3
+        c = cost.cpu().numpy()
+        totals = [float(sum(c[b][q[b][m[b]].cpu().numpy(),
+                                  np.nonzero(m[b].cpu().numpy())[0]].sum()
+                            for b in range(CLI_BATCH)))
+                  for q, m in ((a.query_of_gt, a.match_valid),
+                               (j.query_of_gt, j.match_valid))]
+        log("train cli: " + json.dumps({
+            "metric": "matcher a criterion call, batch 32, 50 queries, 100 "
+                      "GT slots (1-4 valid), host clock around a synchronise",
+            "auction_ms": auction_ms, "auction_rounds": rounds,
+            "jv_host_ms": jv_ms, "auction_total_cost": totals[0],
+            "jv_total_cost": totals[1], "card": card_line()}))
+
+        # Checkpoint save and restore of the final state, timed.
+        s = state["s"]
+        t0 = time.perf_counter()
+        path = ckpt.save_checkpoint(root, 99, s.params, s.opt_state, 0.0,
+                                    step=s.step)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ckpt.restore_checkpoint(path, s.params, s.opt_state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        size = os.path.getsize(os.path.join(path, ckpt.STATE_FILE))
+        log("train cli: " + json.dumps({
+            "metric": "checkpoint of the ViT-B train state (bf16 frozen "
+                      "backbone, fp32 trainable leaves and Adam moments)",
+            "save_s": save_s, "restore_s": restore_s, "bytes": size,
+            "card": card_line()}))
+
+        # Resume: epoch 1 again from checkpoint_epoch_0.
+        out_r = os.path.join(root, "resume")
+        rc = cli.main(common + ["--output_dir", out_r, "--checkpoint",
+                                os.path.join(out, "checkpoint_epoch_0")])
+        last = CLI_EPOCHS - 1
+        again = _epoch_logs(out_r, [last])[last]
+        if rc != 0 or again["steps"] != logs[last]["steps"]:
+            raise AssertionError(f"resume: rc {rc}, steps {again['steps']}")
+        first, ref = np.array(again["losses"]), np.array(logs[last]["losses"])
+        rel = np.abs(first - ref) / np.abs(ref)
+        mean_rel = abs(first.mean() - ref.mean()) / abs(ref.mean())
+        log(f"train cli: resumed from checkpoint_epoch_0, epoch {last}'s "
+            f"{len(first)} losses against the uninterrupted run's: first "
+            f"step {rel[0]:.3g} relative (limit {CLI_RESUME_FIRST_TOL}), "
+            f"the others at most {rel.max():.3g} (limit {CLI_RESUME_TOL}), "
+            f"the mean {mean_rel:.3g} (limit {CLI_RESUME_MEAN_TOL})")
+        if not (rel[0] <= CLI_RESUME_FIRST_TOL and rel.max() <= CLI_RESUME_TOL
+                and mean_rel <= CLI_RESUME_MEAN_TOL):
+            raise AssertionError(f"resume: losses off by {rel.tolist()}")
+
+        # Evaluation of the final model, bf16 and int8.
+        final = os.path.join(out, "final_model")
+        aps = {}
+        for quant in ("bf16", "int8"):
+            extra = ["--quantize", "int8"] if quant == "int8" else []
+            ev_out = os.path.join(root, f"eval_{quant}")
+            _build.reset_launch_counts()
+            rc = cli.main(common + ["--only_evaluate", "--checkpoint", final,
+                                    "--output_dir", ev_out] + extra)
+            torch.cuda.synchronize()
+            ev_counts = dict(_build.launch_counts)
+            aps[quant] = _ap(ev_out, 0)
+            want = _counts(flash_attn_fwd=12 * val_batches,
+                           int8_gemm=12 * val_batches if extra else 0)
+            if rc != 0 or ev_counts != want:
+                raise AssertionError(f"{quant} evaluation: rc {rc}, "
+                                     f"launches {ev_counts}, expected {want}")
+            if quant == "int8":
+                kernels["int8_gemm"]["launches"] += ev_counts["int8_gemm"]
+                kernels["int8_gemm"]["launches_train_cli_int8_eval"] = (
+                    ev_counts["int8_gemm"])
+        gap = abs(aps["int8"]["AP"] - aps["bf16"]["AP"])
+        log(f"train cli: --only_evaluate on final_model: AP bf16 "
+            f"{aps['bf16']['AP']:.4f}, int8 {aps['int8']['AP']:.4f} (gap "
+            f"{gap:.4f}, limit {CLI_INT8_AP_TOL}); AP50 "
+            f"{aps['bf16']['AP50']:.4f} / {aps['int8']['AP50']:.4f}")
+        if not gap <= CLI_INT8_AP_TOL:
+            raise AssertionError(f"int8 AP off the bf16 AP by {gap}")
+
+        # Predictor.from_checkpoint against a Predictor on the loop's final
+        # params in memory: the same detections on 32 val images.
+        val = PackedDataset(splits["val"]).get_batch(range(32))
+        images = list(val["images"].astype(np.float32) / 255.0)
+        served = Predictor.from_checkpoint(final, detector_cfg=cfg16,
+                                           batch_size=32)
+        direct = Predictor(s.params, cfg16, batch_size=32)
+        same_params = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(served.params), tree_leaves(direct.params)))
+        got = served.detect(images, score_threshold=0.0)
+        ref = direct.detect(images, score_threshold=0.0)
+        if not same_params or got != ref:
+            raise AssertionError(f"from_checkpoint: params equal "
+                                 f"{same_params}; detections differ from "
+                                 f"the in-memory Predictor's")
+        log(f"train cli: Predictor.from_checkpoint(final_model) holds the "
+            f"in-memory Predictor's params bit for bit and gives its "
+            f"{sum(map(len, got))} detections on 32 val images exactly")
+        del served, direct, det, s, state
+        torch.cuda.empty_cache()
+
+        serve_counts = _cli_serve(final, seed, image_size)
+        kernels["flash_attn_fwd"]["launches"] += serve_counts[
+            "flash_attn_fwd"]
+
+
 def phase_prefix_int8_train(seed: int, kernels: dict, bf16_ips: float,
                             profile: bool = False):
     """The train step with the frozen prefix in int8 (prefix_int8)."""
@@ -2827,6 +3301,7 @@ def main(argv=None) -> int:
     serving_ips = phase_slice(args.seed, kernels, profile=args.profile)
     phase_int8_serving(args.seed, kernels, serving_ips, profile=args.profile)
     train_ips = phase_train(args.seed, kernels, profile=args.profile)
+    phase_train_cli(args.seed, kernels, train_ips)
     phase_prefix_int8_train(args.seed, kernels, train_ips,
                             profile=args.profile)
     phase_large_serving(args.seed, kernels, profile=args.profile)

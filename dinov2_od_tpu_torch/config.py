@@ -1,10 +1,11 @@
 """Detector and training configuration for the PyTorch port.
 
 Own copies of the JAX package's dataclasses (dinov2_od_tpu/config.py),
-restricted to the fields the serving path and the train step read: the
-MoE, loader and training-loop fields come back with the slices that read
-them. The field names and defaults are the JAX package's, so the keyword
-arguments of a port config also build the JAX one.
+restricted to the fields the serving path, the train step and the
+training loop read: the MoE and the remaining loader fields come back
+with the slices that read them. The field names and defaults are the JAX
+package's, so the keyword arguments of a port config also build the JAX
+one.
 """
 
 from __future__ import annotations
@@ -124,9 +125,9 @@ class MatcherConfig:
     cost_giou: float = 2.0
     focal_alpha: float = 0.25
     focal_gamma: float = 2.0
-    # 'jv' (exact), 'auction', or 'auto' (exact below auction_threshold
-    # padded GT slots, auction at or above it). The port solves exactly;
-    # the auction is not ported yet (ROADMAP.md).
+    # 'jv' (exact, on the host), 'auction' (on the device), or 'auto'
+    # (exact below auction_threshold padded GT slots, auction at or above
+    # it).
     assignment: str = "auto"
     auction_threshold: int = 40
     # Match every image with image 0's predictions, as the original
@@ -169,6 +170,8 @@ class DataConfig:
     max_boxes: int = 100  # padded GT slots per image
     # ImageNet normalisation of uint8 feeds (train/step.py prep_images).
     normalize: bool = True
+    # Decode threads of the loader (data/loader.py).
+    num_workers: int = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -261,6 +264,13 @@ class TrainConfig:
     # Auxiliary layers reuse the final layer's assignment instead of
     # solving their own.
     share_aux_match: bool = False
+    # The training loop's (train/loop.py): epochs, the seed of the data
+    # order and of dropout, the checkpoint cadence, and SIGTERM ->
+    # checkpoint at the next step boundary.
+    num_epochs: int = 50
+    seed: int = 42
+    checkpoint_every_epochs: int = 10
+    save_on_preemption: bool = True
 
 
 def lightweight_detector_config(

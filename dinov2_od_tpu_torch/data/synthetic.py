@@ -1,10 +1,13 @@
 """Synthetic detection data: coloured rectangles on noise (the port's own
-copy of `make_sample` and `make_batch` from dinov2_od_tpu/data/synthetic.py,
-with the same numpy generator calls, so one seed gives the same arrays).
+copy of `make_sample`, `make_batch` and `write_coco_dataset` from
+dinov2_od_tpu/data/synthetic.py, with the same numpy generator calls, so
+one seed gives the same arrays and the same files).
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Dict, Tuple
 
 import numpy as np
@@ -71,3 +74,80 @@ def make_batch(
         labels[i, :n] = lb[:n]
         valid[i, :n] = True
     return {"images": images, "boxes": boxes, "labels": labels, "valid": valid}
+
+
+def write_coco_dataset(
+    out_dir: str,
+    num_images: int = 16,
+    image_size: int = 224,
+    seed: int = 0,
+    max_objects: int = 4,
+    fmt: str = "png",
+    quality: int = 90,
+) -> Tuple[str, str]:
+    """Write a COCO-format dataset (PNG or JPEG images + annotations JSON).
+
+    Category ids are deliberately non-contiguous (10, 20, ...) to exercise
+    the contiguous-label remapping the reference performs
+    (dataset.py:35, :96-99).
+
+    fmt="jpg" with image_size~640 approximates real COCO inputs (JPEG,
+    640-class resolution); boxes are normalised, so any source size
+    trains the same after the loader's resize. The same seed writes the
+    same files as the JAX package's copy.
+
+    Returns:
+      (images_dir, annotation_file)
+    """
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    images_dir = os.path.join(out_dir, "images")
+    os.makedirs(images_dir, exist_ok=True)
+
+    coco = {
+        "images": [],
+        "annotations": [],
+        "categories": [
+            {"id": 10 * (i + 1), "name": f"color_{i}"}
+            for i in range(len(_PALETTE))
+        ],
+    }
+    ann_id = 1
+    for img_id in range(1, num_images + 1):
+        img, boxes, labels = make_sample(rng, image_size, max_objects=max_objects)
+        ext = "jpg" if fmt in ("jpg", "jpeg") else "png"
+        fname = f"{img_id:012d}.{ext}"
+        pil_img = Image.fromarray((img * 255).astype(np.uint8))
+        if ext == "jpg":
+            pil_img.save(os.path.join(images_dir, fname), quality=quality)
+        else:
+            pil_img.save(os.path.join(images_dir, fname))
+        coco["images"].append(
+            {
+                "id": img_id,
+                "file_name": fname,
+                "width": image_size,
+                "height": image_size,
+            }
+        )
+        for b, l in zip(boxes, labels):
+            cx, cy, bw, bh = (float(v) for v in b)
+            x = (cx - bw / 2) * image_size
+            y = (cy - bh / 2) * image_size
+            coco["annotations"].append(
+                {
+                    "id": ann_id,
+                    "image_id": img_id,
+                    "category_id": 10 * (int(l) + 1),
+                    "bbox": [x, y, bw * image_size, bh * image_size],
+                    "area": bw * image_size * bh * image_size,
+                    "iscrowd": 0,
+                }
+            )
+            ann_id += 1
+
+    ann_file = os.path.join(out_dir, "annotations.json")
+    with open(ann_file, "w") as f:
+        json.dump(coco, f)
+    return images_dir, ann_file

@@ -109,3 +109,28 @@ def select_above_threshold(
                 lut[k] = v
         cats = lut[np.clip(lab, 0, hi - 1)]
     return ids, cats, bx, s
+
+
+def postprocess_detections(
+    pred_logits,
+    pred_boxes,
+    image_ids,
+    orig_sizes,
+    label_to_cat_id: Dict[int, int],
+    score_threshold: float = 0.05,
+    max_detections: int = 100,
+    parity_mode: bool = False,
+) -> List[dict]:
+    """A batch of raw outputs (tensors or numpy arrays, [B, Q, C] logits,
+    [B, Q, 4] boxes, [B, 2] sizes) as COCO result dicts; the top-k on the
+    logits' device. score_threshold is the reference's 0.05. The eval
+    loop's path fuses the top-k into the step instead
+    (train/step.py `make_eval_topk_step`)."""
+    scores, labels, boxes = select_topk_detections(
+        torch.as_tensor(pred_logits), torch.as_tensor(pred_boxes),
+        torch.as_tensor(orig_sizes), max_detections=max_detections,
+        parity_mode=parity_mode)
+    return format_detections(
+        scores.cpu().numpy(), labels.cpu().numpy(), boxes.cpu().numpy(),
+        image_ids, label_to_cat_id, score_threshold=score_threshold,
+        parity_mode=parity_mode)

@@ -12,9 +12,8 @@
   compact [B, K, 6] tensor comes back per batch.
 - `quantize="int8"` serves W8A8 (models/quantize.py): LoRA is folded,
   then the backbone's block linears are quantized, in the JAX order.
-
-Loading an Orbax checkpoint (`from_checkpoint` in the JAX package) is not
-ported yet (ROADMAP.md).
+- `Predictor.from_checkpoint` loads the params of a checkpoint that the
+  training loop wrote (train/checkpoint.py).
 """
 
 from __future__ import annotations
@@ -24,15 +23,14 @@ from typing import Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from .config import DetectorConfig
+from .config import DetectorConfig, detector_config_for_model_name
+from .data.coco import IMAGENET_MEAN, IMAGENET_STD
 from .evaluation.postprocess import format_detections, select_topk_detections
-from .models.detector import detector_apply, fold_detector_lora
+from .models.detector import (cast_frozen_weights, detector_apply,
+                              fold_detector_lora, init_detector_params)
 from .models.layers import resolve_device
 from .models.quantize import quantize_detector_int8
 
-# ImageNet normalisation (the JAX package's data/coco.py values).
-IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
-IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 
 def _load_image(path: str, image_size: int) -> np.ndarray:
@@ -81,9 +79,13 @@ def prepare_images(
 
 
 def _to_device(tree, device):
+    """The tree on `device`, detached: serving takes no gradient, and a
+    weight that requires grad (a train state's trainable leaf) sends
+    `torch.matmul` down another path (it folds batch dims only for
+    inputs that do not), whose GEMMs round apart in the last bit."""
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
-    return tree.to(device)
+    return tree.detach().to(device)
 
 
 class Predictor:
@@ -117,6 +119,34 @@ class Predictor:
         self.label_to_cat_id = label_to_cat_id or {}
         self.class_names = class_names or {}
         self.device_batches = 0  # forward calls issued, for callers' checks
+
+    @classmethod
+    def from_checkpoint(
+        cls,
+        checkpoint_path: str,
+        model_name: str = "facebook/dinov2-base",
+        num_classes: int = 91,
+        detector_cfg: Optional[DetectorConfig] = None,
+        device="cuda",
+        **kwargs,
+    ) -> "Predictor":
+        """A Predictor over the params of a checkpoint directory
+        (`checkpoint_epoch_N` or `final_model`), restored onto a template
+        drawn from seed 0 on `device` (leaves absent from the checkpoint
+        keep the template's values, with a warning). Under a bf16
+        backbone the template stores the frozen weights in bf16, as the
+        training loop saved them, so LoRA folds in the dtype it folds in
+        for the loop's params."""
+        from .train.checkpoint import restore_checkpoint
+
+        cfg = detector_cfg or detector_config_for_model_name(
+            model_name, num_classes=num_classes)
+        template = init_detector_params(torch.Generator().manual_seed(0),
+                                        cfg, device=device)
+        if cfg.backbone.dtype == "bfloat16":
+            template = cast_frozen_weights(template, cfg)
+        params = restore_checkpoint(checkpoint_path, template).params
+        return cls(params, cfg, device=device, **kwargs)
 
     @torch.inference_mode()
     def _forward_topk(self, x: torch.Tensor, sizes: torch.Tensor,

@@ -12,13 +12,19 @@ API:
 `make_server` wraps any object with `.detect(images, score_threshold=...)`
 (a `Predictor`); `DynamicBatcher` coalesces concurrent requests into
 shared device batches; `install_drain_handler` makes SIGTERM drain the
-server. The command-line `main` of the JAX package waits: its parameter
-sources, Orbax checkpoints and StableHLO bundles, are JAX formats
-(ROADMAP.md).
+server. `main` is the command line:
+
+    python -m dinov2_od_tpu_torch.serve --checkpoint outputs/final_model \
+        [--quantize int8] [--max_batch 32] [--batch_wait_ms 5]
+
+It serves a checkpoint of the training loop (`Predictor.from_checkpoint`);
+the JAX package's other source, an exported StableHLO bundle
+(`--bundle`), is not ported yet (ROADMAP.md Queue A item 9) and raises.
 """
 
 from __future__ import annotations
 
+import argparse
 import base64
 import io
 import json
@@ -27,7 +33,7 @@ import queue
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 
@@ -286,3 +292,96 @@ def install_drain_handler(server: ThreadingHTTPServer) -> None:
         threading.Thread(target=server.shutdown, daemon=True).start()
 
     signal.signal(signal.SIGTERM, _drain)
+
+
+def main(argv: Optional[List[str]] = None,
+         on_ready: Optional[Callable[[ThreadingHTTPServer], None]] = None
+         ) -> int:
+    """Serve a checkpoint until SIGTERM, Ctrl-C or `server.shutdown()`.
+    `on_ready`, when given, gets the server once it listens (a caller
+    running `main` in a thread stops it so; SIGTERM draining is installed
+    only from the main thread)."""
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--checkpoint",
+                     help="checkpoint directory of the training loop")
+    src.add_argument("--bundle", help="AOT serving bundle (not ported yet)")
+    p.add_argument("--model_name", default="facebook/dinov2-base")
+    p.add_argument("--num_classes", type=int, default=91)
+    p.add_argument("--lightweight", action="store_true",
+                   help="checkpoint was trained with the train CLI's "
+                        "--lightweight config")
+    p.add_argument("--image_size", type=int, default=224)
+    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--quantize", default=None, choices=[None, "int8"],
+                   help="int8 W8A8 serving path")
+    p.add_argument("--compilation_cache", default="",
+                   help="the JAX package's XLA cache; raises here")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="'cuda' (the default; raises without a card) or "
+                        "'cpu'")
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--no_dynamic_batching", action="store_true",
+                   help="serialize requests instead of coalescing "
+                        "concurrent ones into shared device batches")
+    p.add_argument("--max_batch", type=int, default=32,
+                   help="dynamic batching: max images per device call")
+    p.add_argument("--batch_wait_ms", type=float, default=5.0,
+                   help="dynamic batching: max time to wait for "
+                        "more requests before dispatching")
+    args = p.parse_args(argv)
+    if args.bundle:
+        raise NotImplementedError(
+            "--bundle (export.py's serving bundle) is not ported yet "
+            "(ROADMAP.md Queue A item 9); serve a --checkpoint")
+    if args.compilation_cache:
+        raise NotImplementedError(
+            "--compilation_cache is XLA's; the port has no counterpart")
+
+    logging.basicConfig(level=logging.INFO)
+    from .config import (detector_config_for_model_name,
+                         lightweight_detector_config)
+    from .inference import Predictor
+
+    if args.lightweight:
+        det_cfg = lightweight_detector_config(
+            num_classes=args.num_classes, image_size=args.image_size)
+    else:
+        det_cfg = detector_config_for_model_name(
+            args.model_name, num_classes=args.num_classes,
+            image_size=args.image_size)
+    model = Predictor.from_checkpoint(
+        args.checkpoint, detector_cfg=det_cfg, batch_size=args.batch_size,
+        quantize=args.quantize, device=args.device)
+    info = {"model": args.model_name, "quantize": args.quantize or "no",
+            "backend": str(model.device)}
+
+    # Warm the path (kernel builds) before accepting traffic.
+    size = det_cfg.backbone.image_size
+    model.detect([np.zeros((size, size, 3), np.float32)], score_threshold=1.0)
+
+    batcher = None
+    if not args.no_dynamic_batching:
+        batcher = DynamicBatcher(model, max_batch=args.max_batch,
+                                 max_wait_ms=args.batch_wait_ms)
+    server = make_server(model, args.host, args.port, info, batcher=batcher)
+    if threading.current_thread() is threading.main_thread():
+        install_drain_handler(server)
+    logger.info("serving on %s:%d", args.host, server.server_address[1])
+    try:
+        if on_ready is not None:
+            on_ready(server)
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+        if batcher is not None:
+            batcher.close()
+    logger.info("server drained and closed")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,7 +1,10 @@
-"""The train step (counterpart of dinov2_od_tpu/train/step.py): forward in
-train mode, matching and the set loss (with the auxiliary layers' terms),
-backward through the decoder and the adapted backbone blocks, global-norm
-clipping, L2 weight decay and masked Adam.
+"""The train and eval steps (counterpart of dinov2_od_tpu/train/step.py).
+The train step: forward in train mode, matching and the set loss (with
+the auxiliary layers' terms), backward through the decoder and the
+adapted backbone blocks, global-norm clipping, L2 weight decay and masked
+Adam. The eval steps: the forward alone, the forward with the detection
+top-k (one [B, K, 6] tensor a batch for the host), and the loss of a
+batch without an update.
 
 Where the JAX package compiles the whole step into one XLA program, the
 port runs it eagerly: the matcher copies each criterion call's cost
@@ -23,7 +26,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..config import TrainConfig
-from ..inference import IMAGENET_MEAN, IMAGENET_STD
+from ..data.coco import IMAGENET_MEAN, IMAGENET_STD
+from ..evaluation.postprocess import select_topk_detections
 from ..models.detector import detector_apply
 from ..ops.losses import set_criterion
 from ..parallel.collectives import all_reduce_coalesced_, reduce_gradients
@@ -183,3 +187,60 @@ def make_train_step(cfg: TrainConfig, mesh=None):
         return state, metrics
 
     return step
+
+
+def make_eval_step(cfg: TrainConfig, mesh=None):
+    """eval_step(params, images) -> the detector's raw outputs, in eval
+    mode (no dropout, no gradient)."""
+    det_cfg = cfg.detector
+
+    @torch.inference_mode()
+    def eval_step(params, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return detector_apply(params, det_cfg,
+                              prep_images(images, cfg.data.normalize),
+                              deterministic=True, mesh=mesh)
+
+    return eval_step
+
+
+def make_eval_topk_step(cfg: TrainConfig, mesh=None,
+                        max_detections: int = 100,
+                        parity_mode: bool = False):
+    """eval_topk_step(params, images, orig_sizes) -> {"topk": [B, K, 6]}
+    fp32, (score, label, x, y, w, h) along the last dim (labels exact in
+    fp32): the forward and the top-k over (query, class) on the device,
+    one compact tensor for the host to copy (evaluate_dataset's path)."""
+    det_cfg = cfg.detector
+
+    @torch.inference_mode()
+    def eval_topk_step(params, images: torch.Tensor,
+                       orig_sizes: torch.Tensor) -> Dict[str, torch.Tensor]:
+        out = detector_apply(params, det_cfg,
+                             prep_images(images, cfg.data.normalize),
+                             deterministic=True, mesh=mesh)
+        scores, labels, boxes = select_topk_detections(
+            out["pred_logits"], out["pred_boxes"], orig_sizes,
+            max_detections=max_detections, parity_mode=parity_mode)
+        return {"topk": torch.cat([scores[..., None].float(),
+                                   labels[..., None].float(),
+                                   boxes.float()], dim=-1)}
+
+    return eval_topk_step
+
+
+def make_loss_eval_step(cfg: TrainConfig):
+    """loss_eval_step(params, batch) -> the set criterion's terms in eval
+    mode, without an update (validation loss curves)."""
+    det_cfg = cfg.detector
+
+    @torch.inference_mode()
+    def loss_eval_step(params, batch: Batch) -> Dict[str, torch.Tensor]:
+        out = detector_apply(params, det_cfg,
+                             prep_images(batch["images"], cfg.data.normalize),
+                             deterministic=True)
+        return set_criterion(
+            out["pred_logits"], out["pred_boxes"], batch["labels"],
+            batch["boxes"], batch["valid"], matcher_cfg=cfg.matcher,
+            loss_cfg=cfg.loss, num_classes=det_cfg.decoder.num_classes)
+
+    return loss_eval_step

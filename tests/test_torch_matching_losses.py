@@ -186,13 +186,22 @@ def test_assignment_total_cost_equals_jax(inputs, bug):
 
 
 def test_auction_is_not_ported_yet():
+    """The auction is ported now (its parity is tests/test_torch_auction.py):
+    40 GT slots under 'auto' and any slot count under 'auction' route to it
+    and give a valid matching with JAX's matched count, no longer a
+    NotImplementedError."""
     args = _preds() + _targets(g=40, n_valid=(3, 7, 0))
-    with pytest.raises(NotImplementedError, match="auction"):
-        pmatching.hungarian_match(*(torch.from_numpy(x) for x in args),
-                                  pcfg.MatcherConfig())
-    with pytest.raises(NotImplementedError, match="auction"):
-        pmatching.hungarian_match(*(torch.from_numpy(x) for x in args[:5]),
-                                  pcfg.MatcherConfig(assignment="auction"))
+    for cfg in (pcfg.MatcherConfig(),
+                pcfg.MatcherConfig(assignment="auction")):
+        pmatching.reset_solver_stats()
+        out = pmatching.hungarian_match(
+            *(torch.from_numpy(x) for x in args), cfg)
+        assert pmatching.solver_stats["auction"] == 1
+        ref = jmatching.hungarian_match(*(jnp.asarray(x) for x in args),
+                                        jcfg.MatcherConfig())
+        assert np.array_equal(np.asarray(ref.match_valid).sum(1),
+                              out.match_valid.numpy().sum(1))
+        assert (out.query_of_gt[~out.match_valid] == -1).all()
 
 
 # ---- set criterion -----------------------------------------------------
