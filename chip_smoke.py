@@ -88,6 +88,28 @@ non-zero and prints no result:
              Predictor.from_checkpoint equal to the in-memory Predictor;
              serve.main in a thread (GET endpoints, concurrent POST
              /detect, 12 B1 a batch);
+7b. train recipes - the recorded recipes' options at ViT-B/224 b32 (bf16,
+             25 GT slots unless named): remat (14 B1 + 2 B2 a step, the
+             LoRA gradients bit-equal to the step's without it under
+             deterministic algorithms, a backward dropping keys as the
+             control; peak memory and ms a step both ways); gradient
+             accumulation k=2 over two copies of one batch against k=1 on
+             it (params untouched after the first mini-step, the update
+             and Adam's moments equal; a sum as the control); fold-mode
+             LoRA in fp32 against the factored step (2 alpha as the
+             control); the augmentation on the card against its CPU run on
+             the same draws (inverted flips as the control); then
+             `train.cli.main --device_cache --steps_per_dispatch 8` with
+             hflip and scale jitter on 1024 packed images, 2 epochs with
+             cached validation: 12 B1 + 2 B2 a step and 12 B1 a val batch,
+             images/s beside the loader loop's and the bare step's, host
+             syncs in one dispatch (torch.cuda's sync debug mode), a run
+             preempted after its first dispatch of epoch 1 and resumed,
+             bit-equal to an uninterrupted run under deterministic
+             algorithms, and the cached validation's AP and detections
+             equal to
+             `--only_evaluate`'s on the same checkpoint (another
+             checkpoint's as the control);
 8. prefix  - the same train step with the frozen prefix in int8
              (prefix_int8): 10 steps with the same checks, 12 B1, 2 B2 and
              10 B6 launches per step; one step's loss and gradients against
@@ -315,6 +337,38 @@ CLI_RESUME_MEAN_TOL = 0.02
 # int8 evaluation of the final checkpoint against the bf16 evaluation of
 # the same checkpoint: |AP_int8 - AP_bf16| (COCO AP in [0, 1]).
 CLI_INT8_AP_TOL = 0.02
+# Train recipes phase (the recorded recipes' step options and the cached
+# loop at ViT-B/224 b32, bf16 unless named, 25 GT slots for the step
+# checks). Steps driven each way with remat; its LoRA gradients must be
+# bit-equal to the step's without it (B1, B2 and, under deterministic
+# algorithms, the deformable backward are deterministic), the decoder's
+# within RECIPE_REMAT_DECODER_TOL (relative norm). Accumulation: k=2 over
+# two copies of one batch against k=1 on it, Adam's moments and the
+# params after the update within RECIPE_ACC_TOL (relative norm; the two
+# mini-steps' gradients are equal under deterministic algorithms, so the
+# mean is the gradient); the control sums instead, doubling mu. Fold:
+# fp32, loss and gradient groups of the fold-mode step against the
+# factored step within RECIPE_FOLD_TOL (fp32 reassociation of x @ (W +
+# A B) against x @ W + (x @ A) @ B); the control folds 2 alpha A B.
+# Augmentation: hflip 0.5, scale 0.25, colour 0.3 on the card against the
+# same draws applied on the CPU, pixels within RECIPE_AUG_PIXEL_TOL
+# (cuBLAS against the host's matmul order), boxes and valid bits equal;
+# the control inverts the flip mask.
+RECIPE_STEPS = 3
+RECIPE_REMAT_DECODER_TOL = 1e-5
+RECIPE_ACC_TOL = 1e-6
+RECIPE_FOLD_TOL = {"loss": 1e-4, "lora": 1e-3, "decoder": 1e-3,
+                   "projection": 1e-3}
+RECIPE_AUG_PIXEL_TOL = 1e-5
+# The cached loop: `train.cli.main --device_cache --steps_per_dispatch 8`
+# with the aug recipe's hflip 0.5 and scale jitter 0.25, 2 epochs of 32
+# steps on 1024 packed images (100 GT slots, the auction), validation on
+# 64 each epoch; under deterministic algorithms a run preempted after its
+# first dispatch of epoch 1 and resumed, equal to the bit to an
+# uninterrupted run; the cached validation's AP and detections equal to
+# `--only_evaluate`'s on the same checkpoint.
+RECIPE_CLI_TRAIN_IMAGES, RECIPE_CLI_VAL_IMAGES = 1024, 64
+RECIPE_DISPATCH = 8
 INT8_GRAD_TOL = {"loss": 1e-6, "lora": 1e-5, "decoder": 1e-5,
                  "projection": 1e-5}
 
@@ -1972,7 +2026,8 @@ class _MemoryDataset:
         return self.examples[i]
 
 
-def _cli_splits(seed: int, root: str, image_size: int):
+def _cli_splits(seed: int, root: str, image_size: int,
+                n_train: int = CLI_TRAIN_IMAGES, n_val: int = CLI_VAL_IMAGES):
     """Packed train and val splits under `root` (pack_dataset's format)."""
     import os
 
@@ -1980,8 +2035,8 @@ def _cli_splits(seed: int, root: str, image_size: int):
 
     rng = np.random.default_rng(seed)
     out = {}
-    for name, n, first in (("train", CLI_TRAIN_IMAGES, 1),
-                           ("val", CLI_VAL_IMAGES, CLI_TRAIN_IMAGES + 1)):
+    for name, n, first in (("train", n_train, 1),
+                           ("val", n_val, n_train + 1)):
         ds = _MemoryDataset(rng, n, first, image_size, 100,
                             os.path.join(root, f"{name}.json"))
         out[name] = pack_dataset(ds, os.path.join(root, name))
@@ -2092,11 +2147,12 @@ def _cli_serve(final: str, seed: int, image_size: int):
     return counts
 
 
-def phase_train_cli(seed: int, kernels: dict, bare_ips: float):
+def phase_train_cli(seed: int, kernels: dict, bare_ips: float) -> float:
     """The training CLI from a packed COCO-format dataset to a checkpoint
     to the server: `train.cli.main` for 2 epochs through the auction
     matcher with validation and checkpoints, a resume, an int8 evaluation,
-    `Predictor.from_checkpoint` and `serve.main`."""
+    `Predictor.from_checkpoint` and `serve.main`. Returns the loop's
+    images/s in its last epoch."""
     import os
     import tempfile
 
@@ -2356,6 +2412,568 @@ def phase_train_cli(seed: int, kernels: dict, bare_ips: float):
         serve_counts = _cli_serve(final, seed, image_size)
         kernels["flash_attn_fwd"]["launches"] += serve_counts[
             "flash_attn_fwd"]
+    return logs[CLI_EPOCHS - 1]["images_per_sec"]
+
+
+def _recipe_params(seed: int, det):
+    """Params from `seed` on the card with nonzero LoRA B (so every LoRA
+    leaf has a gradient), the frozen weights in bf16 for a bf16 backbone."""
+    import torch
+
+    from dinov2_od_tpu_torch.models.detector import (
+        cast_frozen_weights, init_detector_params)
+
+    p = init_detector_params(torch.Generator().manual_seed(seed + 2), det,
+                             device="cuda")
+    lg = torch.Generator().manual_seed(seed + 3)
+    for lin in p["backbone"]["blocks"].values():
+        if isinstance(lin, dict) and "lora_B" in lin:
+            lin["lora_B"] = (0.05 * torch.randn(
+                lin["lora_B"].shape, generator=lg)).to("cuda")
+    return cast_frozen_weights(p, det) if det.backbone.dtype == "bfloat16" \
+        else p
+
+
+def _clone_tree(t):
+    return {k: _clone_tree(v) if isinstance(v, dict) else v.detach().clone()
+            for k, v in t.items()}
+
+
+def _rel_norm_tree(a: list, b: list) -> float:
+    import torch
+
+    num = torch.sqrt(sum(((x.float() - y.float()) ** 2).sum()
+                         for x, y in zip(a, b)))
+    den = torch.sqrt(sum((y.float() ** 2).sum() for y in b))
+    return float(num / den)
+
+
+def _recipe_remat(seed, kernels, cfg, det, batch):
+    """Remat: 14 B1 + 2 B2 a step, the LoRA gradients bit-equal to the
+    step's without it (a backward dropping keys as the control), peak
+    memory and ms a step both ways."""
+    import torch
+
+    from dinov2_od_tpu_torch.ops import _build
+    from dinov2_od_tpu_torch.train.state import create_train_state
+    from dinov2_od_tpu_torch.train.step import make_train_step, train_grads
+
+    base = _recipe_params(seed, det)
+    depth, adapted = det.backbone.depth, det.backbone.lora_last_n_blocks
+    gen = torch.Generator(device="cuda")
+    res = {}
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, use_remat=remat)
+        state = create_train_state(_clone_tree(base), c.optim, det)
+        step = make_train_step(c)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            runs = {}
+            for name in (("sound", "control") if remat else ("sound",)):
+                ctx = (_bwd_keys_dropped(192) if name == "control"
+                       else contextlib.nullcontext())
+                with ctx:
+                    gen.manual_seed(seed)
+                    metrics, grads = train_grads(c, state, batch, gen)
+                runs[name] = (metrics["loss"],
+                              [g.clone() for g in _tree_lora(grads)],
+                              [g.clone() for g in _tree_decoder(grads)])
+        finally:
+            torch.use_deterministic_algorithms(False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        for _ in range(RECIPE_STEPS):
+            gen.manual_seed(seed)
+            state, m = step(state, batch, gen)
+        torch.cuda.synchronize()
+        counts = dict(_build.launch_counts)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        want = _counts(flash_attn_fwd=(depth + adapted * remat) * RECIPE_STEPS,
+                       flash_attn_bwd=adapted * RECIPE_STEPS)
+        if counts != want or not np.isfinite(float(m["loss"])):
+            raise AssertionError(f"train recipes remat={remat}: launches "
+                                 f"{counts}, expected {want}; loss "
+                                 f"{float(m['loss'])}")
+        ms = time_ms(lambda: step(state, batch, gen), iters=3, warmup=1,
+                     repeats=3)
+        res[remat] = dict(runs=runs, counts=counts, peak_gb=peak, ms=ms)
+        del state, step
+        torch.cuda.empty_cache()
+    ref = res[False]["runs"]["sound"]
+    got, ctl = res[True]["runs"]["sound"], res[True]["runs"]["control"]
+    lora_equal = all(torch.equal(a, b) for a, b in zip(got[1], ref[1]))
+    ctl_equal = all(torch.equal(a, b) for a, b in zip(ctl[1], ref[1]))
+    dec_err = _rel_norm_tree(got[2], ref[2])
+    log(f"train recipes: remat: launches {res[True]['counts']} over "
+        f"{RECIPE_STEPS} steps (without: {res[False]['counts']}); LoRA "
+        f"gradients bit-equal {lora_equal} (control, B2 dropping keys from "
+        f"192: {ctl_equal}), loss {float(got[0])} vs {float(ref[0])}, "
+        f"decoder rel err {dec_err:.3g} (tol {RECIPE_REMAT_DECODER_TOL})")
+    if (not lora_equal or not torch.equal(got[0], ref[0])
+            or dec_err > RECIPE_REMAT_DECODER_TOL):
+        raise AssertionError("train recipes: the step under remat differs "
+                             "from the step without it")
+    if ctl_equal:
+        raise AssertionError("train recipes: the remat check passes a "
+                             "backward that drops keys")
+    log("train recipes: " + json.dumps({
+        "metric": "ViT-B/224 b32 bf16 train step with and without remat of "
+                  "the 2 adapted blocks (25 GT slots, JV)",
+        "ms_per_step": res[False]["ms"], "ms_per_step_remat": res[True]["ms"],
+        "peak_mem_gb": res[False]["peak_gb"],
+        "peak_mem_gb_remat": res[True]["peak_gb"], "card": card_line()}))
+    for name in ("flash_attn_fwd", "flash_attn_bwd"):
+        kernels[name]["launches"] += res[True]["counts"][name]
+        kernels[name]["launches_per_step_remat"] = (
+            res[True]["counts"][name] / RECIPE_STEPS)
+
+
+def _tree_lora(grads):
+    blocks = grads["backbone"]["blocks"]
+    return [blocks[lin][f] for lin in sorted(blocks)
+            if isinstance(blocks[lin], dict)
+            for f in ("lora_A", "lora_B") if blocks[lin].get(f) is not None]
+
+
+def _tree_decoder(grads):
+    from dinov2_od_tpu_torch.train.state import tree_leaves
+
+    return tree_leaves(grads["decoder"])
+
+
+def _recipe_accumulation(seed, kernels, cfg, det, batch):
+    """k=2 over two copies of one batch against k=1 on it: params untouched
+    after the first mini-step, then the update and Adam's moments of the
+    k=1 step; the control sums the mini-steps' gradients."""
+    import torch
+
+    from dinov2_od_tpu_torch.ops import _build
+    from dinov2_od_tpu_torch.train import step as step_mod
+    from dinov2_od_tpu_torch.train.state import (create_train_state,
+                                                 trainable_leaves,
+                                                 tree_leaves)
+
+    base = _recipe_params(seed, det)
+    gen = torch.Generator(device="cuda")
+    # No clip: clipping by the global norm would hide a sum's doubling.
+    optim = dataclasses.replace(cfg.optim, gradient_clip_val=float("inf"))
+    real = step_mod.accumulate
+
+    def summed(grads, opt_state, n):
+        return torch._foreach_add(tree_leaves(opt_state.acc),
+                                  tree_leaves(grads))
+
+    out = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name, k, acc_fn in (("k=1", 1, real), ("k=2", 2, real),
+                                ("control (sum)", 2, summed)):
+            c = dataclasses.replace(cfg, optim=dataclasses.replace(
+                optim, gradient_accumulation_steps=k))
+            state = create_train_state(_clone_tree(base), c.optim, det)
+            step = step_mod.make_train_step(c)
+            step_mod.accumulate = acc_fn
+            try:
+                _build.reset_launch_counts()
+                before = [t.clone() for t in trainable_leaves(state.params,
+                                                              state.opt_state)]
+                untouched = None
+                for i in range(k):
+                    gen.manual_seed(seed)
+                    state, _ = step(state, batch, gen)
+                    if i == 0 and k > 1:
+                        untouched = all(torch.equal(a, b) for a, b in zip(
+                            trainable_leaves(state.params, state.opt_state),
+                            before))
+                torch.cuda.synchronize()
+            finally:
+                step_mod.accumulate = real
+            out[name] = dict(
+                counts=dict(_build.launch_counts), untouched=untouched,
+                update=[(a - b).detach() for a, b in zip(trainable_leaves(
+                    state.params, state.opt_state), before)],
+                mu=[t.clone() for t in tree_leaves(state.opt_state.mu)],
+                nu=[t.clone() for t in tree_leaves(state.opt_state.nu)],
+                count=int(state.opt_state.count))
+            del state, step
+    finally:
+        torch.use_deterministic_algorithms(False)
+    ref = out["k=1"]
+    verdict = {}
+    for name in ("k=2", "control (sum)"):
+        r = out[name]
+        errs = {f: _rel_norm_tree(r[f], ref[f])
+                for f in ("update", "mu", "nu")}
+        verdict[name] = all(e <= RECIPE_ACC_TOL for e in errs.values()) \
+            and r["untouched"] and r["count"] == 1
+        log(f"train recipes: accumulation {name} against k=1: rel err "
+            + ", ".join(f"{f} {e:.3g}" for f, e in errs.items())
+            + f" (tol {RECIPE_ACC_TOL}), params untouched after the first "
+              f"mini-step {r['untouched']}, updates {r['count']}, launches "
+              f"{r['counts']}")
+    want = _counts(flash_attn_fwd=2 * det.backbone.depth,
+                   flash_attn_bwd=2 * det.backbone.lora_last_n_blocks)
+    if not verdict["k=2"] or out["k=2"]["counts"] != want:
+        raise AssertionError("train recipes: k=2 accumulation differs from "
+                             "k=1 on the same gradient")
+    if verdict["control (sum)"]:
+        raise AssertionError("train recipes: the accumulation check passes "
+                             "a sum of the mini-steps' gradients")
+    for name in ("flash_attn_fwd", "flash_attn_bwd"):
+        kernels[name]["launches"] += out["k=2"]["counts"][name]
+        kernels[name]["launches_per_step_accumulation"] = (
+            out["k=2"]["counts"][name] / 2)
+
+
+def _recipe_fold(seed, cfg, det32, batch):
+    """lora_mode="fold" in training, fp32: the loss and gradient groups of
+    the fold-mode step against the factored step's on the same params and
+    assignment; the control folds twice the LoRA delta."""
+    import torch
+
+    from dinov2_od_tpu_torch.models import vit
+
+    fold = dataclasses.replace(det32, backbone=dataclasses.replace(
+        det32.backbone, lora_mode="fold"))
+    c32 = dataclasses.replace(det32, decoder=dataclasses.replace(
+        det32.decoder, dropout=0.0))
+    f32 = dataclasses.replace(fold, decoder=c32.decoder)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    real = vit._eff_kernel
+    try:
+        ref = _step_loss_grads(seed, cfg, c32, batch)("auto")
+        lg = _step_loss_grads(seed, cfg, f32, batch)
+        got = lg("auto")
+        vit._eff_kernel = lambda p, alpha, dtype, mode: real(
+            p, 2 * alpha, dtype, mode)
+        try:
+            ctl = lg("auto")
+        finally:
+            vit._eff_kernel = real
+    finally:
+        torch.use_deterministic_algorithms(False)
+    verdicts = {}
+    for name, run in (("fold", got), ("control (2 alpha)", ctl)):
+        err = _grad_errors(run, ref)
+        verdicts[name] = [g for g in err if err[g] > RECIPE_FOLD_TOL[g]]
+        log(f"train recipes: {name} step fp32 against the factored step: "
+            + ", ".join(f"{g} rel err {e:.3g} (tol {RECIPE_FOLD_TOL[g]})"
+                        for g, e in err.items()))
+    if verdicts["fold"]:
+        raise AssertionError(f"train recipes: the fold-mode step differs "
+                             f"from the factored step: {verdicts['fold']}")
+    if not verdicts["control (2 alpha)"]:
+        raise AssertionError("train recipes: the fold check passes a fold "
+                             "of twice the LoRA delta")
+    torch.cuda.empty_cache()
+
+
+def _recipe_augment(seed, cfg):
+    """The recipes' augmentation on the card against the same draws applied
+    on the CPU; the control inverts the flip mask."""
+    import torch
+
+    from dinov2_od_tpu_torch.config import AugmentConfig
+    from dinov2_od_tpu_torch.data import augment
+    from dinov2_od_tpu_torch.data.synthetic import make_batch
+
+    aug = AugmentConfig(hflip_prob=0.5, scale_jitter=0.25, color_jitter=0.3)
+    raw = make_batch(np.random.default_rng(seed + 5), B, image_size=224,
+                     max_boxes=MAX_BOXES)
+    x01 = torch.from_numpy(np.clip(raw["images"], 0, 1))
+    boxes, valid = torch.from_numpy(raw["boxes"]), torch.from_numpy(
+        raw["valid"])
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    draws = augment.draw_augment(gen, aug, B, 224, 224, "cuda")
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card = augment.apply_augment(x01.cuda(), boxes.cuda(), valid.cuda(),
+                                     draws, aug)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    host = {k: v.cpu() for k, v in draws.items()}
+    runs = {"plain CPU": augment.apply_augment(x01, boxes, valid, host, aug)}
+    runs["control (flips inverted)"] = augment.apply_augment(
+        x01, boxes, valid, {**host, "flip": ~host["flip"]}, aug)
+    ok = {}
+    for name, (xi, bx, va) in runs.items():
+        pix = float((card[0].cpu() - xi).abs().max())
+        box_err = float((card[1].cpu() - bx).abs().max())
+        same = torch.equal(card[1].cpu(), bx) and torch.equal(card[2].cpu(),
+                                                              va)
+        ok[name] = pix <= RECIPE_AUG_PIXEL_TOL and same
+        log(f"train recipes: augmentation on the card (flips "
+            f"{int(host['flip'].sum())}/{B}, zoom "
+            f"{float(host['scale'].min()):.3f}-"
+            f"{float(host['scale'].max()):.3f}) against {name}: pixels max "
+            f"abs err {pix:.3g} (tol {RECIPE_AUG_PIXEL_TOL}), boxes and valid "
+            f"equal {same} (boxes max abs err {box_err:.3g}), "
+            f"{int(card[2].sum())} of {int(valid.sum())} boxes kept")
+    if not ok["plain CPU"]:
+        raise AssertionError("train recipes: augmentation on the card "
+                             "differs from its CPU run")
+    if ok["control (flips inverted)"]:
+        raise AssertionError("train recipes: the augmentation check passes "
+                             "inverted flips")
+
+
+def _syncs_per_dispatch(cfg, params, cache):
+    """Host syncs in one K-step dispatch from the cache, counted by
+    torch.cuda's sync debug mode (each sync warns once)."""
+    import warnings
+
+    import torch
+
+    from dinov2_od_tpu_torch.train import device_cache as dc
+    from dinov2_od_tpu_torch.train.state import create_train_state
+
+    state = create_train_state(params, cfg.optim, cfg.detector)
+    multi = dc.make_multi_train_step(cfg)
+    gen = torch.Generator(device="cuda")
+    group = np.arange(RECIPE_DISPATCH * CLI_BATCH).reshape(RECIPE_DISPATCH,
+                                                           CLI_BATCH)
+    state, _ = multi(state, cache, dc.index_tensor(group, "cuda"), gen)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            state, m = multi(state, cache, dc.index_tensor(group, "cuda"),
+                             gen)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    where = {}
+    for w in syncs:
+        key = f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}"
+        where[key] = where.get(key, 0) + 1
+    return len(syncs), where
+
+
+def phase_train_recipes(seed: int, kernels: dict, bare_ips: float,
+                        loop_ips: float):
+    """The recorded recipes' options at ViT-B/224 b32 on the card: remat,
+    accumulation, fold, augmentation, then the cached loop of the CLI with
+    augmentation (images/s, syncs a dispatch, a mid-epoch resume, cached
+    validation against uncached)."""
+    import os
+    import signal
+    import tempfile
+
+    import torch
+
+    from dinov2_od_tpu_torch.config import DataConfig, OptimConfig, TrainConfig
+    from dinov2_od_tpu_torch.data.packed import PackedDataset
+    from dinov2_od_tpu_torch.data.synthetic import make_batch
+    from dinov2_od_tpu_torch.ops import _build
+    from dinov2_od_tpu_torch.train import checkpoint as ckpt
+    from dinov2_od_tpu_torch.train import cli
+    from dinov2_od_tpu_torch.train import device_cache as dc
+    from dinov2_od_tpu_torch.train.state import tree_leaves
+
+    t_phase = time.perf_counter()
+    det32, det = _train_dets()
+    cfg = TrainConfig(detector=det, data=DataConfig(batch_size=B,
+                                                    max_boxes=MAX_BOXES),
+                      optim=OptimConfig())
+    raw = make_batch(np.random.default_rng(seed), B, image_size=224,
+                     max_boxes=MAX_BOXES)
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in raw.items()}
+    _recipe_remat(seed, kernels, cfg, det, batch)
+    _recipe_accumulation(seed, kernels, cfg, det, batch)
+    _recipe_fold(seed, cfg, det32, batch)
+    _recipe_augment(seed, cfg)
+    torch.cuda.empty_cache()
+    log(f"train recipes: step checks took {time.perf_counter() - t_phase:.1f}"
+        f" s")
+
+    image_size = 224
+    spe = RECIPE_CLI_TRAIN_IMAGES // CLI_BATCH
+    steps = CLI_EPOCHS * spe
+    val_batches = -(-RECIPE_CLI_VAL_IMAGES // CLI_BATCH)
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="recipes_", dir=build) as root:
+        splits = _cli_splits(seed + 1, root, image_size,
+                             RECIPE_CLI_TRAIN_IMAGES, RECIPE_CLI_VAL_IMAGES)
+        base = ["--packed_train_data", splits["train"],
+                "--packed_val_data", splits["val"],
+                "--dino_model", "facebook/dinov2-base",
+                "--image_size", str(image_size),
+                "--backbone_dtype", "bfloat16",
+                "--batch_size", str(CLI_BATCH),
+                "--num_epochs", str(CLI_EPOCHS), "--val_frequency", "1",
+                "--checkpoint_frequency", "1", "--log_frequency", "8"]
+        common = base + ["--device_cache", "--steps_per_dispatch",
+                         str(RECIPE_DISPATCH), "--hflip_prob", "0.5",
+                         "--scale_jitter", "0.25"]
+        out = os.path.join(root, "out")
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(common + ["--output_dir", out])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(_build.launch_counts)
+        logs = _epoch_logs(out, range(CLI_EPOCHS))
+        losses = [x for e in range(CLI_EPOCHS) for x in logs[e]["losses"]]
+        want = _counts(flash_attn_fwd=12 * (steps + CLI_EPOCHS * val_batches),
+                       flash_attn_bwd=2 * steps)
+        log(f"train recipes: cached loop main() rc {rc} in {wall:.1f} s: "
+            f"{steps} steps, epoch means "
+            f"{[logs[e]['mean_loss'] for e in range(CLI_EPOCHS)]}, launches "
+            f"{counts}")
+        if rc != 0 or counts != want:
+            raise AssertionError(f"cached loop: rc {rc}, launches {counts}, "
+                                 f"expected {want}")
+        if len(losses) != steps or not np.isfinite(losses).all():
+            raise AssertionError(f"cached loop losses: {losses}")
+        if not logs[CLI_EPOCHS - 1]["mean_loss"] < logs[0]["mean_loss"]:
+            raise AssertionError("cached loop: the last epoch's mean loss is "
+                                 "not below the first's")
+        for name in ("flash_attn_fwd", "flash_attn_bwd"):
+            kernels[name]["launches"] += counts[name]
+            kernels[name]["launches_train_recipes_cli"] = counts[name]
+
+        # Host syncs in one dispatch of the cached loop's step.
+        from dinov2_od_tpu_torch.models.detector import (
+            cast_frozen_weights, init_detector_params)
+
+        dcfg = TrainConfig(detector=det, data=DataConfig(batch_size=CLI_BATCH),
+                           optim=OptimConfig(),
+                           augment=dataclasses.replace(
+                               cfg.augment, hflip_prob=0.5,
+                               scale_jitter=0.25))
+        cache = dc.upload_train_cache(PackedDataset(splits["train"]), "cuda")
+        params = cast_frozen_weights(init_detector_params(
+            torch.Generator().manual_seed(seed), det, device="cuda"), det)
+        n_sync, where = _syncs_per_dispatch(dcfg, params, cache)
+        del cache, params
+        torch.cuda.empty_cache()
+        log("train recipes: " + json.dumps({
+            "metric": "the cached training loop (ViT-B/224 b32 bf16, 100 GT "
+                      "slots, the auction, hflip 0.5 + scale jitter 0.25, "
+                      f"{RECIPE_DISPATCH} steps a dispatch) images/s per "
+                      "epoch, beside phase train cli's loader loop (no "
+                      "augmentation) and the bare step (25 GT slots, JV)",
+            "cached_loop_images_per_s": [logs[e]["images_per_sec"]
+                                         for e in range(CLI_EPOCHS)],
+            "loader_loop_images_per_s": loop_ips,
+            "bare_step_images_per_s": bare_ips,
+            "host_syncs_per_dispatch": n_sync,
+            "host_syncs_per_step": n_sync / RECIPE_DISPATCH,
+            "sync_sites": where,
+            "val_AP": [_ap(out, e)["AP"] for e in range(CLI_EPOCHS)],
+            "card": card_line()}))
+
+        # Exact resume: an uninterrupted run and a run preempted after its
+        # first dispatch of epoch 1 (SIGTERM while the next index group is
+        # copied: the guard stops the loop after that dispatch), resumed
+        # from its checkpoint, both under deterministic algorithms (the
+        # deformable backward's atomics otherwise differ from run to run):
+        # the resumed steps' losses and the final params to the bit.
+        out_u = os.path.join(root, "uninterrupted")
+        out_p = os.path.join(root, "preempted")
+        calls, real_index = [0], dc.index_tensor
+
+        def index_then_signal(*a, **k):
+            calls[0] += 1
+            if calls[0] == spe // RECIPE_DISPATCH + 1:
+                signal.raise_signal(signal.SIGTERM)
+            return real_index(*a, **k)
+
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            rc_u = cli.main(common + ["--output_dir", out_u])
+            dc.index_tensor = index_then_signal
+            try:
+                rc = cli.main(common + ["--output_dir", out_p])
+            finally:
+                dc.index_tensor = real_index
+            ckpt_dir = os.path.join(out_p, "checkpoint_epoch_0")
+            with open(os.path.join(ckpt_dir, "metrics_history.json")) as f:
+                index = json.load(f).get("_preempt_batch_index")
+            if rc_u != 0 or rc != 0 or index != RECIPE_DISPATCH or \
+                    os.path.isdir(os.path.join(out_p, "final_model")):
+                raise AssertionError(f"preempted cached run: rc {rc_u}, "
+                                     f"{rc}, batch index {index}")
+            _build.reset_launch_counts()
+            rc = cli.main(common + ["--output_dir", out_p, "--checkpoint",
+                                    ckpt_dir])
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        counts_r = dict(_build.launch_counts)
+        last = CLI_EPOCHS - 1
+        again = _epoch_logs(out_p, [last])[last]
+        ref = _epoch_logs(out_u, [last])[last]
+        left = spe - RECIPE_DISPATCH
+        want_r = _counts(flash_attn_fwd=12 * (left + val_batches),
+                         flash_attn_bwd=2 * left)
+        if (rc != 0 or again["steps"] != ref["steps"][RECIPE_DISPATCH:]
+                or counts_r != want_r):
+            raise AssertionError(f"resumed cached run: rc {rc}, steps "
+                                 f"{again['steps']}, launches {counts_r}, "
+                                 f"expected {want_r}")
+        finals = [torch.load(os.path.join(o, "final_model", ckpt.STATE_FILE),
+                             weights_only=True)["params"]
+                  for o in (out_u, out_p)]
+        same_params = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(finals[0]), tree_leaves(finals[1])))
+        same_losses = again["losses"] == ref["losses"][RECIPE_DISPATCH:]
+        # The control: the first run's, whose atomics were not held.
+        control = again["losses"] == logs[last]["losses"][RECIPE_DISPATCH:]
+        log(f"train recipes: preempted after {index} steps of epoch {last} "
+            f"and resumed, deterministic algorithms: its {len(again['losses'])}"
+            f" steps {again['steps'][0]}-{again['steps'][-1]} equal to the "
+            f"uninterrupted run's {same_losses}, final params equal "
+            f"{same_params}; equal to the first run's (the control) "
+            f"{control}; launches {counts_r}")
+        if not (same_losses and same_params):
+            raise AssertionError("resumed cached run differs from the "
+                                 "uninterrupted one")
+        if control:
+            raise AssertionError("the resume check passes a run whose "
+                                 "atomics were not held")
+        for name in ("flash_attn_fwd", "flash_attn_bwd"):
+            kernels[name]["launches"] += counts_r[name]
+
+        # Cached validation against the loader's on the same checkpoints;
+        # the epoch-0 checkpoint's as the control.
+        evals = {}
+        for name, path in (("final_model", "final_model"),
+                           ("control (checkpoint_epoch_0)",
+                            "checkpoint_epoch_0")):
+            ev_out = os.path.join(root, f"eval_{path}")
+            rc = cli.main(base + ["--only_evaluate", "--checkpoint",
+                                         os.path.join(out, path),
+                                         "--output_dir", ev_out])
+            # --only_evaluate names its files by the checkpoint's epoch + 1.
+            epoch = 0 if path == "final_model" else 1
+            with open(os.path.join(ev_out,
+                                   f"predictions_epoch_{epoch}.json")) as f:
+                evals[name] = (rc, _ap(ev_out, epoch), json.load(f))
+        with open(os.path.join(out, f"predictions_epoch_{last}.json")) as f:
+            cached_preds = json.load(f)
+        cached = _ap(out, last)
+        same = {n: e[1] == cached and e[2] == cached_preds
+                for n, e in evals.items()}
+        log(f"train recipes: cached validation AP {cached['AP']:.4f}, AP50 "
+            f"{cached['AP50']:.4f} ({len(cached_preds)} detections) against "
+            f"--only_evaluate: final_model AP "
+            f"{evals['final_model'][1]['AP']:.4f}, equal {same['final_model']};"
+            f" control (checkpoint_epoch_0) AP "
+            f"{evals['control (checkpoint_epoch_0)'][1]['AP']:.4f}, equal "
+            f"{same['control (checkpoint_epoch_0)']}")
+        if any(e[0] != 0 for e in evals.values()) or not same["final_model"]:
+            raise AssertionError("cached validation differs from the "
+                                 "loader's evaluation of the same params")
+        if same["control (checkpoint_epoch_0)"]:
+            raise AssertionError("the cached validation check passes another "
+                                 "checkpoint's evaluation")
+    log(f"train recipes: phase took {time.perf_counter() - t_phase:.1f} s")
 
 
 def phase_prefix_int8_train(seed: int, kernels: dict, bf16_ips: float,
@@ -3301,7 +3919,8 @@ def main(argv=None) -> int:
     serving_ips = phase_slice(args.seed, kernels, profile=args.profile)
     phase_int8_serving(args.seed, kernels, serving_ips, profile=args.profile)
     train_ips = phase_train(args.seed, kernels, profile=args.profile)
-    phase_train_cli(args.seed, kernels, train_ips)
+    loop_ips = phase_train_cli(args.seed, kernels, train_ips)
+    phase_train_recipes(args.seed, kernels, train_ips, loop_ips)
     phase_prefix_int8_train(args.seed, kernels, train_ips,
                             profile=args.profile)
     phase_large_serving(args.seed, kernels, profile=args.profile)

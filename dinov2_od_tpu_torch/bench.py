@@ -11,8 +11,9 @@ Prints ONE JSON line:
   base), BENCH_IMAGE_SIZE (224), BENCH_PREFIX_INT8=1, BENCH_REMAT=1,
   BENCH_AUG=1, BENCH_FFN, BENCH_MOE_EXPERTS (named in the metric only);
   BENCH_SCAN_UNROLL is accepted and has no effect (the port's backbone is
-  unrolled). What the port cannot run yet raises NotImplementedError:
-  remat and augmentation in the train step, an MoE FFN at init.
+  unrolled). BENCH_REMAT=1 recomputes the adapted blocks in the
+  backward, BENCH_AUG=1 augments each batch on the card (hflip 0.5,
+  colour 0.3, scale 0.25). An MoE FFN raises NotImplementedError at init.
 - Random weights from seed 0, frozen backbone weights stored in bf16
   (`cast_frozen_weights`), the batch `make_batch(default_rng(0), ...,
   max_boxes=25)`.

@@ -183,7 +183,8 @@ class OptimConfig:
     learning_rate: float = 1e-4
     weight_decay: float = 1e-4
     gradient_clip_val: float = 1.0
-    # > 1 is not ported yet (ROADMAP.md) and raises.
+    # > 1: the mean gradient of k mini-steps, one optimizer update every
+    # k-th call (optax.MultiSteps' semantics, train/state.py).
     gradient_accumulation_steps: int = 1
     lr_schedule: str = "constant"  # 'constant' | 'cosine' | 'linear'
     warmup_steps: int = 0
@@ -197,12 +198,19 @@ class OptimConfig:
 
 @dataclasses.dataclass(frozen=True)
 class AugmentConfig:
-    """Train-time augmentation. Not ported yet (ROADMAP.md): an enabled
-    augmentation makes the train step raise."""
+    """Train-time augmentation, on the device inside the train step
+    (data/augment.py); every augmentation is off by default."""
 
+    # Per-image horizontal flip probability (boxes mirrored with it).
     hflip_prob: float = 0.0
+    # Brightness/contrast/saturation factors ~ U[1-s, 1+s]; 0 = off.
     color_jitter: float = 0.0
+    # Aspect-preserving zoom ~ U[1-s, 1+s] with random placement (zoom-out
+    # pads black, zoom-in crops); boxes follow and are clipped.
     scale_jitter: float = 0.0
+    # Boxes whose clipped width or height (normalised) is not above this
+    # after the zoom lose their valid bit.
+    min_box_size: float = 1e-3
 
     @property
     def enabled(self) -> bool:
@@ -259,7 +267,8 @@ class TrainConfig:
     loss: LossConfig = LossConfig()
     augment: AugmentConfig = AugmentConfig()
     mesh: MeshConfig = MeshConfig()
-    # Rematerialisation of backbone blocks: not ported yet (ROADMAP.md).
+    # Recompute each adapted backbone block in the backward pass instead
+    # of keeping its activations (torch.utils.checkpoint).
     use_remat: bool = False
     # Auxiliary layers reuse the final layer's assignment instead of
     # solving their own.

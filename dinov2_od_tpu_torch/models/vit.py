@@ -12,7 +12,13 @@ HWIO `[p, p, 3, D]` kernel used as a `(py, px, c)`-ordered patch GEMM.
   blocks below the last `lora_last_n_blocks` have nothing to train, so
   they run under `torch.no_grad()` (the counterpart of JAX's
   stop_gradient: no stored activations, no attention backward) and skip
-  the LoRA compute; the adapted suffix runs with autograd.
+  the LoRA compute; the adapted suffix runs with autograd, each block
+  under `torch.utils.checkpoint` with `use_remat` (recomputed in the
+  backward, as JAX's `jax.checkpoint`: the attention forward runs again
+  there).
+- `lora_mode="fold"` trains through W + alpha * A @ B, built each call
+  and cast to the activation dtype: one GEMM a linear, and the gradients
+  of A and B come through the fold.
 - No sequence padding: the attention kernel masks its own ragged edge.
 
 - int8 params (models/quantize.py) are dispatched on "kernel_q": q/k/v as
@@ -36,6 +42,7 @@ from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..config import BackboneConfig
 from ..ops.attention import multi_head_attention
@@ -209,6 +216,7 @@ def backbone_apply(
     *,
     attn_impl: str = "auto",
     mesh=None,
+    use_remat: bool = False,
 ) -> torch.Tensor:
     """Run the backbone.
 
@@ -216,6 +224,8 @@ def backbone_apply(
       pixel_values: [B, H, W, 3] float images (NHWC).
       mesh: a process mesh (parallel/) whose model axis splits the blocks
         (params: this rank's shard, `shard_params`); None runs whole.
+      use_remat: under autograd, keep only each adapted block's input and
+        recompute the block in the backward.
 
     Returns:
       [B, seq, out_dim] features; seq = patches (+1 CLS unless
@@ -246,6 +256,10 @@ def backbone_apply(
     x = torch.cat([cls, x], dim=1)
     x = x + params["pos_embed"].to(dtype)
 
+    adapted = _block_apply
+    if use_remat and torch.is_grad_enabled():
+        adapted = lambda *a: checkpoint(_block_apply, *a,
+                                        use_reentrant=False)
     # The prefix below the last `lora_last_n_blocks` blocks runs without
     # autograd and without its LoRA factors (zero by construction there).
     k = max(0, cfg.depth - cfg.lora_last_n_blocks)
@@ -261,12 +275,12 @@ def backbone_apply(
                 x = _block_apply(x, index_params(prefix, i), cfg,
                                  attn_impl, False, mesh)
         for i in range(k, cfg.depth):
-            x = _block_apply(x, index_params(params["blocks"], i), cfg,
-                             attn_impl, True, mesh)
+            x = adapted(x, index_params(params["blocks"], i), cfg,
+                        attn_impl, True, mesh)
     else:
         for i in range(cfg.depth):
-            x = _block_apply(x, index_params(params["blocks"], i), cfg,
-                             attn_impl, cfg.lora_last_n_blocks > 0, mesh)
+            x = adapted(x, index_params(params["blocks"], i), cfg,
+                        attn_impl, cfg.lora_last_n_blocks > 0, mesh)
 
     x = layer_norm(x, params["ln_f"])
     if "projection" in params:

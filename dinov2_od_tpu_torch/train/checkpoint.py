@@ -3,10 +3,13 @@ dinov2_od_tpu/train/checkpoint.py, which writes Orbax trees).
 
 A checkpoint is a directory `checkpoint_epoch_{N}` holding:
 - `state.pt`: `torch.save` of a dict of CPU tensors and numbers: the
-  params, Adam's count, mu and nu (None at frozen leaves), the train
-  step, the EMA (or None), the epoch and the epoch's mean loss. Dropout
-  is a function of (seed, step) (train/loop.py `step_seed`), so the step
-  is all a resumed run needs to continue the same masks;
+  params, Adam's count, mu and nu (None at frozen leaves), with gradient
+  accumulation its running mean and mini-step, the train step, the EMA
+  (or None), the epoch and the epoch's mean loss. Dropout and the
+  augmentation's draws are a function of (seed, step) (train/step.py
+  `step_seed`), so the step is all a resumed run needs to continue the
+  same draws, and a run resumed between two mini-steps continues the
+  accumulation it was in;
 - `metrics_history.json`: the loop's history, and on preemption the
   mid-epoch resume index `_preempt_batch_index`.
 
@@ -156,6 +159,8 @@ def save_checkpoint(
             "count": int(opt_state.count),
             "mu": _to_host(opt_state.mu),
             "nu": _to_host(opt_state.nu),
+            "acc": _to_host(opt_state.acc),
+            "mini_step": int(opt_state.mini_step),
         },
         "ema": _to_host(ema),
     }
@@ -224,12 +229,23 @@ def restore_checkpoint(
     opt_state = opt_state_template
     saved_opt = raw.get("opt_state")
     if opt_state_template is not None and saved_opt is not None:
+        acc = opt_state_template.acc
+        saved_acc = saved_opt.get("acc")
         if (_tree_fits(opt_state_template.mu, saved_opt["mu"])
                 and _tree_fits(opt_state_template.nu, saved_opt["nu"])):
+            mini_step = 0
+            if acc is not None and saved_acc is not None:
+                if _tree_fits(acc, saved_acc):
+                    acc = _place(acc, saved_acc)
+                    mini_step = int(saved_opt.get("mini_step", 0))
+            elif saved_opt.get("mini_step", 0):
+                logger.warning("checkpoint saved mid-accumulation; the "
+                               "accumulated gradients are dropped")
             opt_state = AdamState(
                 count=int(saved_opt["count"]),
                 mu=_place(opt_state_template.mu, saved_opt["mu"]),
-                nu=_place(opt_state_template.nu, saved_opt["nu"]))
+                nu=_place(opt_state_template.nu, saved_opt["nu"]),
+                acc=acc, mini_step=mini_step)
             logger.info("optimizer state restored")
         else:
             logger.warning("optimizer state incompatible, starting the "

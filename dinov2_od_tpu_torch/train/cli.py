@@ -147,13 +147,13 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "skips counted in the logged metrics)")
     p.add_argument("--gradient_accumulation_steps", type=int, default=1,
                    help="accumulate gradients over N steps before each "
-                        "optimizer update (not ported yet: above 1 it "
-                        "raises)")
+                        "optimizer update (the mean of the N gradients, "
+                        "optax.MultiSteps' semantics)")
     p.add_argument("--debug_lr", type=float, default=5e-4)
 
     # Train-time augmentation (beyond the reference, whose pipeline is
-    # Resize+ToTensor only, train.py:584-587): not ported yet, so a value
-    # above 0 raises (ROADMAP.md Queue A item 3).
+    # Resize+ToTensor only, train.py:584-587), on the card inside the
+    # train step (data/augment.py); off by default.
     p.add_argument("--hflip_prob", type=float, default=0.0,
                    help="per-image horizontal-flip probability (boxes "
                         "mirrored with the image); 0 = off")
@@ -276,14 +276,18 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "(the port's only backend so far; 'auto' and "
                         "'cv2' raise, ROADMAP.md)")
     p.add_argument("--device_cache", action="store_true",
-                   help="dataset resident on the device (not ported "
-                        "yet, ROADMAP.md Queue A item 5)")
+                   help="upload the whole train/val dataset to the card "
+                        "once and gather batches there: one [K, B] index "
+                        "copy a dispatch (the dataset must fit in the "
+                        "card's free memory, else it raises)")
     p.add_argument("--device_cache_layout", type=str, default="auto",
                    choices=["auto", "replicated", "sharded"],
-                   help="with --device_cache: the cache's placement")
+                   help="with --device_cache: the cache's placement; in "
+                        "one process 'auto' is 'replicated' ('sharded' "
+                        "needs data-parallel ranks and raises)")
     p.add_argument("--steps_per_dispatch", type=int, default=8,
-                   help="with --device_cache: train steps per host "
-                        "dispatch")
+                   help="with --device_cache: train steps queued behind "
+                        "one index copy")
     p.add_argument("--packed_train_data", type=str, default=None,
                    help="directory written by data/packed.py pack_dataset "
                         "(either package's): train from pre-decoded uint8 "
@@ -390,11 +394,6 @@ UNPORTED = (
                 or a.pipeline_microbatches > 0 or a.pipeline_chunks != 1),
      "--pipeline_*", "Queue A item 7"),
     (lambda a: a.fsdp, "--fsdp", "Queue A item 7"),
-    (lambda a: a.device_cache, "--device_cache", "Queue A item 5"),
-    (lambda a: a.gradient_accumulation_steps > 1,
-     "--gradient_accumulation_steps > 1", "Queue A item 3"),
-    (lambda a: a.hflip_prob > 0 or a.color_jitter > 0 or a.scale_jitter > 0,
-     "--hflip_prob/--color_jitter/--scale_jitter", "Queue A item 3"),
     (lambda a: a.ffn_type == "moe", "--ffn_type moe", "Queue A item 8"),
     (lambda a: (a.download_train_data or a.download_val_data
                 or a.download_test_data), "--download_*",
@@ -456,6 +455,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         data=C.DataConfig(batch_size=args.batch_size, normalize=normalize,
                           num_workers=args.num_workers),
         optim=C.OptimConfig(
+            gradient_accumulation_steps=args.gradient_accumulation_steps,
             lr_schedule=args.lr_schedule,
             warmup_steps=args.warmup_steps,
             min_lr_ratio=args.min_lr_ratio,
@@ -470,6 +470,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         ),
         loss=C.LossConfig(focal_alpha=args.focal_alpha,
                           focal_gamma=args.focal_gamma),
+        augment=C.AugmentConfig(
+            hflip_prob=args.hflip_prob, color_jitter=args.color_jitter,
+            scale_jitter=args.scale_jitter, min_box_size=args.min_box_size),
         share_aux_match=args.share_aux_match,
         num_epochs=num_epochs or 50,
         checkpoint_every_epochs=args.checkpoint_frequency,
@@ -622,6 +625,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         memory_monitor=args.memory_monitor, parity_mode=args.parity_mode,
         log_images_enabled=args.log_images,
         log_images_frequency=args.log_images_frequency,
+        device_cache=args.device_cache,
+        steps_per_dispatch=args.steps_per_dispatch,
+        device_cache_layout=args.device_cache_layout,
     )
     if writer is not None:
         writer.close()

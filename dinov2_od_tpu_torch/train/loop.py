@@ -13,13 +13,19 @@ Files written under `output_dir`, per epoch N:
 - `checkpoint_epoch_N/` (train/checkpoint.py), and `final_model/` at the
   end of an uninterrupted run.
 
-Dropout is a function of (seed, step): before each step the loop seeds
-its generator with `step_seed(cfg.seed, state.step)`, so a run resumed at
-a step draws the masks the uninterrupted run drew there (the JAX loop
-folds `state.step` into its key for the same reason). With the
-preemption checkpoint's batch index, a resumed run repeats the
-uninterrupted one; on the CPU bit for bit, on CUDA up to the atomics of
-the deformable gathers' backward.
+Dropout and the augmentation's draws are a function of (seed, step):
+before each step the loop seeds its generator with
+`step_seed(cfg.seed, state.step)`, so a run resumed at a step draws what
+the uninterrupted run drew there (the JAX loop folds `state.step` into
+its key for the same reason). With the preemption checkpoint's batch
+index, a resumed run repeats the uninterrupted one; on the CPU bit for
+bit, on CUDA up to the atomics of the deformable gathers' backward.
+
+With `device_cache` the training set lives on the card
+(train/device_cache.py): each dispatch copies one [K, B] index tensor and
+queues K steps on it, and the previous dispatch's stacked metrics are
+read while the card runs the next; validation runs from a cache of the
+validation set, its top-k copied back once.
 """
 
 from __future__ import annotations
@@ -45,17 +51,12 @@ from ..utils.memory import format_memory_stats
 from . import checkpoint as ckpt
 from .preemption import PreemptionGuard
 from .state import (TrainState, create_train_state, lr_schedule_fn,
-                    merge_ema, tree_leaves)
-from .step import make_eval_topk_step, make_train_step
+                    merge_ema, tree_leaves, tree_map)
+from .step import make_eval_topk_step, make_train_step, step_seed
 
 logger = logging.getLogger("dinov2_od_tpu_torch")
 
 TRAIN_KEYS = ("images", "boxes", "labels", "valid")
-
-
-def step_seed(seed: int, step: int) -> int:
-    """The dropout generator's seed at a train step."""
-    return (seed * 1_000_003 + step) % (2 ** 63)
 
 
 def params_device(params) -> torch.device:
@@ -176,12 +177,35 @@ def validate(
                                  f"predictions_epoch_{epoch}.json"),
         parity_mode=parity_mode)
     evaluator = evaluator or CocoEvaluator(dataset.coco_path)
-    metrics = evaluator.evaluate(results)
+    return _write_metrics(evaluator.evaluate(results), epoch, output_dir)
+
+
+def _write_metrics(metrics: Dict[str, float], epoch: int,
+                   output_dir: str) -> Dict[str, float]:
     with open(os.path.join(output_dir, f"metrics_epoch_{epoch}.json"),
               "w") as f:
         json.dump(metrics, f)
     logger.info("epoch %d validation: %s", epoch, metrics)
     return metrics
+
+
+def validate_cached(eval_all, params, val_cache, dataset, epoch: int,
+                    output_dir: str, evaluator: CocoEvaluator,
+                    parity_mode: bool = False) -> Dict[str, float]:
+    """`validate` over the validation set's cache on the card
+    (train/device_cache.py): one copy of the top-k to the host, the
+    predictions file and the COCO stats from flat arrays."""
+    from .device_cache import evaluate_cached
+
+    os.makedirs(output_dir, exist_ok=True)
+    cache, ids, n = val_cache
+    arrays = evaluate_cached(
+        eval_all, params, cache, ids, n, dataset.label_to_cat_id,
+        output_file=os.path.join(output_dir,
+                                 f"predictions_epoch_{epoch}.json"),
+        parity_mode=parity_mode, return_arrays=True)
+    return _write_metrics(evaluator.evaluate_arrays(*arrays), epoch,
+                          output_dir)
 
 
 def plot_history(history: Dict[str, Any], output_dir: str) -> None:
@@ -254,11 +278,16 @@ def run_training(
     parity_mode: bool = False,
     log_images_enabled: bool = False,
     log_images_frequency: int = 100,
+    device_cache: bool = False,
+    steps_per_dispatch: int = 8,
+    device_cache_layout: str = "auto",
 ) -> TrainState:
     """Train `params` (on their device) for epochs start_epoch ..
     num_epochs - 1, from batch `start_batch` of the first; validate every
-    `val_frequency` epochs and checkpoint every `checkpoint_every`.
-    Returns the final state (params updated in place)."""
+    `val_frequency` epochs and checkpoint every `checkpoint_every`. With
+    `device_cache`, from the training set on the card, K =
+    `steps_per_dispatch` steps a dispatch. Returns the final state
+    (params updated in place)."""
     os.makedirs(output_dir, exist_ok=True)
     num_epochs = num_epochs or cfg.num_epochs
     if checkpoint_every is None:
@@ -285,6 +314,14 @@ def run_training(
     train_step = make_train_step(cfg)
     eval_step = make_eval_topk_step(cfg, parity_mode=parity_mode)
     evaluator = None
+    val_cache = None
+    if device_cache:
+        from . import device_cache as dc
+
+        cache = dc.upload_train_cache(train_dataset, device,
+                                      device_cache_layout)
+        multi_step = dc.make_multi_train_step(cfg, train_step)
+        eval_all = dc.make_cached_eval(cfg, parity_mode=parity_mode)
 
     loader = DataLoader(train_dataset, cfg.data.batch_size, shuffle=True,
                         seed=cfg.seed, drop_last=True,
@@ -324,57 +361,107 @@ def run_training(
         epoch_skip = steps_done
         losses, skips, steps = [], [], []
         t_epoch = time.perf_counter()
-        loader.set_epoch(epoch)
-        batches = device_prefetch(iter(loader), device, size=2,
-                                  device_keys=TRAIN_KEYS)
-        for i, batch in enumerate(batches):
-            if i < epoch_skip:
-                # Exact mid-epoch resume: skip the steps the interrupted
-                # run completed (the loader's order is deterministic).
-                continue
-            generator.manual_seed(step_seed(cfg.seed, state.step))
-            steps.append(state.step)
-            state, metrics = train_step(
-                state, {k: batch[k] for k in TRAIN_KEYS}, generator)
-            global_step += 1
-            steps_done = i + 1
-            if guard is not None and guard.triggered:
-                break  # checkpoint and a clean exit below
-            # Device scalars; read once an epoch.
-            losses.append(metrics["loss"])
-            if "nonfinite_skip" in metrics:
-                skips.append(metrics["nonfinite_skip"])
-            if i % log_frequency == 0:
-                scalars = {k: float(v) for k, v in metrics.items()
-                           if k.startswith("loss") or k in (
-                               "grad_norm", "nonfinite_skip")}
-                logger.info(
-                    "epoch %d batch %d/%d loss %.4f (ce %.4f bbox %.4f "
-                    "giou %.4f)%s", epoch, i, steps_per_epoch,
-                    scalars["loss"], scalars["loss_ce"],
-                    scalars["loss_bbox"], scalars["loss_giou"],
-                    " nonfinite_skip" if scalars.get("nonfinite_skip")
-                    else "")
-                if lr_sched is not None:
-                    scalars["lr"] = float(lr_sched(state.opt_state.count))
-                log_metrics(writer, scalars, global_step, prefix="train/")
-                if memory_monitor:
-                    logger.info("memory:\n%s", format_memory_stats())
-            if (log_images_enabled and writer is not None
-                    and global_step % log_images_frequency == 0):
-                log_images(writer, batch["images"].float().cpu().numpy(),
-                           global_step, tag="train/images",
-                           gt_boxes=batch["boxes"].cpu().numpy(),
-                           gt_valid=batch["valid"].cpu().numpy())
-        batches.close()
+
+        def log_step(scalars, i):
+            logger.info(
+                "epoch %d batch %d/%d loss %.4f (ce %.4f bbox %.4f "
+                "giou %.4f)%s", epoch, i, steps_per_epoch,
+                scalars["loss"], scalars["loss_ce"],
+                scalars["loss_bbox"], scalars["loss_giou"],
+                " nonfinite_skip" if scalars.get("nonfinite_skip")
+                else "")
+            if lr_sched is not None:
+                scalars["lr"] = float(lr_sched(int(state.opt_state.count)))
+            log_metrics(writer, scalars, global_step, prefix="train/")
+            if memory_monitor:
+                logger.info("memory:\n%s", format_memory_stats())
+
+        def logged(metrics) -> dict:
+            return {k: v for k, v in metrics.items()
+                    if k.startswith("loss") or k in ("grad_norm",
+                                                     "nonfinite_skip")}
+
+        if device_cache:
+            groups = dc.epoch_index_groups(
+                len(train_dataset), cfg.data.batch_size, steps_per_dispatch,
+                cfg.seed, epoch, skip=epoch_skip)
+            pending = None  # the last dispatch's (first batch, metrics)
+
+            def read(first, metrics):
+                # One copy of the stacked [K] metrics to the host.
+                host = {k: v.cpu() for k, v in logged(metrics).items()}
+                losses.append(host["loss"])
+                if "nonfinite_skip" in host:
+                    skips.append(host["nonfinite_skip"])
+                k = len(host["loss"])
+                if (first // log_frequency != (first + k) // log_frequency
+                        or first == epoch_skip):
+                    log_step({n: float(v[-1]) for n, v in host.items()},
+                             first + k - 1)
+
+            for group in groups:
+                idxs = dc.index_tensor(group, device)
+                steps.extend(range(state.step, state.step + len(group)))
+                state, metrics = multi_step(state, cache, idxs, generator)
+                global_step += len(group)
+                first, steps_done = steps_done, steps_done + len(group)
+                if pending is not None:
+                    read(*pending)
+                pending = (first, metrics)
+                if guard is not None and guard.triggered:
+                    break
+                if (log_images_enabled and writer is not None
+                        and first // log_images_frequency
+                        != steps_done // log_images_frequency):
+                    idx = idxs[-1]
+                    log_images(writer, cache["images"][idx].float().cpu()
+                               .numpy(), global_step, tag="train/images",
+                               gt_boxes=cache["boxes"][idx].cpu().numpy(),
+                               gt_valid=cache["valid"][idx].cpu().numpy())
+            if pending is not None:
+                read(*pending)
+        else:
+            loader.set_epoch(epoch)
+            batches = device_prefetch(iter(loader), device, size=2,
+                                      device_keys=TRAIN_KEYS)
+            for i, batch in enumerate(batches):
+                if i < epoch_skip:
+                    # Exact mid-epoch resume: skip the steps the
+                    # interrupted run completed (the loader's order is
+                    # deterministic).
+                    continue
+                generator.manual_seed(step_seed(cfg.seed, state.step))
+                steps.append(state.step)
+                state, metrics = train_step(
+                    state, {k: batch[k] for k in TRAIN_KEYS}, generator)
+                global_step += 1
+                steps_done = i + 1
+                if guard is not None and guard.triggered:
+                    break  # checkpoint and a clean exit below
+                # Device scalars; read once an epoch.
+                losses.append(metrics["loss"])
+                if "nonfinite_skip" in metrics:
+                    skips.append(metrics["nonfinite_skip"])
+                if i % log_frequency == 0:
+                    log_step({k: float(v)
+                              for k, v in logged(metrics).items()}, i)
+                if (log_images_enabled and writer is not None
+                        and global_step % log_images_frequency == 0):
+                    log_images(writer, batch["images"].float().cpu().numpy(),
+                               global_step, tag="train/images",
+                               gt_boxes=batch["boxes"].cpu().numpy(),
+                               gt_valid=batch["valid"].cpu().numpy())
+            batches.close()
 
         if check_preempt(epoch):
             break
 
-        # One copy to the host for the whole epoch.
-        loss_list = (torch.stack(losses).float().cpu().tolist()
-                     if losses else [])
-        n_skipped = int(torch.stack(skips).sum()) if skips else 0
+        # One copy to the host for the whole epoch (the cache's dispatches
+        # were read already).
+        loss_list = (torch.cat([x.reshape(-1) for x in losses]).float()
+                     .cpu().tolist() if losses else [])
+        n_skipped = (int(torch.cat([x.reshape(-1) for x in skips]).sum())
+                     if skips else 0)
         epoch_loss = float(np.mean(loss_list)) if loss_list else float("nan")
         images_per_sec = (len(loss_list) * cfg.data.batch_size
                           / max(time.perf_counter() - t_epoch, 1e-9))
@@ -400,11 +487,26 @@ def run_training(
                 # Validate the EMA weights (what serving would use).
                 eval_params = merge_ema(state.params, state.ema,
                                         cfg.detector)
+            # Detached, as a restored checkpoint's are: `torch.matmul`
+            # folds a 3-D input into one GEMM only for a weight that does
+            # not require grad, and the validation should give the saved
+            # model's detections to the bit.
+            eval_params = tree_map(torch.Tensor.detach, eval_params)
             if evaluator is None:
                 evaluator = CocoEvaluator(val_dataset.coco_path)
-            metrics = validate(eval_step, eval_params, val_dataset,
-                               cfg.data.batch_size, epoch, output_dir,
-                               parity_mode=parity_mode, evaluator=evaluator)
+            if device_cache:
+                if val_cache is None:  # uploaded at the first validation
+                    val_cache = dc.upload_eval_cache(
+                        val_dataset, cfg.data.batch_size, device,
+                        device_cache_layout)
+                metrics = validate_cached(
+                    eval_all, eval_params, val_cache, val_dataset, epoch,
+                    output_dir, evaluator, parity_mode=parity_mode)
+            else:
+                metrics = validate(eval_step, eval_params, val_dataset,
+                                   cfg.data.batch_size, epoch, output_dir,
+                                   parity_mode=parity_mode,
+                                   evaluator=evaluator)
             history["val_epochs"].append(epoch)
             for k in ("AP", "AP50", "AP75"):
                 history[f"val_{k}"].append(metrics[k])

@@ -8,6 +8,13 @@ in optax's order, over the trainable leaves only:
   scale_by_adam(0.9, 0.999, eps=1e-8)      eps added to sqrt(nu_hat)
   scale(-lr) | scale_by_learning_rate(schedule)
 
+With `gradient_accumulation_steps` k > 1 the chain is wrapped as optax's
+`MultiSteps` wraps it: each call folds its gradient into a running mean
+(acc += (g - acc) / (n + 1), n the mini-step), and only every k-th call
+runs the chain on that mean and zeroes it; the other calls leave params
+and moments as they are. Adam's count and the schedule count the
+chain's updates, not the calls.
+
 `torch.optim.Adam` would not do: it cannot mask the per-block rows of a
 stacked `[depth, ...]` LoRA leaf, and without that mask weight decay
 would move the non-adapted blocks' factors. The train step masks the
@@ -66,11 +73,17 @@ def tree_unflatten(like, leaves) -> Params:
 
 
 class AdamState(NamedTuple):
-    """Update count and first/second moments (None at frozen leaves)."""
+    """Update count and first/second moments (None at frozen leaves); with
+    gradient accumulation, the running mean of the mini-steps' gradients
+    and the mini-step (the calls since the last update). The counts are
+    host ints, or 0-dim device tensors in the train step's branchless
+    non-finite guard."""
 
-    count: int
+    count: Any
     mu: Params
     nu: Params
+    acc: Optional[Params] = None
+    mini_step: Any = 0
 
 
 @dataclasses.dataclass
@@ -160,13 +173,46 @@ def _bias_correction(decay: float, count: int) -> float:
     return (one - torch.tensor(decay, dtype=torch.float32) ** count).item()
 
 
+def adam_scalars(optim_cfg: OptimConfig, count: int):
+    """(1 - b1**(count+1), 1 - b2**(count+1), the learning rate) of the
+    update after `count` updates, as floats."""
+    schedule = lr_schedule_fn(optim_cfg, optim_cfg.learning_rate)
+    lr = (optim_cfg.learning_rate if schedule is None
+          else schedule(count))
+    return (_bias_correction(_B1, count + 1),
+            _bias_correction(_B2, count + 1), lr)
+
+
+class AdamTable:
+    """`adam_scalars` of every count up to a bound, as fp32 tensors on a
+    device: indexed by a 0-dim count tensor, they give the same values as
+    the host path without a copy to the host."""
+
+    def __init__(self, optim_cfg: OptimConfig, device):
+        self.optim_cfg, self.device = optim_cfg, device
+        self.rows = torch.zeros((0, 3), dtype=torch.float32, device=device)
+
+    def __call__(self, count: torch.Tensor, bound: int):
+        """The scalars at `count`, which must not exceed `bound`."""
+        n = self.rows.shape[0]
+        if bound >= n:
+            new = [adam_scalars(self.optim_cfg, c)
+                   for c in range(n, max(2 * n, bound + 1, 64))]
+            self.rows = torch.cat([self.rows, torch.tensor(
+                new, dtype=torch.float32, device=self.device)])
+        return self.rows[count].unbind()
+
+
 @torch.no_grad()
 def optimizer_update(grads: Params, opt_state: AdamState, params: Params,
-                     optim_cfg: OptimConfig,
-                     mesh=None) -> Tuple[Params, AdamState]:
+                     optim_cfg: OptimConfig, mesh=None,
+                     scalars=None) -> Tuple[Params, AdamState]:
     """One step of the masked chain on the leaves that have moments (this
     rank's shards under `mesh`, whose logical norm the clip reads).
     Returns the updates (None at frozen leaves) and the new state.
+    `scalars` are `adam_scalars` at opt_state.count as 0-dim tensors
+    (`AdamTable`) when the count is one; by default they are computed on
+    the host.
 
     Each stage runs as one multi-tensor (`torch._foreach_*`) op over all
     the trainable leaves: the same elementwise math in the same order,
@@ -185,20 +231,31 @@ def optimizer_update(grads: Params, opt_state: AdamState, params: Params,
     torch._foreach_add_(mu, gs, alpha=1.0 - _B1)
     nu = torch._foreach_mul(tree_leaves(opt_state.nu), _B2)
     torch._foreach_addcmul_(nu, gs, gs, value=1.0 - _B2)
-    count = opt_state.count + 1
-    denom = torch._foreach_div(nu, _bias_correction(_B2, count))
+    bc1, bc2, lr = (adam_scalars(optim_cfg, opt_state.count)
+                    if scalars is None else scalars)
+    denom = torch._foreach_div(nu, bc2)
     torch._foreach_sqrt_(denom)
     torch._foreach_add_(denom, _EPS)
-    updates = torch._foreach_div(mu, _bias_correction(_B1, count))
+    updates = torch._foreach_div(mu, bc1)
     torch._foreach_div_(updates, denom)
-    schedule = lr_schedule_fn(optim_cfg, optim_cfg.learning_rate)
-    lr = (optim_cfg.learning_rate if schedule is None
-          else schedule(opt_state.count))
     torch._foreach_mul_(updates, -lr)
     like = opt_state.mu
     return (tree_unflatten(like, updates),
-            AdamState(count=count, mu=tree_unflatten(like, mu),
-                      nu=tree_unflatten(like, nu)))
+            opt_state._replace(count=opt_state.count + 1,
+                               mu=tree_unflatten(like, mu),
+                               nu=tree_unflatten(like, nu)))
+
+
+@torch.no_grad()
+def accumulate(grads: Params, opt_state: AdamState, n) -> list:
+    """The running mean of the mini-steps' gradients with this one, the
+    n-th, folded in: acc + (g - acc) / n (optax.MultiSteps' Welford
+    update), as a list in `tree_leaves` order. `n` is an int or a 0-dim
+    float tensor."""
+    acc = tree_leaves(opt_state.acc)
+    delta = torch._foreach_sub(tree_leaves(grads), acc)
+    torch._foreach_div_(delta, n)
+    return torch._foreach_add(acc, delta)
 
 
 def trainable_leaves(params: Params, opt_state: AdamState) -> list:
@@ -238,15 +295,19 @@ def merge_ema(params: Params, ema: Params,
 def create_train_state(params: Params, optim_cfg: OptimConfig,
                        detector_cfg: DetectorConfig) -> TrainState:
     """Mark the trainable leaves `requires_grad` (the others not), give
-    them zero Adam moments, and an EMA when optim_cfg.ema_decay > 0."""
+    them zero Adam moments (and a zero gradient accumulator when
+    optim_cfg.gradient_accumulation_steps > 1), and an EMA when
+    optim_cfg.ema_decay > 0."""
     mask = trainable_mask(params, detector_cfg)
     tree_map(lambda p, m: p.requires_grad_(bool(m)), params, mask)
 
     def zeros(p, m):
         return torch.zeros_like(p) if m else None
 
+    acc = (tree_map(zeros, params, mask)
+           if optim_cfg.gradient_accumulation_steps > 1 else None)
     opt_state = AdamState(count=0, mu=tree_map(zeros, params, mask),
-                          nu=tree_map(zeros, params, mask))
+                          nu=tree_map(zeros, params, mask), acc=acc)
     ema = (init_ema(params, detector_cfg) if optim_cfg.ema_decay > 0
            else None)
     return TrainState(step=0, params=params, opt_state=opt_state, ema=ema)

@@ -21,11 +21,13 @@ group, and the optimizer updates the shards.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from ..config import TrainConfig
+from ..data.augment import augment_batch
 from ..data.coco import IMAGENET_MEAN, IMAGENET_STD
 from ..evaluation.postprocess import select_topk_detections
 from ..models.detector import detector_apply
@@ -33,7 +35,9 @@ from ..ops.losses import set_criterion
 from ..parallel.collectives import all_reduce_coalesced_, reduce_gradients
 from ..parallel.sharding import check_tp_compatible, leaf_paths
 from .state import (
+    AdamTable,
     TrainState,
+    accumulate,
     global_norm,
     mask_gradients,
     optimizer_update,
@@ -50,6 +54,20 @@ Batch = Dict[str, torch.Tensor]
 #   valid: [B, G] bool
 
 
+def step_seed(seed: int, step: int) -> int:
+    """The seed of a train step's generator (its augmentation draws, then
+    its dropout masks)."""
+    return (seed * 1_000_003 + step) % (2 ** 63)
+
+
+@functools.lru_cache(maxsize=None)
+def _imagenet_stats(device: torch.device):
+    """The ImageNet mean and std on `device`, copied there once: a copy
+    from pageable host memory would wait for the card every step."""
+    return (torch.as_tensor(IMAGENET_MEAN, device=device),
+            torch.as_tensor(IMAGENET_STD, device=device))
+
+
 def prep_images(images: torch.Tensor, normalize: bool) -> torch.Tensor:
     """uint8 feeds become fp32 / 255, ImageNet-normalised when `normalize`;
     float feeds are taken as already preprocessed and pass through."""
@@ -57,8 +75,7 @@ def prep_images(images: torch.Tensor, normalize: bool) -> torch.Tensor:
         return images
     x = images.float() / 255.0
     if normalize:
-        mean = torch.as_tensor(IMAGENET_MEAN, device=x.device)
-        std = torch.as_tensor(IMAGENET_STD, device=x.device)
+        mean, std = _imagenet_stats(x.device)
         x = (x - mean) / std
     return x
 
@@ -76,7 +93,8 @@ def train_loss(cfg: TrainConfig, params, batch: Batch,
     det_cfg = cfg.detector
     images = prep_images(batch["images"], cfg.data.normalize)
     out = detector_apply(params, det_cfg, images, generator=generator,
-                         deterministic=False, attn_impl=attn_impl, mesh=mesh)
+                         deterministic=False, attn_impl=attn_impl, mesh=mesh,
+                         use_remat=cfg.use_remat)
     kw = dict(matcher_cfg=cfg.matcher, loss_cfg=cfg.loss,
               num_classes=det_cfg.decoder.num_classes, mesh=mesh)
     gt = (batch["labels"], batch["boxes"], batch["valid"])
@@ -119,69 +137,168 @@ def train_grads(cfg: TrainConfig, state: TrainState, batch: Batch,
     return losses, mask_gradients(grads, params, cfg.detector)
 
 
-def _check_supported(cfg: TrainConfig) -> None:
-    unported = {
-        "gradient_accumulation_steps > 1":
-            cfg.optim.gradient_accumulation_steps > 1,
-        "use_remat": cfg.use_remat,
-        "train-time augmentation": cfg.augment.enabled,
-        "lora_mode='fold' (serving only)":
-            cfg.detector.backbone.lora_mode != "factored",
-    }
-    for what, asked in unported.items():
-        if asked:
-            raise NotImplementedError(
-                f"{what} is not ported to the PyTorch train step yet "
-                f"(ROADMAP.md)")
+def _unit_interval_images(images: torch.Tensor,
+                          normalize: bool) -> torch.Tensor:
+    """A batch as un-normalised [0, 1] RGB for augmentation: uint8 / 255;
+    a float feed (already preprocessed) through the exact inverse of
+    its normalisation."""
+    if not images.dtype.is_floating_point:
+        return images.float() / 255.0
+    if normalize:
+        mean, std = _imagenet_stats(images.device)
+        return images * std + mean
+    return images
+
+
+def _normalize_unit_images(images: torch.Tensor,
+                           normalize: bool) -> torch.Tensor:
+    if normalize:
+        mean, std = _imagenet_stats(images.device)
+        return (images - mean) / std
+    return images
+
+
+def augment_step_batch(cfg: TrainConfig, batch: Batch,
+                       generator: Optional[torch.Generator]) -> Batch:
+    """The batch with cfg.augment's augmentations drawn from `generator`
+    (data/augment.py): images un-normalised to [0, 1], augmented with
+    their boxes and valid bits, and normalised again as fp32."""
+    x01 = _unit_interval_images(batch["images"], cfg.data.normalize)
+    x01, boxes, valid = augment_batch(generator, x01, batch["boxes"],
+                                      batch["valid"], cfg.augment)
+    return {**batch, "boxes": boxes, "valid": valid,
+            "images": _normalize_unit_images(x01, cfg.data.normalize)}
+
+
+def _select_(dst: list, src: list, keep_new: torch.Tensor) -> None:
+    """dst[i] = src[i] where `keep_new` (a 0-dim bool), in place."""
+    for d, n in zip(dst, src):
+        d.copy_(torch.where(keep_new, n, d))
 
 
 def make_train_step(cfg: TrainConfig, mesh=None):
     """The train step: step(state, batch, generator) -> (state, metrics).
 
-    `generator` (on the params' device) drives dropout. The step updates
-    `state.params` in place under torch.no_grad() and returns the state
-    with the new step count, Adam state and EMA. Metrics are 0-dim tensors:
-    the loss terms, 'grad_norm' (of the masked gradients) and, with
-    cfg.optim.skip_nonfinite, 'nonfinite_skip' (1 when a gradient held NaN
-    or Inf: params, moments and EMA then keep their values; the check
-    waits for the device).
+    `generator` (on the params' device) drives the augmentation's draws,
+    then dropout. The step updates `state.params` in place under
+    torch.no_grad() and returns the state with the new step count, Adam
+    state and EMA. Metrics are 0-dim tensors: the loss terms, 'grad_norm'
+    (of the masked gradients) and, with cfg.optim.skip_nonfinite,
+    'nonfinite_skip' (1 when a gradient held NaN or Inf: params, moments,
+    the accumulator and the EMA then keep their values).
+
+    Options, as the JAX step has them:
+    - cfg.augment: device-side augmentation of each batch;
+    - cfg.use_remat: each adapted backbone block recomputed in the
+      backward (12 + 2 attention forwards a ViT-B step instead of 12);
+    - lora_mode="fold": the adapted linears through W + alpha * A @ B;
+    - gradient_accumulation_steps k > 1: the update every k-th call, on
+      the mean of the k gradients (optax.MultiSteps); the EMA moves every
+      call, toward the params as they are.
+    - skip_nonfinite: branchless, so the step never waits for the card:
+      the update is computed and selected by torch.where, and Adam's
+      count (with the mini-step) becomes a 0-dim tensor that indexes the
+      host's bias corrections and learning rates (`AdamTable`).
 
     Under `mesh` (parallel/sharding.py `create_mesh`, its model axis of
     cfg.mesh.model_parallel_size) every rank calls the step with its state
     of param shards (`shard_params`), its batch slice (`batch_sharding`)
     and a generator seeded as every other rank's; the metrics are the
     global batch's."""
-    _check_supported(cfg)
     tp = cfg.mesh.model_parallel_size
     if (mesh.model_size if mesh is not None else 1) != tp:
         raise ValueError(f"cfg.mesh.model_parallel_size={tp} needs a mesh "
                          f"with a model axis of that size")
     check_tp_compatible(cfg.detector, tp)
     det_cfg = cfg.detector
+    k_acc = cfg.optim.gradient_accumulation_steps
+    if k_acc < 1:
+        raise ValueError("gradient_accumulation_steps must be >= 1")
+    table: Dict[str, object] = {}
+
+    def ema_step(state: TrainState) -> None:
+        if state.ema is not None and cfg.optim.ema_decay > 0:
+            update_ema(state.ema, state.params, det_cfg, cfg.optim.ema_decay)
+
+    def guarded(state: TrainState, grads, metrics):
+        """The update under the non-finite guard, without a host sync."""
+        params, opt = state.params, state.opt_state
+        leaves = trainable_leaves(params, opt)
+        device = leaves[0].device
+        finite = torch.stack([torch.isfinite(g).all()
+                              for g in tree_leaves(grads)]).all()
+        metrics["nonfinite_skip"] = (~finite).float()
+        if not torch.is_tensor(opt.count):
+            table["bound"] = opt.count
+            opt = opt._replace(
+                count=torch.tensor(opt.count, device=device),
+                mini_step=torch.tensor(opt.mini_step, device=device))
+        elif "bound" not in table:
+            table["bound"] = int(opt.count)  # once: the count's limit
+        if "adam" not in table:
+            table["adam"] = AdamTable(cfg.optim, device)
+        emit, ms = finite, opt.mini_step
+        if k_acc > 1:
+            acc = accumulate(grads, opt, (ms + 1).float())
+            grads = tree_unflatten(opt.mu, acc)
+            emit = finite & (ms == k_acc - 1)
+        scalars = table["adam"](opt.count, table["bound"])
+        updates, new = optimizer_update(grads, opt, params, cfg.optim, mesh,
+                                        scalars=scalars)
+        updates = mask_gradients(updates, params, det_cfg)
+        with torch.no_grad():
+            _select_(leaves, torch._foreach_add(leaves,
+                                                tree_leaves(updates)), emit)
+            for old, fresh in (("mu", new.mu), ("nu", new.nu)):
+                _select_(tree_leaves(getattr(opt, old)), tree_leaves(fresh),
+                         emit)
+            if k_acc > 1:
+                kept = [torch.where(emit, torch.zeros_like(a), a)
+                        for a in acc]
+                _select_(tree_leaves(opt.acc), kept, finite)
+                ms = torch.where(finite, (ms + 1) % k_acc, ms)
+            if state.ema is not None and cfg.optim.ema_decay > 0:
+                before = [e.clone() for e in tree_leaves(state.ema)]
+                ema_step(state)
+                _select_(tree_leaves(state.ema), before, ~finite)
+        table["bound"] += 1
+        state.opt_state = opt._replace(count=opt.count + emit.long(),
+                                       mini_step=ms)
 
     def step(state: TrainState, batch: Batch,
              generator: Optional[torch.Generator] = None):
+        if cfg.augment.enabled:
+            batch = augment_step_batch(cfg, batch, generator)
         params = state.params
         metrics, grads = train_grads(cfg, state, batch, generator, mesh=mesh)
         leaves = trainable_leaves(params, state.opt_state)
         metrics["grad_norm"] = global_norm(grads, mesh)
         if cfg.optim.skip_nonfinite:
-            finite = bool(torch.stack([torch.isfinite(g).all()
-                                       for g in tree_leaves(grads)]).all())
-            metrics["nonfinite_skip"] = torch.tensor(
-                0.0 if finite else 1.0, device=metrics["loss"].device)
-            if not finite:
+            guarded(state, grads, metrics)
+            state.step += 1
+            return state, metrics
+        opt_state = state.opt_state
+        if k_acc > 1:
+            ms = opt_state.mini_step
+            acc = accumulate(grads, opt_state, ms + 1)
+            if ms < k_acc - 1:
+                torch._foreach_copy_(tree_leaves(opt_state.acc), acc)
+                state.opt_state = opt_state._replace(mini_step=ms + 1)
+                with torch.no_grad():
+                    ema_step(state)
                 state.step += 1
                 return state, metrics
-        updates, opt_state = optimizer_update(grads, state.opt_state, params,
+            grads = tree_unflatten(opt_state.mu, acc)
+            torch._foreach_zero_(tree_leaves(opt_state.acc))
+            opt_state = opt_state._replace(mini_step=0)
+        updates, opt_state = optimizer_update(grads, opt_state, params,
                                               cfg.optim, mesh)
         # Masked again: weight decay re-adds wd * param where the gradient
         # was zeroed, which would move the non-adapted blocks' LoRA rows.
         updates = mask_gradients(updates, params, det_cfg)
         with torch.no_grad():
             torch._foreach_add_(leaves, tree_leaves(updates))
-            if state.ema is not None and cfg.optim.ema_decay > 0:
-                update_ema(state.ema, params, det_cfg, cfg.optim.ema_decay)
+            ema_step(state)
         state.step += 1
         state.opt_state = opt_state
         return state, metrics

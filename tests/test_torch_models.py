@@ -384,17 +384,6 @@ def test_unported_options_raise(monkeypatch):
                                          ffn_type_override="moe"))
     with pytest.raises(NotImplementedError):
         init_detector_params(torch.Generator(), moe, device="cpu")
-    # Train-mode decoding is ported; the train step's unported options
-    # raise.
-    from dinov2_od_tpu_torch.train.step import make_train_step
-
-    for train in (pcfg.TrainConfig(detector=pc, use_remat=True),
-                  pcfg.TrainConfig(detector=pc, optim=pcfg.OptimConfig(
-                      gradient_accumulation_steps=2)),
-                  pcfg.TrainConfig(detector=pc, augment=pcfg.AugmentConfig(
-                      hflip_prob=0.5))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_train_step(train)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         init_detector_params(torch.Generator(), pc)

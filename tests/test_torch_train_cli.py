@@ -81,10 +81,7 @@ LATER_SLICES = [
     ["--distributed"], ["--multihost"], ["--model_parallel", "2"],
     ["--context_parallel"], ["--context_parallel_size", "2"],
     ["--pipeline_parallel"], ["--pipeline_parallel_size", "2"],
-    ["--pipeline_microbatches", "4"], ["--fsdp"], ["--device_cache"],
-    ["--gradient_accumulation_steps", "2"], ["--hflip_prob", "0.5"],
-    ["--color_jitter", "0.2"], ["--scale_jitter", "0.1"],
-    ["--ffn_type", "moe"], ["--download_val_data"],
+    ["--pipeline_microbatches", "4"], ["--fsdp"], ["--ffn_type", "moe"], ["--download_val_data"],
     ["--pretrained_backbone", "x"], ["--import_reference_checkpoint", "x"],
     ["--compilation_cache", "x"],
 ]
