@@ -154,6 +154,24 @@ non-zero and prints no result:
              forward: the groups sum to the total device time, the flash
              group holds B1 and B2 (B1 alone in the ViT-B forward, B5f at
              560 px), and the largest elementwise and copy kernels by name.
+15. measurement tools - the tools in-process at full width, each with a
+             control that must fail: bench_serving at ViT-B/224 b1 (bf16
+             and int8; 50 requests, 4 client threads; the JAX tool's
+             keys, p50 <= p95 <= p99, the card in the metric, exactly 12
+             B1 (and 12 B6 in int8) a forward and nothing else);
+             Predictor.detect over 8 chunks of 32 double-buffered against
+             its sequential schedule, and ViT-L/560 over 8 chunks of 8
+             (equal detections, a shuffled chunk as the control; chunk
+             i+1 dispatched before chunk i is read back, the sequential
+             order as the control; the device's idle time both ways from
+             torch.profiler, lower double-buffered at ViT-L/560);
+             bench_attn_scaling
+             at b32 and b64 (flat: B1/B2, allheads: B4f/B4b, bhsd:
+             B5f/B5b, and an unforced control); bench_qkv_layout;
+             bench_evaluator at 1,000 images (C++ and numpy metrics
+             equal); bench_input on 512 written 640 px JPEGs with its
+             train and eval phases (B1 and B2 only), and the backend
+             'auto' resolved to on a line of its own.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after. The line before the last is {"kernels": [...]}; the last
@@ -532,6 +550,26 @@ TRACE_RUNS = (("ViT-B/224 b32 train", {},
                                      "BENCH_IMAGE_SIZE": "560",
                                      "BENCH_BATCH": "8"},
                ("flash_attn_bhsd_fwd",)))
+
+# The measurement and input tools (phase 15): bench_serving's requests and
+# client threads; detect's double buffer over DETECT_CHUNKS chunks of
+# DETECT_BATCH at ViT-B/224 and of DETECT_LARGE_BATCH at ViT-L/560;
+# bench_attn_scaling's batches and each variant's kernels; the evaluator
+# at EVAL_IMAGES; bench_input over INPUT_IMAGES 640 px JPEGs written under
+# INPUT_DIR. detect's two schedules agree to DETECT_TOL (score, box
+# pixels).
+SERVING_REQUESTS, SERVING_THREADS = 50, 4
+DETECT_CHUNKS, DETECT_BATCH, DETECT_LARGE_BATCH = 8, 32, 8
+DETECT_TOL = (1e-5, 1e-3)
+SCALING_BATCHES = (32, 64)
+SCALING_KERNELS = {
+    "flat": ("flash_attn_fwd", "flash_attn_bwd"),
+    "allheads": ("flash_attn_allheads_fwd", "flash_attn_allheads_bwd"),
+    "bhsd": ("flash_attn_bhsd_fwd", "flash_attn_bhsd_bwd"),
+}
+EVAL_IMAGES = 1000
+INPUT_IMAGES = 512
+INPUT_DIR = "build/chip_smoke_input"
 
 
 # The sources designed for Hopper with TMA and wgmma, all eight (B6, B5b,
@@ -3833,6 +3871,447 @@ def phase_trace():
         torch.cuda.empty_cache()
 
 
+def _serving_problems(rec: dict, counts: dict, want: dict, card: str):
+    """What is wrong with a bench_serving result: its keys (the JAX
+    tool's seven), p50 <= p95 <= p99, a positive rate, the card named in
+    the metric, and the kernels launched against `want`."""
+    problems = []
+    keys = ["metric", "p50_ms", "p95_ms", "p99_ms", "concurrent_img_per_s",
+            "requests", "threads"]
+    if list(rec) != keys:
+        problems.append(f"keys {list(rec)}")
+    elif not 0 < rec["p50_ms"] <= rec["p95_ms"] <= rec["p99_ms"]:
+        problems.append("p50 <= p95 <= p99 does not hold")
+    elif not rec["concurrent_img_per_s"] > 0:
+        problems.append("no positive rate")
+    elif card not in rec["metric"]:
+        problems.append(f"the metric does not name {card}")
+    if counts != want:
+        problems.append(f"launches {counts}, expected {want}")
+    return problems
+
+
+def _detections_differ(got, want, tol=DETECT_TOL):
+    """Where two detect results differ: per image the same category ids
+    in order, scores within tol[0], boxes within tol[1] pixels."""
+    if len(got) != len(want):
+        return f"{len(got)} images against {len(want)}"
+    for i, (g, w) in enumerate(zip(got, want)):
+        if [d["category_id"] for d in g] != [d["category_id"] for d in w]:
+            return f"image {i}: other categories"
+        a = np.array([[d["score"], *d["bbox"]] for d in g]).reshape(-1, 5)
+        b = np.array([[d["score"], *d["bbox"]] for d in w]).reshape(-1, 5)
+        if not np.isfinite(a).all():
+            return f"image {i}: non-finite detections"
+        if (np.abs(a[:, 0] - b[:, 0]).max(initial=0) > tol[0]
+                or np.abs(a[:, 1:] - b[:, 1:]).max(initial=0) > tol[1]):
+            return f"image {i}: scores or boxes differ"
+    return None
+
+
+def _device_busy(fn, tries: int = 4):
+    """(fn's result, device busy ms, device span ms) of one call of `fn`
+    from torch.profiler: the union of the CUDA kernel and copy intervals,
+    and the time from the first device event's start to the last one's
+    end; the span less the busy time is the device's idle time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            result = fn()
+            torch.cuda.synchronize()
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+        if spans:
+            break
+    else:
+        raise AssertionError("the profiler saw no device events")
+    busy, (start, end) = 0.0, spans[0]
+    for s0, s1 in spans[1:]:
+        if s0 > end:
+            busy += end - start
+            start, end = s0, s1
+        else:
+            end = max(end, s1)
+    busy += end - start
+    span = max(s1 for _, s1 in spans) - spans[0][0]
+    return result, busy / 1e3, span / 1e3
+
+
+class _Waited:
+    """A CUDA event whose wait is recorded in `order` as "r" and timed
+    into `host_ms["wait"]`."""
+
+    def __init__(self, event, order: list, host_ms: dict):
+        self.event, self.order, self.host_ms = event, order, host_ms
+
+    def synchronize(self):
+        self.order.append("r")
+        t0 = time.perf_counter()
+        if self.event is not None:  # None: a CPU run's copy is done
+            self.event.synchronize()
+        self.host_ms["wait"] += (time.perf_counter() - t0) * 1e3
+
+
+def _timed_into(host_ms: dict, name: str, fn):
+    """fn, its host time added to host_ms[name] at every call."""
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            host_ms[name] += (time.perf_counter() - t0) * 1e3
+    return timed
+
+
+def _check_detect(predictor, n: int, seed: int, want: dict, tag: str,
+                  faster: bool):
+    """`predictor.detect` over n random images, double-buffered and
+    sequential, two runs each under torch.profiler: the detections equal
+    both ways (a shuffled chunk as the control), each run's launches
+    `want`, and the order of dispatches ("d") and read-back waits ("r"):
+    d d r d r ... r double-buffered, d r d r ... sequential (the control).
+    With `faster`, the device's idle time between the first and the last
+    device event must be lower double-buffered, best run against best run
+    (a stall of the shared host only ever adds idle time). The host's time a chunk
+    in each stage (staging and copy in, the forward's launches, the copy
+    out, the wait, formatting) is logged. Returns the idle readings and
+    the launches of the four runs."""
+    from dinov2_od_tpu_torch import inference
+    from dinov2_od_tpu_torch.ops import _build
+
+    size = predictor.cfg.backbone.image_size
+    chunks = n // predictor.batch_size
+    rng = np.random.default_rng(seed + 13)
+    images = list(rng.uniform(size=(n, size, size, 3)).astype(np.float32))
+    predictor.detect(images[:predictor.batch_size], score_threshold=0.0)
+    order: list = []
+    stages = ("upload", "forward", "download", "wait", "format")
+    host_ms = dict.fromkeys(stages, 0.0)
+    forward = _timed_into(host_ms, "forward", predictor._forward_topk)
+    download = _timed_into(host_ms, "download", predictor._download)
+    format_detections = inference.format_detections
+
+    def dispatch(*args):
+        order.append("d")
+        return forward(*args)
+
+    def read_back(topk):
+        host, done = download(topk)
+        return host, _Waited(done, order, host_ms)
+
+    predictor._forward_topk, predictor._download = dispatch, read_back
+    predictor._upload = _timed_into(host_ms, "upload", predictor._upload)
+    inference.format_detections = _timed_into(host_ms, "format",
+                                              format_detections)
+    runs, idle, orders, total, host = {}, {}, {}, {}, {}
+    try:
+        for overlap in (False, True, True, False):
+            name = "double" if overlap else "sequential"
+            predictor.overlap_chunks = overlap
+            predictor.device_batches = 0
+            order.clear()
+            host_ms.update(dict.fromkeys(stages, 0.0))
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            res, busy, span = _device_busy(
+                lambda: predictor.detect(images, score_threshold=0.0))
+            wall = (time.perf_counter() - t0) * 1e3
+            counts = dict(_build.launch_counts)
+            if counts != want or predictor.device_batches != chunks:
+                raise AssertionError(f"detect {tag} {name}: launches "
+                                     f"{counts}, expected {want}")
+            runs[name], orders[name] = res, "".join(order)
+            host.setdefault(name, []).append(
+                {k: v / chunks for k, v in host_ms.items()})
+            for k, c in counts.items():
+                total[k] = total.get(k, 0) + c
+            idle.setdefault(name, []).append(
+                {"wall_ms": wall, "busy_ms": busy, "span_ms": span,
+                 "idle_ms": span - busy, "idle_share": (span - busy) / span})
+        predictor.overlap_chunks = True
+        shuffled = list(images)
+        bs = predictor.batch_size
+        shuffled[2 * bs:3 * bs], shuffled[3 * bs:4 * bs] = (
+            images[3 * bs:4 * bs], images[2 * bs:3 * bs])
+        control = _detections_differ(
+            predictor.detect(shuffled, score_threshold=0.0),
+            runs["sequential"])
+    finally:
+        del predictor._forward_topk, predictor._download, predictor._upload
+        inference.format_detections = format_detections
+    double = "d" + "dr" * (chunks - 1) + "r"
+    differ = _detections_differ(runs["double"], runs["sequential"])
+    seq_idle = min(r["idle_ms"] for r in idle["sequential"])
+    dbl_idle = min(r["idle_ms"] for r in idle["double"])
+    log(f"measurement tools: detect {tag} " + json.dumps(idle))
+    log(f"measurement tools: detect {tag} host ms a chunk "
+        + json.dumps(host))
+    problems = []
+    if differ or control is None:
+        problems.append(f"double vs sequential {differ}; the shuffled "
+                        f"control {control}")
+    if orders["double"] != double or orders["sequential"] == double:
+        problems.append(f"orders {orders}")
+    if faster and not dbl_idle < seq_idle:
+        problems.append(f"idle {dbl_idle} ms double-buffered against "
+                        f"{seq_idle} ms sequential")
+    if problems:
+        raise AssertionError(f"detect {tag}: " + "; ".join(problems))
+    log(f"measurement tools: detect {tag} x {chunks} chunks: double-buffered"
+        f" equal to sequential (the shuffled control: {control}); order "
+        f"{orders['double']} against {orders['sequential']}; device idle "
+        f"{dbl_idle:.3f} ms double-buffered against {seq_idle:.3f} ms "
+        f"sequential (the best run each way)")
+    return idle, total
+
+
+def _scaling_problems(recs, batches, variants):
+    """What is wrong with bench_attn_scaling's records: one a (batch,
+    variant) in order, positive times, and each variant's two kernels
+    launched and no other."""
+    problems = []
+    if [(r["batch"], r["variant"]) for r in recs] != [
+            (b, v) for b in batches for v in variants]:
+        problems.append("records out of order")
+    for r in recs:
+        if not (r["fwd_ms"] > 0 and r["fwdbwd_ms"] > 0):
+            problems.append(f"{r['batch']}/{r['variant']}: a time is not "
+                            f"positive")
+        if sorted(r["launches"]) != sorted(SCALING_KERNELS[r["variant"]]):
+            problems.append(f"{r['batch']}/{r['variant']}: launched "
+                            f"{r['launches']}")
+    return problems
+
+
+def _input_problems(res: dict, resolved: str):
+    """What is wrong with bench_input's dict: the resolved backend named,
+    a native row only where 'auto' resolved to the native decoder, and a
+    positive rate in every phase run."""
+    problems = []
+    if res.get("decode_backend_auto") != resolved:
+        problems.append(f"decode_backend_auto {res.get('decode_backend_auto')}"
+                        f" against {resolved}")
+    if ("native_uint8" in res["decode"]) != (resolved == "native"):
+        problems.append(f"decode rows {sorted(res['decode'])} with 'auto' "
+                        f"resolved to {resolved}")
+    rates = [*res["decode"].values(), *res["loader"].values()] + [
+        res.get(k, 0) for k in ("train_from_disk", "train_device_only",
+                                "eval_from_disk", "eval_device_only")]
+    if not all(r > 0 for r in rates):
+        problems.append("a rate is missing or not positive")
+    return problems
+
+
+def phase_measurement_tools(seed: int, kernels: dict):
+    """The measurement and input tools at full width, in-process, each
+    with a control that must fail: bench_serving (ViT-B/224 b1, bf16 and
+    int8; B1, and B6 in int8, and nothing else); Predictor.detect over
+    DETECT_CHUNKS chunks of DETECT_BATCH at ViT-B/224 and of
+    DETECT_LARGE_BATCH at ViT-L/560, double-buffered against the
+    sequential schedule (equal detections, a shuffled chunk as the
+    control; the order of dispatches and read-backs, the sequential order
+    as the control; the device's idle time both ways from torch.profiler,
+    lower double-buffered at ViT-L/560, where the card sets the pace);
+    bench_attn_scaling (each variant's kernels, a forcing that does not
+    take as the control); bench_qkv_layout; bench_evaluator at
+    EVAL_IMAGES (native and numpy metrics equal; fewer detections as the
+    control); bench_input on INPUT_IMAGES 640 px JPEGs with its train and
+    eval phases, and the backend 'auto' resolved to."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+
+    from dinov2_od_tpu_torch.data import coco
+    from dinov2_od_tpu_torch.evaluation.coco_metrics import CocoEvaluator
+    from dinov2_od_tpu_torch.inference import Predictor
+    from dinov2_od_tpu_torch.models.detector import cast_frozen_weights
+    from dinov2_od_tpu_torch.ops import _build
+    from dinov2_od_tpu_torch.tools import (bench_attn_scaling,
+                                           bench_evaluator, bench_input,
+                                           bench_qkv_layout, bench_serving)
+
+    card = torch.cuda.get_device_name(0)
+    t_phase = time.perf_counter()
+    resolved = coco.resolved_decode_backend()
+    log(f"measurement tools: decode_backend 'auto' resolved to {resolved!r}"
+        + ("" if resolved == "native" else
+           "; the native JPEG decoder did not build here, so it is held "
+           "only by the CPU tests"))
+    depth = 12
+
+    def add(counts: dict, tag: str):
+        for name, n in counts.items():
+            if n:
+                kernels[name]["launches"] += n
+                kernels[name][f"launches_{tag}"] = n
+
+    # bench_serving, bf16 and int8.
+    forwards = (2 + 2 * SERVING_REQUESTS
+                + SERVING_THREADS * (SERVING_REQUESTS // SERVING_THREADS))
+    for quant in (None, "int8"):
+        t0 = time.perf_counter()
+        argv = ["--requests", str(SERVING_REQUESTS),
+                "--threads", str(SERVING_THREADS)]
+        if quant:
+            argv += ["--quantize", quant]
+        out = io.StringIO()
+        _build.reset_launch_counts()
+        rec = bench_serving.run(bench_serving.parse_args(argv), out=out)
+        torch.cuda.synchronize()
+        counts = dict(_build.launch_counts)
+        for line in out.getvalue().splitlines():
+            log(f"measurement tools: bench_serving {quant or 'bf16'}: {line}")
+        launches = {"flash_attn_fwd": depth * forwards}
+        if quant:
+            launches["int8_gemm"] = depth * forwards
+        want = _counts(**launches)
+        problems = _serving_problems(rec, counts, want, card)
+        wrong = dict(want, flash_attn_bwd=1)
+        swapped = dict(rec, p95_ms=rec["p99_ms"] + 1)
+        controls = [_serving_problems(rec, counts, wrong, card),
+                    _serving_problems(swapped, counts, want, card)]
+        if problems or not all(controls):
+            raise AssertionError(f"bench_serving {quant or 'bf16'}: "
+                                 f"{problems}; controls {controls}")
+        add(counts, f"bench_serving_{quant or 'bf16'}")
+        log(f"measurement tools: bench_serving {quant or 'bf16'}: "
+            f"{time.perf_counter() - t0:.1f} s, launches {counts}; "
+            f"{card_line()}")
+        torch.cuda.empty_cache()
+
+    # Predictor.detect, double-buffered against sequential: ViT-B/224 at
+    # batch 32, then ViT-L/560 at batch 8, where the card, not the host,
+    # sets the pace.
+    for model_name, size, batch, kernel, per_forward in (
+            ("facebook/dinov2-base", 224, DETECT_BATCH, "flash_attn_fwd",
+             depth),
+            ("facebook/dinov2-large", 560, DETECT_LARGE_BATCH,
+             "flash_attn_bhsd_fwd", 2 * depth)):
+        t0 = time.perf_counter()
+        _, cfg16, params = _serving_model(seed, model_name, image_size=size)
+        predictor = Predictor(cast_frozen_weights(params, cfg16), cfg16,
+                              device="cuda", batch_size=batch)
+        del params
+        tag = f"ViT-{cfg16.backbone.variant[0].upper()}/{size} b{batch}"
+        idle, counts = _check_detect(
+            predictor, DETECT_CHUNKS * batch, seed,
+            _counts(**{kernel: per_forward * DETECT_CHUNKS}), tag,
+            faster=model_name.endswith("large"))
+        add(counts, "detect")
+        log(f"measurement tools: detect {tag}: "
+            f"{time.perf_counter() - t0:.1f} s; {card_line()}")
+        del predictor
+        torch.cuda.empty_cache()
+
+    # bench_attn_scaling, with a forcing that does not take as the control.
+    t0 = time.perf_counter()
+    args = bench_attn_scaling.parse_args(
+        ["--batches", *map(str, SCALING_BATCHES)])
+    out = io.StringIO()
+    _build.reset_launch_counts()
+    recs = bench_attn_scaling.run(args, out=out, target_seconds=0.2)
+    torch.cuda.synchronize()
+    add(dict(_build.launch_counts), "bench_attn_scaling")
+    for line in out.getvalue().splitlines():
+        log(f"measurement tools: bench_attn_scaling: {line}")
+    problems = _scaling_problems(recs, SCALING_BATCHES, args.variants)
+    forced = bench_attn_scaling.forced
+    bench_attn_scaling.forced = lambda variant: contextlib.nullcontext()
+    try:
+        ctl = bench_attn_scaling.run(
+            bench_attn_scaling.parse_args(["--batches", "32", "--variants",
+                                           "bhsd"]),
+            out=io.StringIO(), target_seconds=0.05, repeats=1)
+    finally:
+        bench_attn_scaling.forced = forced
+    control = _scaling_problems(ctl, (32,), ("bhsd",))
+    if problems or not control:
+        raise AssertionError(f"bench_attn_scaling: {problems}; control "
+                             f"{control}")
+    log(f"measurement tools: bench_attn_scaling: {time.perf_counter() - t0:.1f}"
+        f" s; the unforced control {control}; {card_line()}")
+
+    # bench_qkv_layout: cuBLAS GEMMs, none of the port's kernels.
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    _build.reset_launch_counts()
+    rec = bench_qkv_layout.run(bench_qkv_layout.parse_args([]), out=out)
+    log(f"measurement tools: bench_qkv_layout: {out.getvalue().strip()}")
+    keys = ["metric", "prefused_ms", "per_step_concat_ms", "delta_ms_per_fwd"]
+    if (list(rec) != keys or not rec["prefused_ms"] > 0
+            or not rec["per_step_concat_ms"] > 0 or card not in rec["metric"]
+            or any(_build.launch_counts.values())):
+        raise AssertionError(f"bench_qkv_layout: {rec}, launches "
+                             f"{dict(_build.launch_counts)}")
+    log(f"measurement tools: bench_qkv_layout: "
+        f"{time.perf_counter() - t0:.1f} s; {card_line()}")
+
+    # bench_evaluator: the C++ and numpy matchers agree; fewer detections
+    # through the C++ matcher as the control.
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    rec = bench_evaluator.run(bench_evaluator.parse_args(
+        ["--images", str(EVAL_IMAGES)]), out=out)
+    log("measurement tools: bench_evaluator: " + json.dumps(
+        {k: rec[k] for k in ("images", "gt", "detections", "init_s",
+                             "evaluate_s", "metrics_equal")}))
+    gt, dets = bench_evaluator.synth(n_img=EVAL_IMAGES)
+    with tempfile.NamedTemporaryFile("w", suffix=".json") as f:
+        json.dump(gt, f)
+        f.flush()
+        fewer = CocoEvaluator(f.name, use_native=True).evaluate(dets[1::2])
+    if (not rec["metrics_equal"] or set(rec["metrics"]) != {"native", "numpy"}
+            or fewer == rec["metrics"]["numpy"]
+            or not 0 < rec["metrics"]["native"]["AP"] < 1):
+        raise AssertionError(f"bench_evaluator: {rec['metrics']}; control "
+                             f"{fewer}")
+    log(f"measurement tools: bench_evaluator: AP {rec['metrics']['native']['AP']}"
+        f" both ways, the control's {fewer['AP']}; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # bench_input on written 640 px JPEGs, with its train and eval phases.
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    _build.reset_launch_counts()
+    try:
+        res = bench_input.run(bench_input.parse_args(
+            ["--dir", INPUT_DIR, "--gen", str(INPUT_IMAGES), "--train",
+             "--eval"]), out=out)
+        torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(INPUT_DIR, ignore_errors=True)
+    counts = dict(_build.launch_counts)
+    for line in out.getvalue().splitlines():
+        log(f"measurement tools: bench_input: {line}")
+    launched = sorted(k for k, n in counts.items() if n)
+    steps = 12 + INPUT_IMAGES // 32  # measure_steps_per_sec's, the loader's
+    problems = _input_problems(res, resolved)
+    toggled = dict(res, decode=dict(res["decode"]))
+    if "native_uint8" in toggled["decode"]:
+        del toggled["decode"]["native_uint8"]
+    else:
+        toggled["decode"]["native_uint8"] = 1.0
+    control = _input_problems(toggled, resolved)
+    if (problems or not control
+            or launched != ["flash_attn_bwd", "flash_attn_fwd"]
+            or counts["flash_attn_bwd"] != 2 * steps):
+        raise AssertionError(f"bench_input: {problems}; launches {counts} "
+                             f"({steps} steps); control {control}")
+    add(counts, "bench_input")
+    log(f"measurement tools: bench_input: {time.perf_counter() - t0:.1f} s, "
+        f"launches {counts}; control {control}; {card_line()}")
+    log(f"measurement tools: {time.perf_counter() - t_phase:.1f} s in all")
+    torch.cuda.empty_cache()
+
+
 def profile_device(fn, unprofiled_ms: float, what: str, steps: int = 5,
                    top: int = 12):
     """Device time of `steps` calls of `fn` by CUDA kernel, from
@@ -3929,6 +4408,7 @@ def main(argv=None) -> int:
     phase_roofline_tool(kernels)
     phase_bench()
     phase_trace()
+    phase_measurement_tools(args.seed, kernels)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,10 +10,11 @@ utils.py:243-276); this is the COCOeval bbox protocol without it:
 - the precision envelope and 101-point interpolation; AP is the mean
   over non-negative precisions; the twelve COCOeval.summarize stats.
 
-The JAX package matches through a C library when it is built
-(evaluation/native.py); that path is not ported yet (ROADMAP.md), so the
-port's evaluator always takes the numpy path, the JAX package's
-reference implementation.
+The IoU + greedy matching inner loop runs in C++ (csrc/host/coco_eval.cc
+through evaluation/native.py) when that library builds, as in the JAX
+package; the numpy loop here is the reference implementation, the path
+where it does not build, and the one `use_native=False` asks for. After
+an evaluation `CocoEvaluator.matcher` says which one ran.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ from collections import defaultdict
 from typing import Dict, Optional, Sequence
 
 import numpy as np
+
+from . import native
 
 IOU_THRS = np.linspace(0.5, 0.95, 10)
 REC_THRS = np.linspace(0.0, 1.00, 101)
@@ -114,9 +117,16 @@ class CocoEvaluator:
     in accumulate by per-image column truncation. A naive
     (area x maxDet x image) loop re-does the IoU+matching work 12x — on
     val5k that is the difference between seconds and many minutes.
+
+    use_native: None matches in C++ where the library builds, else in
+    numpy; True asks for C++ (raising where it does not build); False for
+    numpy. `matcher` is "native" or "numpy" after an evaluation.
     """
 
-    def __init__(self, annotation_file: str):
+    def __init__(self, annotation_file: str,
+                 use_native: Optional[bool] = None):
+        self.use_native = use_native
+        self.matcher: Optional[str] = None
         with open(annotation_file) as f:
             gt = json.load(f)
         self.cat_ids = [c["id"] for c in gt.get("categories", [])]
@@ -144,7 +154,7 @@ class CocoEvaluator:
         np.zeros(0, np.float64),
     )
 
-    def _match_category(self, cat_id, dt_by_img_cat):
+    def _match_category(self, cat_id, dt_by_img_cat, use_native: bool):
         """Match every image of one category across all area ranges.
 
         Returns None if the category has no GT and no detections, else
@@ -195,34 +205,40 @@ class CocoEvaluator:
         gt_area = np.concatenate([g[2] for g in gt_parts])
         area_rngs = np.asarray([AREA_RNG[k] for k in AREA_KEYS], np.float64)
 
-        n_area, n_thr = len(AREA_KEYS), len(IOU_THRS)
-        total_dt = int(dt_off[-1])
-        dtm = np.zeros((n_area, n_thr, total_dt), np.int64)
-        dt_ig = np.zeros((n_area, n_thr, total_dt), bool)
-        num_gt = np.zeros(n_area, np.int64)
-        for ii in range(len(imgs)):
-            d0, d1 = int(dt_off[ii]), int(dt_off[ii + 1])
-            g0, g1 = int(gt_off[ii]), int(gt_off[ii + 1])
-            if d1 == d0 and g1 == g0:
-                continue
-            crowd = gt_crowd[g0:g1].astype(bool)
-            # IoU table once per image, reused by every area range.
-            ious = bbox_iou_xywh(dt_boxes[d0:d1], gt_boxes[g0:g1], crowd)
-            d_areas = dt_boxes[d0:d1, 2] * dt_boxes[d0:d1, 3]
-            for ai, rng in enumerate(area_rngs):
-                ig = (
-                    crowd
-                    | (gt_area[g0:g1] < rng[0])
-                    | (gt_area[g0:g1] > rng[1])
-                )
-                num_gt[ai] += int((~ig).sum())
-                g_order = np.argsort(ig, kind="stable")
-                m, i = _greedy_match_from_ious(
-                    ious[:, g_order], d_areas, ig[g_order],
-                    crowd[g_order], rng,
-                )
-                dtm[ai, :, d0:d1] = m
-                dt_ig[ai, :, d0:d1] = i
+        if use_native:
+            dtm, dt_ig, num_gt = native.match_category_native(
+                dt_boxes, dt_off, gt_boxes, gt_crowd, gt_area, gt_off,
+                IOU_THRS, area_rngs,
+            )
+        else:
+            n_area, n_thr = len(AREA_KEYS), len(IOU_THRS)
+            total_dt = int(dt_off[-1])
+            dtm = np.zeros((n_area, n_thr, total_dt), np.int64)
+            dt_ig = np.zeros((n_area, n_thr, total_dt), bool)
+            num_gt = np.zeros(n_area, np.int64)
+            for ii in range(len(imgs)):
+                d0, d1 = int(dt_off[ii]), int(dt_off[ii + 1])
+                g0, g1 = int(gt_off[ii]), int(gt_off[ii + 1])
+                if d1 == d0 and g1 == g0:
+                    continue
+                crowd = gt_crowd[g0:g1].astype(bool)
+                # IoU table once per image, reused by every area range.
+                ious = bbox_iou_xywh(dt_boxes[d0:d1], gt_boxes[g0:g1], crowd)
+                d_areas = dt_boxes[d0:d1, 2] * dt_boxes[d0:d1, 3]
+                for ai, rng in enumerate(area_rngs):
+                    ig = (
+                        crowd
+                        | (gt_area[g0:g1] < rng[0])
+                        | (gt_area[g0:g1] > rng[1])
+                    )
+                    num_gt[ai] += int((~ig).sum())
+                    g_order = np.argsort(ig, kind="stable")
+                    m, i = _greedy_match_from_ious(
+                        ious[:, g_order], d_areas, ig[g_order],
+                        crowd[g_order], rng,
+                    )
+                    dtm[ai, :, d0:d1] = m
+                    dt_ig[ai, :, d0:d1] = i
 
         rank = np.arange(len(dt_scores)) - np.repeat(dt_off[:-1], dt_lens)
         return dt_scores, rank, dtm, dt_ig, num_gt
@@ -261,6 +277,9 @@ class CocoEvaluator:
         return self._evaluate_grouped(groups)
 
     def _evaluate_grouped(self, dt_by_img_cat) -> Dict[str, float]:
+        use_native = (native.available() if self.use_native is None
+                      else self.use_native)
+        self.matcher = "native" if use_native else "numpy"
         n_cat = len(self.cat_ids)
         n_area = len(AREA_KEYS)
         n_thr = len(IOU_THRS)
@@ -271,7 +290,7 @@ class CocoEvaluator:
         recall = -np.ones((n_thr, n_cat, n_area, n_md))
 
         for ci, cat_id in enumerate(self.cat_ids):
-            matched = self._match_category(cat_id, dt_by_img_cat)
+            matched = self._match_category(cat_id, dt_by_img_cat, use_native)
             if matched is None:
                 continue
             dt_scores, rank, dtm, dt_ig, num_gt = matched

@@ -10,6 +10,11 @@
   has one shape.
 - Post-processing (sigmoid, top-k, rescale) runs on the device; one
   compact [B, K, 6] tensor comes back per batch.
+- Double-buffered, as in the JAX package: chunk i+1 is dispatched before
+  chunk i's top-k is read back. On the card each chunk is staged in
+  pinned memory and copied in on a side stream (a pageable copy would
+  wait for the card), and its top-k is copied out into pinned memory
+  behind an event the host waits on only after the next chunk is queued.
 - `quantize="int8"` serves W8A8 (models/quantize.py): LoRA is folded,
   then the backbone's block linears are quantized, in the JAX order.
 - `Predictor.from_checkpoint` loads the params of a checkpoint that the
@@ -18,6 +23,7 @@
 
 from __future__ import annotations
 
+from collections import deque
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -119,6 +125,12 @@ class Predictor:
         self.label_to_cat_id = label_to_cat_id or {}
         self.class_names = class_names or {}
         self.device_batches = 0  # forward calls issued, for callers' checks
+        self._copy_stream = (torch.cuda.Stream(self.device)
+                             if self.device.type == "cuda" else None)
+
+    # False reads each chunk back before the next is dispatched (the
+    # schedule to compare the double buffer against; the results match).
+    overlap_chunks = True
 
     @classmethod
     def from_checkpoint(
@@ -162,6 +174,32 @@ class Predictor:
             [scores[..., None], labels[..., None].float(), boxes], dim=-1
         )
 
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """`arr` on the device. On CUDA: staged in pinned memory, copied
+        with non_blocking=True on the side stream, and the current stream
+        waits on the copy (record_stream keeps the allocator off the
+        tensor until that stream is done with it)."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self._copy_stream is None:
+            return t.to(self.device)
+        stream = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self._copy_stream):
+            out = t.pin_memory().to(self.device, non_blocking=True)
+        stream.wait_stream(self._copy_stream)
+        out.record_stream(stream)
+        return out
+
+    def _download(self, topk: torch.Tensor):
+        """(host tensor, event): on CUDA a copy into pinned memory queued
+        behind the forward, and the event to wait on before reading it."""
+        if self._copy_stream is None:
+            return topk.cpu(), None
+        host = torch.empty(topk.shape, dtype=topk.dtype, pin_memory=True)
+        host.copy_(topk, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
     def detect(
         self,
         images: Sequence[Union[str, np.ndarray]],
@@ -183,22 +221,12 @@ class Predictor:
         n = len(pixel)
         bs = self.batch_size
         per_image: List[List[dict]] = [[] for _ in range(n)]
-        for start in range(0, n, bs):
-            chunk = pixel[start:start + bs]
-            sizes = orig_sizes[start:start + bs]
-            count = len(chunk)
-            pad = bs - count
-            if pad:
-                chunk = np.concatenate(
-                    [chunk, np.zeros((pad,) + chunk.shape[1:], chunk.dtype)])
-                sizes = np.concatenate([sizes, np.ones((pad, 2), sizes.dtype)])
-            out = self._forward_topk(
-                torch.from_numpy(chunk).to(self.device),
-                torch.from_numpy(sizes).to(self.device),
-                max_detections,
-            )
-            self.device_batches += 1
-            topk = out[:count].cpu().numpy()  # one device-to-host copy
+
+        def drain(entry):
+            host, done, start, count = entry
+            if done is not None:
+                done.synchronize()
+            topk = host.numpy()
             results = format_detections(
                 topk[..., 0],
                 topk[..., 1].astype(np.int32),
@@ -216,4 +244,24 @@ class Predictor:
                 if self.class_names:
                     det["name"] = self.class_names.get(r["category_id"], "")
                 per_image[r["image_id"]].append(det)
+
+        in_flight = 1 if self.overlap_chunks else 0
+        pending: deque = deque()
+        for start in range(0, n, bs):
+            chunk = pixel[start:start + bs]
+            sizes = orig_sizes[start:start + bs]
+            count = len(chunk)
+            pad = bs - count
+            if pad:
+                chunk = np.concatenate(
+                    [chunk, np.zeros((pad,) + chunk.shape[1:], chunk.dtype)])
+                sizes = np.concatenate([sizes, np.ones((pad, 2), sizes.dtype)])
+            out = self._forward_topk(self._upload(chunk), self._upload(sizes),
+                                     max_detections)
+            self.device_batches += 1
+            pending.append((*self._download(out[:count]), start, count))
+            if len(pending) > in_flight:
+                drain(pending.popleft())
+        while pending:
+            drain(pending.popleft())
         return per_image

@@ -29,10 +29,10 @@ def main(argv=None) -> int:
     ap.add_argument("--image_size", type=int, default=224)
     ap.add_argument("--max_boxes", type=int, default=100)
     ap.add_argument("--num_workers", type=int, default=4)
-    ap.add_argument("--decode_backend", default="pil",
+    ap.add_argument("--decode_backend", default="auto",
                     choices=["auto", "cv2", "pil"],
-                    help="pil: the port's decoder ('auto' and 'cv2' raise, "
-                         "ROADMAP.md)")
+                    help="auto: the native decoder where it builds, else "
+                         "cv2, else PIL; pil: the reference's pixels")
     args = ap.parse_args(argv)
 
     from ..data.coco import CocoDetectionDataset

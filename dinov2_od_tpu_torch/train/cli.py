@@ -270,11 +270,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "traffic); float32 preprocesses on the host "
                         "(reference behavior)")
     p.add_argument("--decode_backend", type=str,
-                   default="pil",
+                   default="auto",
                    choices=["auto", "cv2", "pil"],
-                   help="image decode: pil = the reference's pixels "
-                        "(the port's only backend so far; 'auto' and "
-                        "'cv2' raise, ROADMAP.md)")
+                   help="JPEG decode: auto = the native libjpeg decoder "
+                        "(M/8 scaled decode; cv2, then PIL, where it does "
+                        "not build); cv2 = reduced-scale cv2 path; pil = "
+                        "exact reference pixels (forced by --parity_mode)")
     p.add_argument("--device_cache", action="store_true",
                    help="upload the whole train/val dataset to the card "
                         "once and gather batches there: one [K, B] index "
@@ -508,7 +509,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                     restored.step)
 
     ds_kwargs = dict(normalize=normalize, output_dtype=args.feed_dtype,
-                     decode_backend=args.decode_backend)
+                     decode_backend=("pil" if args.parity_mode
+                                     else args.decode_backend))
 
     def packed(path, indices=None):
         from ..data.packed import PackedDataset

@@ -19,6 +19,7 @@ from dinov2_od_tpu.data.synthetic import write_coco_dataset as jax_write
 
 from dinov2_od_tpu_torch.data import coco as pcoco
 from dinov2_od_tpu_torch.data import loader as ploader
+from dinov2_od_tpu_torch.data import native_decode
 from dinov2_od_tpu_torch.data import packed as ppacked
 from dinov2_od_tpu_torch.data.synthetic import write_coco_dataset
 
@@ -85,14 +86,43 @@ def test_get_example_equal_to_jax(synth, output_dtype, normalize):
     _equal_examples(test.get_example(4), test_ref.get_example(4))
 
 
-def test_unported_decode_backends_raise(synth):
+def test_unported_decode_backends_raise(synth, monkeypatch):
+    """'auto' and 'cv2', once unported and raising: 'auto' resolves once
+    to native, then cv2, then Pillow, and names what it resolved to; 'cv2'
+    decodes as the JAX package's cv2 path, bit for bit, and raises where
+    cv2 does not import; an unknown backend raises."""
     images_dir, ann = synth
-    for backend in ("auto", "cv2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pcoco.CocoDetectionDataset(images_dir, ann,
-                                       decode_backend=backend)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pcoco.CocoTestDataset(images_dir, decode_backend=backend)
+    path = os.path.join(images_dir, sorted(os.listdir(images_dir))[0])
+    ds = pcoco.CocoDetectionDataset(images_dir, ann, decode_backend="auto")
+    assert ds.backend == pcoco.resolved_decode_backend() == "native"
+    assert pcoco.CocoTestDataset(images_dir,
+                                 decode_backend="auto").backend == "native"
+    np.testing.assert_array_equal(pcoco.decode_cv2(path, 32),
+                                  jcoco._decode_fast(path, 32))
+    cv2_ds = pcoco.CocoDetectionDataset(images_dir, ann, 32,
+                                        decode_backend="cv2")
+    np.testing.assert_array_equal(
+        cv2_ds.get_example(0)["images"],
+        jcoco.CocoDetectionDataset(images_dir, ann, 32,
+                                   decode_backend="cv2").get_example(0)[
+                                       "images"])
+
+    def no_build():
+        raise RuntimeError("g++ failed to build jpeg_decode.cc:\nno jpeglib.h")
+
+    monkeypatch.setattr(pcoco, "_resolved", None)
+    monkeypatch.setattr(native_decode, "get_lib", no_build)
+    assert pcoco.resolved_decode_backend() == "cv2"
+    monkeypatch.setattr(pcoco, "_resolved", None)
+    monkeypatch.setattr(pcoco, "_cv2_module", False)
+    assert pcoco.CocoDetectionDataset(images_dir, ann,
+                                      decode_backend="auto").backend == "pil"
+    with pytest.raises(ImportError, match="cv2"):
+        pcoco.CocoDetectionDataset(images_dir, ann, decode_backend="cv2")
+    with pytest.raises(ImportError, match="cv2"):
+        pcoco.CocoTestDataset(images_dir, decode_backend="cv2")
+    with pytest.raises(ValueError, match="decode_backend"):
+        pcoco.CocoTestDataset(images_dir, decode_backend="turbo")
 
 
 def test_shuffled_order_bit_equal():

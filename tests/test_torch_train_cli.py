@@ -103,8 +103,9 @@ def test_cli_devices_and_decode_backends(tmp_path, synth, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(base)  # --device defaults to cuda
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(base + ["--device", "cpu", "--decode_backend", "auto"])
+    assert (cli.build_arg_parser().parse_args(base).decode_backend
+            == jcli.build_arg_parser().parse_args(base).decode_backend
+            == "auto")
     flags = lambda p: {s for a in p._actions for s in a.option_strings}
     assert flags(cli.build_arg_parser()) == flags(jcli.build_arg_parser())
 
