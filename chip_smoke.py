@@ -50,7 +50,14 @@ non-zero and prints no result:
              ViT-L/560's [2, 16, 1616, 64]) with a control (the last key
              tile dropped) that must fail and a length past its limit that
              must raise, timed beside its bound, the plain version and,
-             for mxu_only, two cuBLAS products;
+             for mxu_only, two cuBLAS products; B3, flash_attention_lse,
+             with a nonzero cotangent of its lse on each family at
+             LSE_CASES (flat at ring attention's [8, 801, 16, 64] shard,
+             kv_len 801 and 800; all-heads at [32, 257, 3, 64]; blocked at
+             [8, 1601, 16, 64]) against its plain version, with a control
+             (the backward without the lse cotangent) that must fail,
+             timed at the ring's shard beside its bound, its plain version
+             and `_scaled_dot_product_flash_attention`;
 4. slice   - the bf16 serving path: a full-width ViT-B/14 + deformable
              DETR Predictor behind a DynamicBatcher answers concurrent
              requests; 12 forward launches per device batch;
@@ -140,6 +147,26 @@ non-zero and prints no result:
              and 2 B4b launches per rank per step, no other flash kernel.
              Each rank's step time is printed, labelled as four ranks
              sharing one card: it is not a tensor-parallel speed.
+11b. cp     - context parallelism and the TP layouts it came with, each
+             mesh's ranks processes on the one card in a gloo group (the
+             ring's K and V staged through the host: correctness, not a
+             speed): ring attention (ops/ring_attention.py, B3's route) at
+             ViT-L/14 560 px, batch 8, bf16, on the legacy mode's 1 x 2
+             mesh (the ring over the model axis, 801 tokens a rank) and on
+             DP 1 x CP 2 x TP 2 (8 heads a rank): the eval forward and one
+             step's loss and gradients against one process's (B5f/B5b),
+             with a control (each rank's own keys only) that must fail;
+             then CP_STEPS train steps and an eval top-k batch, exactly
+             52 B1 + 4 B2 (56 through B3) a step a rank and 48 B1 a batch;
+             SwiGLU ViT-g/14 at 224 px on 1 x 4 (6 heads a rank, flat):
+             forward and gradients against one process's with a control
+             (fc1 split as one contiguous slice) and one train step (40
+             B1 + 2 B2); int8 ViT-B/14 on 1 x 4: the fp32 int8 forward
+             within the quantization noise of one process's, the
+             prefix-int8 step's gradients against one process's, an eval
+             top-k batch (12 B4f) and a prefix-int8 step (12 B4f + 2 B4b),
+             B6 launched 0 times. The ring's share of the main path's host
+             time is printed.
 12. roofline tool - the port's tools/bench_attn_roofline.py at its
              defaults, in-process: its four JSON lines (mxu_only, plus_max,
              plus_exp2, production) in order with the JAX tool's keys, T1
@@ -160,7 +187,7 @@ non-zero and prints no result:
              keys, p50 <= p95 <= p99, the card in the metric, exactly 12
              B1 (and 12 B6 in int8) a forward and nothing else);
              Predictor.detect over 8 chunks of 32 double-buffered against
-             its sequential schedule, and ViT-L/560 over 8 chunks of 8
+             its sequential schedule, and ViT-L/560 over 8 chunks of 32
              (equal detections, a shuffled chunk as the control; chunk
              i+1 dispatched before chunk i is read back, the sequential
              order as the control; the device's idle time both ways from
@@ -239,12 +266,14 @@ OUTPUTS = ("pred_logits", "pred_boxes")
 # the first to take the fitted 8-key tail; 256 | 257, ViT-B's; 264, the
 # last tail, | 265, a ragged 128-key tile; and tails behind five or more
 # full tiles, where the 5-stage ring must move past the tail's slot: 641,
-# 1025, ViT-B/14 at 448 px, and 1157, at 476 px), each with all keys, all
-# but one and one. Each case with a control (the last 64-key tile dropped,
+# 1025, ViT-B/14 at 448 px, and 1157, at 476 px; 800 and 801, ring
+# attention's local shard of ViT-L/560 on a ring of 2), each with all
+# keys, all but one and one. Each case with a control (the last 64-key tile dropped,
 # where one is left) that must fail, and o and the lse bit-equal from run
 # to run.
 FWD_CASES = ((B, S, H, S), (B, S, H, KV_MASKED), (8, 1370, 16, 1370)) + tuple(
-    (4, s, H, kv) for s in (128, 129, 256, 257, 264, 265, 641, 1025, 1157)
+    (4, s, H, kv) for s in (128, 129, 256, 257, 264, 265, 641, 800, 801,
+                            1025, 1157)
     for kv in (s, s - 1, 1))
 REQUEST_SIZES = (8, 16, 4, 12)
 # Backward kernel against its plain version: max abs error of each of dq,
@@ -438,6 +467,19 @@ ALLHEADS_TOL = {
     "bfloat16": {"o": 1e-2, "lse": 1e-3},
     "float32": {"o": 1e-5, "lse": 1e-5},
 }
+# B3 (`flash_attention_lse`) with a nonzero lse cotangent, bf16, one
+# case a family at a shape a path gives it (batch, S, heads, kv_len, the
+# forward and backward kernels): the flat pair at ring attention's local
+# shard of ViT-L/560 on a ring of 2 (801 tokens, 16 heads; kv_len 801 and
+# the straddling shard's 800), the all-heads pair at ViT-B's 3 heads a
+# rank under TP 4, the blocked pair at ViT-L/560 whole. Tolerances: TOL
+# (o, the lse in log2 units) and BWD_TOL, for the reasons given there.
+LSE_CASES = (
+    (8, 801, 16, 801, "flash_attn_fwd", "flash_attn_bwd"),
+    (8, 801, 16, 800, "flash_attn_fwd", "flash_attn_bwd"),
+    (B, S, 3, S, "flash_attn_allheads_fwd", "flash_attn_allheads_bwd"),
+    (8, 1601, 16, 1601, "flash_attn_bhsd_fwd", "flash_attn_bhsd_bwd"),
+)
 # detector_apply of the large model with the kernels against plain
 # attention, max abs error per output, each limit set like MODEL_TOL
 # between the sound kernels' reading and the controls'. Controls: the
@@ -525,6 +567,45 @@ TP_GRAD_TOL = {
 }
 TP_GRAD_CONTROLS = {"float32": (S - 1, 192), "bfloat16": (192,)}
 
+# Context parallelism (phase_cp): ViT-L/14 at 560 px (1601 tokens, 16
+# heads of 64), bf16 backbone, LoRA r=2 on the last 2 blocks, batch 8 with
+# 25 GT slots, from seed 0; and the two tensor-parallel layouts this slice
+# lifted: SwiGLU (ViT-g/14 at 224 px: 1536 wide, 40 blocks, 24 heads) and
+# int8 (ViT-B/14 at 224 px), each on a 1 x 4 mesh. Every mesh's ranks are
+# processes on the one card in a gloo process group (the ring's K and V
+# staged through the host): a correctness run, not a CP or TP speed.
+# mesh name: the MeshConfig fields. The legacy mode's ring runs over the
+# two-axis mesh's model axis (1 x 2): 1601 tokens padded to 1602, 801 a
+# rank, the second rank's shard straddling the pad at kv_len 800; the
+# three-axis mesh's ring of 2 runs on 8 heads a rank (DP 1 x CP 2 x TP 2).
+# Both shards are flat-eligible, so the ring launches B1/B2 where the
+# unsharded model launches B5f/B5b.
+CP_MESHES = {"legacy 1x2": dict(model_parallel_size=2, context_parallel=True),
+             "dp1 x cp2 x tp2": dict(model_parallel_size=2,
+                                      context_parallel_size=2)}
+CP_STEPS = 3
+# The ring's outputs (eval mode) and one step's loss and gradients, both
+# bf16, against one process's (B5f/B5b at 1601 tokens), as LARGE_MODEL_TOL
+# and LARGE_GRAD_TOL's "plain attention" hold the large model to a
+# reference that does not round as its kernels do (24 bf16 blocks); the
+# ring merges per-step partials in fp32 where B5f runs one online pass.
+# Control: the ring without its remote shards (each rank's own keys only),
+# which must fail both checks. SwiGLU under TP 4 (bf16 through 40 blocks)
+# is held to the same limits; its control, fc1 sharded as one contiguous
+# slice of 2M (each rank's gates paired with another rank's values), must
+# fail them.
+CP_MODEL_TOL = LARGE_MODEL_TOL["bfloat16"]
+CP_GRAD_TOL = LARGE_GRAD_TOL["bfloat16"]["plain attention"]
+GIANT_MODEL = "facebook/dinov2-giant"
+# int8 under TP 4 (B6 off) against one process's int8 (B6 on fc2), fp32
+# activations: within the quantization noise JAX's
+# test_int8_tp_forward_matches_single_device accepts, 1.5 x the single
+# process's error against the fp32 model, + 1e-6. The prefix-int8 step's
+# loss and gradients (bf16) against one process's prefix-int8 step: 1.5 x
+# that step's own distance from the bf16 step, or TP_GRAD_TOL (the bf16
+# TP noise) where larger.
+INT8_TP_NOISE = 1.5
+
 # T1, the attention roofline tool's ablation kernel, bf16 [B, H, S_pad, 64]:
 # the tool's default shape (1370 tokens, ViT-L/518, padded to 1376) and
 # ViT-L/560's (1601 padded to 1616), every stage.
@@ -559,7 +640,7 @@ TRACE_RUNS = (("ViT-B/224 b32 train", {},
 # INPUT_DIR. detect's two schedules agree to DETECT_TOL (score, box
 # pixels).
 SERVING_REQUESTS, SERVING_THREADS = 50, 4
-DETECT_CHUNKS, DETECT_BATCH, DETECT_LARGE_BATCH = 8, 32, 8
+DETECT_CHUNKS, DETECT_BATCH, DETECT_LARGE_BATCH = 8, 32, 32
 DETECT_TOL = (1e-5, 1e-3)
 SCALING_BATCHES = (32, 64)
 SCALING_KERNELS = {
@@ -1579,6 +1660,115 @@ def phase_allheads_kernels(seed: int):
         raise AssertionError("all-heads kernels disagree with their plain "
                              "versions: " + "; ".join(failures))
     return entries
+
+
+def _lse_plain(q, k, v, do, dlse, kv_len, with_lse_cotangent=True):
+    """B3's plain version on the card: the plain forward, then the lse's
+    cotangent folded into delta (d lse2 = ln 2 * d lse) and the plain
+    backward. Returns (o, lse, (dq, dk, dv))."""
+    from dinov2_od_tpu_torch.ops import flash_attention as fa
+
+    scale = DH ** -0.5
+    o, lse2 = fa.flash_attention_bhsd_fwd_plain(q, k, v, scale=scale,
+                                                kv_len=kv_len)
+    glse2 = ((dlse * fa._LN2).transpose(1, 2) if with_lse_cotangent
+             else None)
+    grads = fa.flash_attention_bhsd_bwd_plain(
+        q, k, v, do, lse2, fa._delta(do, o, glse2), scale=scale,
+        kv_len=kv_len)
+    return o, lse2.transpose(1, 2) * fa._LN2, grads
+
+
+def phase_lse_kernel(seed: int):
+    """B3, `flash_attention_lse`, with a nonzero cotangent of its lse (as
+    ring attention's backward gives it) on each family, against its plain
+    version on the same inputs, at LSE_CASES; each case with a control
+    (the backward without the lse cotangent) that must fail the same
+    check; timed at the ring's local shard (LSE_CASES[0]) beside its
+    bound, its plain version and `_scaled_dot_product_flash_attention`.
+    Returns B3's entry of the kernels line (launches filled in by
+    phase_cp)."""
+    import torch
+
+    from dinov2_od_tpu_torch.ops import _build
+    from dinov2_od_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(seed + 11)
+    scale = DH ** -0.5
+    tol, btol = TOL["bfloat16"], BWD_TOL["bfloat16"]
+    failures, entry = [], None
+    for b, s, h, kv_len, fwd_name, bwd_name in LSE_CASES:
+        q, k, v, do = (torch.randn((b, s, h, DH), generator=gen).to(
+            "cuda", torch.bfloat16) for _ in range(4))
+        dlse = torch.randn((b, s, h), generator=gen).cuda()
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        _build.reset_launch_counts()
+        o, lse = fa.flash_attention_lse(qq, kk, vv, scale=scale,
+                                        kv_len=kv_len)
+        got = torch.autograd.grad((o, lse), (qq, kk, vv), (do, dlse))
+        torch.cuda.synchronize()
+        launched = ({n: c for n, c in _build.launch_counts.items() if c},
+                    dict(_build.route_counts))
+        o_ref, lse_ref, ref = _lse_plain(q, k, v, do, dlse, kv_len)
+        _, _, ctl = _lse_plain(q, k, v, do, dlse, kv_len, False)
+        err_o = (o.float() - o_ref.float()).abs().max().item()
+        # The lse in log2 units, as TOL states its limit.
+        err_lse = ((lse - lse_ref).abs().max() / fa._LN2).item()
+        rel, err = _grad_errs(got, ref)
+        ctl_rel, _ = _grad_errs(got, ctl)
+        finite = all(bool(torch.isfinite(t).all()) for t in (o, lse, *got))
+        row = {"shape": [b, s, h, DH], "kv_len": kv_len, "family":
+               fwd_name, "max_abs_err_o": err_o,
+               "max_abs_err_lse2": err_lse, "bwd_max_rel_err": rel,
+               "bwd_max_abs_err": err,
+               "control_without_lse_cotangent_rel_err": ctl_rel,
+               "launches": launched}
+        want = ({fwd_name: 1, bwd_name: 1}, {"flash_attention_lse": 2})
+        if launched != want:
+            failures.append(f"{row['shape']} kv_len={kv_len}: launches "
+                            f"{launched}, expected {want}")
+        if not (finite and err_o <= tol["o"] and err_lse <= tol["lse"]
+                and max(rel.values()) <= btol):
+            failures.append(f"{row['shape']} kv_len={kv_len}: o {err_o:.3g}"
+                            f", lse {err_lse:.3g}, grads {rel}, "
+                            f"finite={finite}")
+        if max(ctl_rel.values()) <= btol:
+            failures.append(f"{row['shape']} kv_len={kv_len}: the control "
+                            f"(no lse cotangent) passes the check")
+        if entry is None:
+            fwd = lambda: fa.flash_attention_lse(q, k, v, scale=scale,
+                                                 kv_len=kv_len)
+            ms = device_ms(fwd, iters=20)
+            plain_ms = device_ms(lambda: fa.flash_attention_bhsd_fwd_plain(
+                q, k, v, scale=scale, kv_len=kv_len), iters=5)
+            both = lambda: torch.autograd.grad(
+                fa.flash_attention_lse(qq, kk, vv, scale=scale,
+                                       kv_len=kv_len), (qq, kk, vv),
+                (do, dlse))
+            lib = _lse_library_ms(gen, b, s, h)
+            bound_ms, bound_by = attention_bound("bfloat16", kv_len, b, s, h)
+            row.update(ms=ms, plain_ms=plain_ms,
+                       fwd_bwd_ms=device_ms(both, iters=10),
+                       library_ms=lib["library_ms"], bound_ms=bound_ms,
+                       bound_by=bound_by)
+            entry = {
+                "name": "flash_attention_lse", "route": "cuda",
+                "source": "dinov2_od_tpu_torch/ops/flash_attention.py",
+                "replaces": "dinov2_od_tpu/ops/flash_attention.py:831",
+                "replaces_function": "flash_attention_lse",
+                "kernels": "flat B1/B2 here; B4f/B4b and B5f/B5b by shape",
+                "launches": 0, "shape": [b, s, h, DH], "dtype": "bfloat16",
+                "max_abs_err": err_o, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": lib["library_ms"],
+                "fwd_bwd_ms": row["fwd_bwd_ms"]}
+        log("kernels: flash_attention_lse " + json.dumps(row))
+        del q, k, v, do, qq, kk, vv, o, lse, got, ref, ctl, o_ref
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("B3 disagrees with its plain version: "
+                             + "; ".join(failures))
+    return entry
 
 
 def phase_slice(seed: int, kernels: dict, profile: bool = False) -> float:
@@ -3313,10 +3503,11 @@ def _tp_trees(seed: int, det32):
     return params_to_numpy(train), params_to_numpy(check)
 
 
-def _grad_tree(p, c, x, gt, match, mesh=None):
+def _grad_tree(p, c, x, gt, match, mesh=None, **apply_kw):
     """(loss, masked gradient tree) of one train-mode step on fixed params
     with a fixed assignment; under `mesh` this rank's, with the train
-    step's reductions (`reduce_gradients`)."""
+    step's reductions (`reduce_gradients`). `apply_kw` goes to
+    detector_apply (the ring's attn_impl and seq_axis)."""
     import torch
 
     from dinov2_od_tpu_torch.config import OptimConfig
@@ -3328,7 +3519,7 @@ def _grad_tree(p, c, x, gt, match, mesh=None):
         create_train_state, mask_gradients, trainable_leaves, tree_unflatten)
 
     state = create_train_state(p, OptimConfig(), c)
-    o = detector_apply(p, c, x, deterministic=False, mesh=mesh)
+    o = detector_apply(p, c, x, deterministic=False, mesh=mesh, **apply_kw)
     loss = set_criterion(o["pred_logits"], o["pred_boxes"], *gt,
                          num_classes=c.decoder.num_classes, match=match,
                          mesh=mesh)["loss"]
@@ -3634,6 +3825,589 @@ def phase_tp(seed: int, kernels: dict):
         "s_per_step_per_rank": [res["step_s"] for res in ranks],
         "card": card_line(),
     }))
+
+
+def _cp_tree(seed: int, det32):
+    """The phase's params on the CPU, drawn from `seed`, every lora_B
+    nonzero (drawn alike by the parent and by each rank)."""
+    import torch
+
+    from dinov2_od_tpu_torch.models.detector import init_detector_params
+
+    tree = init_detector_params(torch.Generator().manual_seed(seed), det32,
+                                device="cpu")
+    lg = torch.Generator().manual_seed(seed + 1)
+    for lin in tree["backbone"]["blocks"].values():
+        if isinstance(lin, dict) and "lora_B" in lin:
+            lin["lora_B"] = 0.05 * torch.randn(lin["lora_B"].shape,
+                                               generator=lg)
+    return tree
+
+
+def _on_card(tree, det, mesh=None, cast=True):
+    """This rank's shard of a CPU tree on the card, frozen weights cast to
+    the backbone's dtype."""
+    from dinov2_od_tpu_torch.models.detector import cast_frozen_weights
+    from dinov2_od_tpu_torch.parallel.sharding import (
+        map_with_path, shard_params)
+
+    if mesh is not None:
+        tree = shard_params(tree, mesh)
+    p = map_with_path(lambda _, t: t.to("cuda"), tree)
+    return cast_frozen_weights(p, det) if cast else p
+
+
+def _cp_dets(model_name: str, image_size: int, **backbone):
+    """(fp32, bf16) train configurations, decoder dropout 0."""
+    det32, det = _train_dets(model_name, image_size, **backbone)
+    return tuple(dataclasses.replace(c, decoder=dataclasses.replace(
+        c.decoder, dropout=0.0)) for c in (det32, det))
+
+
+def _cp_batch(inp, name):
+    import torch
+
+    batch = {k: torch.from_numpy(v).to("cuda")
+             for k, v in inp["batch " + name].items()}
+    return batch, (batch["labels"], batch["boxes"], batch["valid"])
+
+
+@contextlib.contextmanager
+def _remote_shards_dropped(mesh):
+    """The ring as a faulty kernel route: each rank's own shard of keys
+    only, the other ring steps skipped: the CP checks' control."""
+    from dinov2_od_tpu_torch.ops import ring_attention as ra
+
+    sound = ra._kv_len
+    ra._kv_len = lambda src, sk, valid: (sound(src, sk, valid)
+                                         if src == mesh.context_index else 0)
+    try:
+        yield
+    finally:
+        ra._kv_len = sound
+
+
+@contextlib.contextmanager
+def _ring_shift_timed(into: list):
+    """Each ring_shift's host seconds appended to `into` (the staging
+    copies and the gloo transfer, the wait for the peer included)."""
+    from dinov2_od_tpu_torch.ops import ring_attention as ra
+
+    sound = ra.ring_shift
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = sound(*a, **kw)
+        into.append(time.perf_counter() - t0)
+        return out
+
+    ra.ring_shift = timed
+    try:
+        yield
+    finally:
+        ra.ring_shift = sound
+
+
+def _launched():
+    from dinov2_od_tpu_torch.ops import _build
+
+    return {**{n: c for n, c in _build.launch_counts.items() if c},
+            **{n: c for n, c in _build.route_counts.items() if c}}
+
+
+def _cp_ring_job(name: str, inp: dict, seed: int) -> dict:
+    """One CP mesh on this rank: the eval forward and one step's gradients
+    (fixed assignment) with the control, then the main path: CP_STEPS
+    train steps and an eval top-k batch, launches counted."""
+    import torch
+
+    from dinov2_od_tpu_torch.config import (
+        DataConfig, MeshConfig, OptimConfig, TrainConfig)
+    from dinov2_od_tpu_torch.ops import _build
+    from dinov2_od_tpu_torch.ops.matching import MatchResult
+    from dinov2_od_tpu_torch.parallel import create_mesh, gather_params
+    from dinov2_od_tpu_torch.train.state import create_train_state
+    from dinov2_od_tpu_torch.train.step import (
+        make_eval_step, make_eval_topk_step, make_train_step)
+
+    mesh_cfg = MeshConfig(**CP_MESHES[name])
+    mesh = create_mesh(mesh_cfg.model_parallel_size, mesh_cfg)
+    det32, det = _cp_dets(LARGE_MODEL, LARGE_IMAGE)
+    p = _on_card(_cp_tree(seed, det32), det, mesh)
+    batch, gt = _cp_batch(inp, "large")
+    x = batch["images"]
+    cfg = TrainConfig(detector=det, data=DataConfig(
+        batch_size=LARGE_BATCH, max_boxes=MAX_BOXES), optim=OptimConfig(),
+        mesh=mesh_cfg)
+    out = {"place": (mesh.data_index, mesh.context_index, mesh.model_index)}
+    with torch.inference_mode():
+        runs = {"kernel": make_eval_step(cfg, mesh)(p, x)}
+        with _remote_shards_dropped(mesh):
+            runs["control remote shards dropped"] = make_eval_step(
+                cfg, mesh)(p, x)
+    out["forward"] = {run: {k: o[k].float().cpu() for k in OUTPUTS}
+                      for run, o in runs.items()}
+    match = MatchResult(*(t.to("cuda") for t in inp["match large"]))
+    kw = dict(attn_impl="ring", seq_axis=mesh.seq_axis)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        grads = {"kernel": _grad_tree(p, det, x, gt, match, mesh, **kw)}
+        with _remote_shards_dropped(mesh):
+            grads["control remote shards dropped"] = _grad_tree(
+                p, det, x, gt, match, mesh, **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out["grads"] = {run: (loss.cpu(), _tree_groups(gather_params(g, mesh),
+                                                   det))
+                    for run, (loss, g) in grads.items()}
+    del runs, grads
+
+    # The main path, counts to 0 before and read after.
+    state = create_train_state(p, cfg.optim, det)
+    snap = _snapshot(p, det)
+    step = make_train_step(cfg, mesh)
+    topk_step = make_eval_topk_step(cfg, mesh)
+    sizes = torch.full((LARGE_BATCH, 2), float(LARGE_IMAGE), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shifts, losses = [], []
+    torch.distributed.barrier()
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _ring_shift_timed(shifts):
+        for _ in range(CP_STEPS):
+            state, metrics = step(state, batch, gen)
+            losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        train_counts = _launched()
+        topk = topk_step(state.params, x, sizes)["topk"]
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    out["counts"] = _launched()
+    out["train_counts"] = train_counts
+    out["losses"] = torch.stack(losses).tolist()
+    out["topk_finite"] = bool(torch.isfinite(topk).all())
+    out["topk_shape"] = list(topk.shape)
+    out["train_s"], out["topk_s"] = t1 - t0, t2 - t1
+    out["shift_s"], out["shifts"] = sum(shifts), len(shifts)
+    first, frozen, lora_rows = snap
+    out["frozen_changed"] = sum(not torch.equal(t, b) for t, b in frozen)
+    out["lora_rows_changed"] = sum(not torch.equal(t[:first], b)
+                                   for t, b in lora_rows)
+    del state, p
+    torch.cuda.empty_cache()
+    return out
+
+
+def _swiglu_job(inp: dict, seed: int) -> dict:
+    """ViT-g (SwiGLU) on a 1 x 4 mesh: the eval forward with its control
+    (fc1 sharded as one contiguous slice), one step's gradients (fixed
+    assignment), then the main path: one train step, launches counted."""
+    import torch
+
+    from dinov2_od_tpu_torch.config import (
+        DataConfig, MeshConfig, OptimConfig, TrainConfig)
+    from dinov2_od_tpu_torch.ops import _build
+    from dinov2_od_tpu_torch.ops.matching import MatchResult
+    from dinov2_od_tpu_torch.parallel import create_mesh, gather_params
+    from dinov2_od_tpu_torch.parallel.sharding import local_slice
+    from dinov2_od_tpu_torch.train.state import create_train_state
+    from dinov2_od_tpu_torch.train.step import make_eval_step, make_train_step
+
+    mesh_cfg = MeshConfig(model_parallel_size=TP)
+    mesh = create_mesh(TP, mesh_cfg)
+    det32, det = _cp_dets(GIANT_MODEL, 224)
+    tree = _cp_tree(seed, det32)
+    fc1 = {n: (t[..., local_slice(t.shape[-1], mesh)].contiguous()
+               if n in ("kernel", "bias", "lora_B") else None)
+           for n, t in tree["backbone"]["blocks"]["fc1"].items()}
+    p = _on_card(tree, det, mesh)
+    del tree
+    faulty_fc1 = {n: (p["backbone"]["blocks"]["fc1"][n] if t is None
+                      else t.to("cuda", p["backbone"]["blocks"]["fc1"][n]
+                                .dtype)) for n, t in fc1.items()}
+    faulty = {**p, "backbone": {**p["backbone"], "blocks": {
+        **p["backbone"]["blocks"], "fc1": faulty_fc1}}}
+    batch, gt = _cp_batch(inp, "giant")
+    x = batch["images"]
+    cfg = TrainConfig(detector=det, data=DataConfig(
+        batch_size=LARGE_BATCH, max_boxes=MAX_BOXES), optim=OptimConfig(),
+        mesh=mesh_cfg)
+    out = {}
+    with torch.inference_mode():
+        runs = {"kernel": make_eval_step(cfg, mesh)(p, x),
+                "control fc1 as one contiguous slice of 2M":
+                    make_eval_step(cfg, mesh)(faulty, x)}
+    out["forward"] = {run: {k: o[k].float().cpu() for k in OUTPUTS}
+                      for run, o in runs.items()}
+    del faulty, faulty_fc1, runs
+    match = MatchResult(*(t.to("cuda") for t in inp["match giant"]))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        loss, g = _grad_tree(p, det, x, gt, match, mesh)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out["grads"] = {"kernel": (loss.cpu(), _tree_groups(
+        gather_params(g, mesh), det))}
+    del g
+    state = create_train_state(p, cfg.optim, det)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    torch.distributed.barrier()
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, metrics = make_train_step(cfg, mesh)(state, batch, gen)
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t0
+    out["counts"] = _launched()
+    out["loss"] = metrics["loss"].item()
+    del state, p
+    torch.cuda.empty_cache()
+    return out
+
+
+def _int8_tp_job(inp: dict, seed: int) -> dict:
+    """int8 ViT-B on a 1 x 4 mesh (B6 off): the fp32 eval forward of the
+    int8 tree, the prefix-int8 step's gradients (fixed assignment), then
+    the main path: an eval top-k batch on the int8 tree and one
+    prefix-int8 train step, launches counted."""
+    import torch
+
+    from dinov2_od_tpu_torch.config import (
+        DataConfig, MeshConfig, OptimConfig, TrainConfig)
+    from dinov2_od_tpu_torch.models.detector import fold_detector_lora
+    from dinov2_od_tpu_torch.models.quantize import quantize_detector_int8
+    from dinov2_od_tpu_torch.ops import _build
+    from dinov2_od_tpu_torch.ops.matching import MatchResult
+    from dinov2_od_tpu_torch.parallel import create_mesh, gather_params
+    from dinov2_od_tpu_torch.train.state import create_train_state
+    from dinov2_od_tpu_torch.train.step import (
+        make_eval_step, make_eval_topk_step, make_train_step)
+
+    mesh_cfg = MeshConfig(model_parallel_size=TP)
+    mesh = create_mesh(TP, mesh_cfg)
+    det32, det = _cp_dets("facebook/dinov2-base", 224)
+    _, pdet = _cp_dets("facebook/dinov2-base", 224, prefix_int8=True)
+    tree = _cp_tree(seed, det32)
+    q = quantize_detector_int8(fold_detector_lora(tree, det32))
+    batch, gt = _cp_batch(inp, "base")
+    x = batch["images"]
+    out = {}
+    cfg32 = TrainConfig(detector=det32, mesh=mesh_cfg)
+    with torch.inference_mode():
+        fwd = make_eval_step(cfg32, mesh)(_on_card(q, det32, mesh, False), x)
+    out["forward"] = {k: fwd[k].float().cpu() for k in OUTPUTS}
+    p = _on_card(tree, pdet, mesh)
+    match = MatchResult(*(t.to("cuda") for t in inp["match base"]))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        loss, g = _grad_tree(p, pdet, x, gt, match, mesh)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out["grads"] = (loss.cpu(), _tree_groups(gather_params(g, mesh), pdet))
+    cfg = TrainConfig(detector=det, data=DataConfig(batch_size=B,
+                                                    max_boxes=MAX_BOXES),
+                      mesh=mesh_cfg)
+    pcfg_ = dataclasses.replace(cfg, detector=pdet, optim=OptimConfig())
+    qp = _on_card(q, det, mesh, cast=False)
+    state = create_train_state(p, pcfg_.optim, pdet)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    sizes = torch.full((B, 2), 224.0, device="cuda")
+    torch.distributed.barrier()
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    topk = make_eval_topk_step(cfg, mesh)(qp, x, sizes)["topk"]
+    torch.cuda.synchronize()
+    out["topk_counts"] = _launched()
+    state, metrics = make_train_step(pcfg_, mesh)(state, batch, gen)
+    torch.cuda.synchronize()
+    out["counts"] = _launched()
+    out["topk_finite"] = bool(torch.isfinite(topk).all())
+    out["loss"] = metrics["loss"].item()
+    del state, p, qp
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cp_rank(rank: int, world: int, port: int, work: str, seed: int,
+             jobs: tuple):
+    """One rank of phase_cp: a process on cuda:0 in a gloo group of
+    `world` running `jobs` (each builds its own mesh) on the parent's
+    inputs from `work`; writes its results there (rank{r}.pt)."""
+    import pickle
+    from pathlib import Path
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        work = Path(work)
+        with open(work / "inputs.pkl", "rb") as f:
+            inp = pickle.load(f)
+        out = {}
+        for job in jobs:
+            if job in CP_MESHES:
+                out[job] = _cp_ring_job(job, inp, seed)
+            elif job == "swiglu":
+                out[job] = _swiglu_job(inp, seed)
+            else:
+                out[job] = _int8_tp_job(inp, seed)
+        torch.save(out, work / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _cp_references(seed: int, raw: dict):
+    """One process's references on the card, fixed assignments for the
+    gradient checks (fp32 inputs, bf16 backbones, decoder dropout 0)."""
+    import torch
+
+    from dinov2_od_tpu_torch.models.detector import (
+        detector_apply, fold_detector_lora)
+    from dinov2_od_tpu_torch.models.quantize import quantize_detector_int8
+    from dinov2_od_tpu_torch.ops.matching import hungarian_match
+
+    refs, matches = {}, {}
+    models = {"large": _cp_dets(LARGE_MODEL, LARGE_IMAGE),
+              "giant": _cp_dets(GIANT_MODEL, 224),
+              "base": _cp_dets("facebook/dinov2-base", 224)}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for name, (det32, det) in models.items():
+        batch = {k: torch.from_numpy(v).to("cuda")
+                 for k, v in raw[name].items()}
+        x, gt = batch["images"], (batch["labels"], batch["boxes"],
+                                  batch["valid"])
+        tree = _cp_tree(seed, det32)
+        p = _on_card(tree, det)
+        with torch.inference_mode():
+            fwd = detector_apply(p, det, x)
+        match = hungarian_match(fwd["pred_logits"], fwd["pred_boxes"], *gt)
+        matches[name] = tuple(t.cpu() for t in match)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            loss, grads = _grad_tree(p, det, x, gt, match)
+            ref = {"forward": {k: fwd[k].float().cpu() for k in OUTPUTS},
+                   "grads": (loss.cpu(), _tree_groups(grads, det))}
+            if name == "base":
+                # int8: the fp32 model and its int8 tree (B6 on fc2), and
+                # the prefix-int8 step beside the bf16 one.
+                p32 = _on_card(tree, det32, cast=False)
+                q = _on_card(quantize_detector_int8(
+                    fold_detector_lora(tree, det32)), det32, cast=False)
+                with torch.inference_mode():
+                    ref["fp32"] = {k: v.float().cpu() for k, v in
+                                   detector_apply(p32, det32, x).items()
+                                   if k in OUTPUTS}
+                    ref["int8"] = {k: v.float().cpu() for k, v in
+                                   detector_apply(q, det32, x).items()
+                                   if k in OUTPUTS}
+                pdet = dataclasses.replace(det, backbone=dataclasses.replace(
+                    det.backbone, prefix_int8=True))
+                loss, grads = _grad_tree(p, pdet, x, gt, match)
+                ref["prefix grads"] = (loss.cpu(), _tree_groups(grads, pdet))
+                del p32, q
+        finally:
+            torch.use_deterministic_algorithms(False)
+        refs[name] = ref
+        del p, fwd, grads, tree
+        torch.cuda.empty_cache()
+    return refs, matches
+
+
+def _spawn_cp(jobs: tuple, world: int, inputs: dict, seed: int):
+    """Start `world` ranks on `jobs`; returns (their results, wall s)."""
+    import pickle
+    import shutil
+    import socket
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    import torch.multiprocessing as mp
+
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="cp_phase_", dir=root))
+    try:
+        with open(work / "inputs.pkl", "wb") as f:
+            pickle.dump(inputs, f)
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        t0 = time.perf_counter()
+        mp.start_processes(_cp_rank, args=(world, port, str(work), seed,
+                                           jobs),
+                           nprocs=world, join=True, start_method="spawn")
+        wall = time.perf_counter() - t0
+        return [torch.load(work / f"rank{r}.pt", weights_only=False)
+                for r in range(world)], wall
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _judge_model(phase: str, runs: dict, ref: dict, tol: dict):
+    """The sound run's outputs within `tol`, every control's over it."""
+    import torch
+
+    errs = {run: {k: (o[k] - ref[k]).abs().max().item() for k in OUTPUTS}
+            for run, o in runs.items()}
+    for run, err in errs.items():
+        finite = all(bool(torch.isfinite(runs[run][k]).all())
+                     for k in OUTPUTS)
+        log(f"{phase}: forward {run} vs one process: "
+            + ", ".join(f"{k} max abs err {err[k]:.4g} (tol {tol[k]})"
+                        for k in OUTPUTS) + f", finite={finite}")
+        over = any(err[k] > tol[k] for k in OUTPUTS) or not finite
+        if run == "kernel" and over:
+            raise AssertionError(f"{phase}: forward disagrees: {err}")
+        if run != "kernel" and not over:
+            raise AssertionError(f"{phase}: the control {run} passes the "
+                                 f"forward check")
+
+
+def phase_cp(seed: int, kernels: dict):
+    """Context parallelism: ring attention over B3's route at ViT-L/560 on
+    the legacy mode's 1 x 2 mesh and on DP 1 x CP 2 x TP 2; then SwiGLU
+    (ViT-g) and int8 (ViT-B) under TP on 1 x 4 meshes. Every mesh's ranks
+    share the card over gloo; each is held against one process's path on
+    the same params and batch, with controls, and its main path's
+    launches are counted."""
+    from dinov2_od_tpu_torch.data.synthetic import make_batch
+
+    t_phase = time.perf_counter()
+    raw = {name: make_batch(np.random.default_rng(seed), bs,
+                            image_size=size, max_boxes=MAX_BOXES)
+           for name, bs, size in (("large", LARGE_BATCH, LARGE_IMAGE),
+                                  ("giant", LARGE_BATCH, 224),
+                                  ("base", B, 224))}
+    log(f"cp: ViT-L/14 at {LARGE_IMAGE} px (1601 tokens, 16 heads of 64), "
+        f"bf16, batch {LARGE_BATCH}; meshes {CP_MESHES}; SwiGLU ViT-g/14 "
+        f"and int8 ViT-B/14 on 1 x {TP}; every rank a process on cuda:0 in "
+        f"a gloo group (host-staged ring): correctness, not a CP or TP "
+        f"speed")
+    refs, matches = _cp_references(seed, raw)
+    inputs = {**{f"batch {n}": b for n, b in raw.items()},
+              **{f"match {n}": m for n, m in matches.items()}}
+    legacy, wall2 = _spawn_cp(("legacy 1x2",), 2, inputs, seed)
+    four, wall4 = _spawn_cp(("dp1 x cp2 x tp2", "swiglu", "int8"), TP,
+                            inputs, seed)
+    results = {"legacy 1x2": [r["legacy 1x2"] for r in legacy],
+               "dp1 x cp2 x tp2": [r["dp1 x cp2 x tp2"] for r in four]}
+    bb = _cp_dets(LARGE_MODEL, LARGE_IMAGE)[1].backbone
+    depth, adapted = bb.depth, bb.lora_last_n_blocks
+    n_ring = 2
+    fwd_b1 = depth * n_ring
+    per_step = {"flash_attn_fwd": fwd_b1 + adapted * n_ring,
+                "flash_attn_bwd": adapted * n_ring}
+    per_step["flash_attention_lse"] = sum(per_step.values())
+    want = {k: v * CP_STEPS + (fwd_b1 if k != "flash_attn_bwd" else 0)
+            for k, v in per_step.items()}
+    for name, ranks in results.items():
+        ref = refs["large"]
+        for r, res in enumerate(ranks):
+            _judge_model(f"cp {name} rank {r}", res["forward"],
+                         ref["forward"], CP_MODEL_TOL)
+            if res["counts"] != want:
+                raise AssertionError(f"cp {name}: rank {r} launches "
+                                     f"{res['counts']}; expected {want}")
+            if not (np.isfinite(res["losses"]).all() and res["topk_finite"]
+                    and res["frozen_changed"] == 0
+                    and res["lora_rows_changed"] == 0):
+                raise AssertionError(f"cp {name}: rank {r}: losses "
+                                     f"{res['losses']}, top-k finite "
+                                     f"{res['topk_finite']}, frozen leaves "
+                                     f"changed {res['frozen_changed']}, "
+                                     f"LoRA rows {res['lora_rows_changed']}")
+        _judge_grads(f"cp {name}", "bfloat16", ranks[0]["grads"],
+                     ref["grads"], CP_GRAD_TOL)
+        log(f"cp {name}: " + json.dumps({
+            "place_per_rank": [res["place"] for res in ranks],
+            "losses_rank0": ranks[0]["losses"],
+            "launches_per_rank": ranks[0]["counts"],
+            "launches_train_per_rank": ranks[0]["train_counts"],
+            "train_s_per_rank": [res["train_s"] for res in ranks],
+            "topk_s_per_rank": [res["topk_s"] for res in ranks],
+            "ring_shift_s_per_rank": [res["shift_s"] for res in ranks],
+            "ring_shifts_per_rank": ranks[0]["shifts"],
+            "ring_share_of_main_path": [
+                res["shift_s"] / (res["train_s"] + res["topk_s"])
+                for res in ranks],
+            "metric": "host seconds with ranks sharing one card over gloo: "
+                      "not a CP speed", "card": card_line()}))
+        for kname in ("flash_attn_fwd", "flash_attn_bwd",
+                      "flash_attention_lse"):
+            k = kernels[kname]
+            k["launches"] += sum(res["counts"][kname] for res in ranks)
+            k.setdefault("launches_cp", {})[name] = [
+                res["counts"][kname] for res in ranks]
+
+    sw = [r["swiglu"] for r in four]
+    gbb = _cp_dets(GIANT_MODEL, 224)[1].backbone
+    want_sw = {"flash_attn_fwd": gbb.depth,
+               "flash_attn_bwd": gbb.lora_last_n_blocks}
+    for r, res in enumerate(sw):
+        _judge_model(f"cp swiglu rank {r}", res["forward"],
+                     refs["giant"]["forward"], CP_MODEL_TOL)
+        if res["counts"] != want_sw or not np.isfinite(res["loss"]):
+            raise AssertionError(f"cp swiglu: rank {r} launches "
+                                 f"{res['counts']} (expected {want_sw}), "
+                                 f"loss {res['loss']}")
+    _judge_grads("cp swiglu", "bfloat16", sw[0]["grads"],
+                 refs["giant"]["grads"], CP_GRAD_TOL)
+    for kname in ("flash_attn_fwd", "flash_attn_bwd"):
+        kernels[kname]["launches"] += sum(res["counts"][kname] for res in sw)
+        kernels[kname]["launches_swiglu_tp"] = [res["counts"][kname]
+                                                for res in sw]
+    log("cp swiglu: " + json.dumps({
+        "train_s_per_rank": [res["train_s"] for res in sw],
+        "loss_rank0": sw[0]["loss"], "launches_per_rank": sw[0]["counts"]}))
+
+    i8 = [r["int8"] for r in four]
+    base = refs["base"]
+    for r, res in enumerate(i8):
+        for key in OUTPUTS:
+            single = (base["fp32"][key] - base["int8"][key]).abs().max()
+            tp_err = (base["fp32"][key] - res["forward"][key]).abs().max()
+            apart = (base["int8"][key] - res["forward"][key]).abs().max()
+            limit = INT8_TP_NOISE * single.item() + 1e-6
+            log(f"cp int8 rank {r}: {key} vs fp32 {tp_err.item():.4g}, vs "
+                f"one process's int8 {apart.item():.4g}; one process's "
+                f"int8 vs fp32 {single.item():.4g} (limit {limit:.4g})")
+            if not (tp_err.item() <= limit and apart.item() <= limit):
+                raise AssertionError(f"cp int8 rank {r}: {key} outside the "
+                                     f"quantization noise")
+        bdepth = _cp_dets("facebook/dinov2-base", 224)[1].backbone.depth
+        want_i8 = {"flash_attn_allheads_fwd": 2 * bdepth,
+                   "flash_attn_allheads_bwd": adapted}
+        if (res["topk_counts"] != {"flash_attn_allheads_fwd": bdepth}
+                or res["counts"] != want_i8 or not res["topk_finite"]):
+            raise AssertionError(f"cp int8 rank {r}: launches "
+                                 f"{res['topk_counts']} then "
+                                 f"{res['counts']}; expected 12 B4f, then "
+                                 f"{want_i8}, and no B6")
+    noise = _grad_errors(base["prefix grads"], base["grads"])
+    tol = {g: max(TP_GRAD_TOL["bfloat16"][g], INT8_TP_NOISE * e)
+           for g, e in noise.items()}
+    log(f"cp int8: one process's prefix-int8 step vs its bf16 step {noise}")
+    _judge_grads("cp int8 prefix", "bfloat16", {"kernel": i8[0]["grads"]},
+                 base["prefix grads"], tol)
+    kernels["int8_gemm"]["launches_int8_tp"] = [
+        res["counts"].get("int8_gemm", 0) for res in i8]
+    for kname in ("flash_attn_allheads_fwd", "flash_attn_allheads_bwd"):
+        kernels[kname]["launches"] += sum(res["counts"][kname] for res in i8)
+        kernels[kname]["launches_int8_tp"] = [res["counts"][kname]
+                                              for res in i8]
+    log("cp: " + json.dumps({
+        "phase_s": time.perf_counter() - t_phase,
+        "spawn_wall_s": {"legacy 1x2": wall2, "four ranks": wall4},
+        "card": card_line()}))
 
 
 def _t1_errors(out, ref):
@@ -4058,8 +4832,12 @@ def _check_detect(predictor, n: int, seed: int, want: dict, tag: str,
     if orders["double"] != double or orders["sequential"] == double:
         problems.append(f"orders {orders}")
     if faster and not dbl_idle < seq_idle:
+        launch_ms = min(h["forward"] for h in host["sequential"])
+        busy_ms = min(r["busy_ms"] for r in idle["sequential"]) / chunks
         problems.append(f"idle {dbl_idle} ms double-buffered against "
-                        f"{seq_idle} ms sequential")
+                        f"{seq_idle} ms sequential (a chunk: {launch_ms:.3f}"
+                        f" ms of the host's launches, {busy_ms:.3f} ms of "
+                        f"device time)")
     if problems:
         raise AssertionError(f"detect {tag}: " + "; ".join(problems))
     log(f"measurement tools: detect {tag} x {chunks} chunks: double-buffered"
@@ -4188,8 +4966,10 @@ def phase_measurement_tools(seed: int, kernels: dict):
         torch.cuda.empty_cache()
 
     # Predictor.detect, double-buffered against sequential: ViT-B/224 at
-    # batch 32, then ViT-L/560 at batch 8, where the card, not the host,
-    # sets the pace.
+    # batch 32, then ViT-L/560 at batch 32, where the card, not the host,
+    # sets the pace (about 150 ms of device time a chunk against about
+    # 35 ms of the host's launches; at batch 8 the two were within a few
+    # ms of each other, and a slower host made either schedule idle more).
     for model_name, size, batch, kernel, per_forward in (
             ("facebook/dinov2-base", 224, DETECT_BATCH, "flash_attn_fwd",
              depth),
@@ -4395,6 +5175,7 @@ def main(argv=None) -> int:
     kernels.update(phase_bhsd_kernels(args.seed))
     kernels.update(phase_allheads_kernels(args.seed))
     kernels["attn_roofline"] = phase_roofline_kernel(args.seed)
+    kernels["flash_attention_lse"] = phase_lse_kernel(args.seed)
     serving_ips = phase_slice(args.seed, kernels, profile=args.profile)
     phase_int8_serving(args.seed, kernels, serving_ips, profile=args.profile)
     train_ips = phase_train(args.seed, kernels, profile=args.profile)
@@ -4405,6 +5186,7 @@ def main(argv=None) -> int:
     phase_large_serving(args.seed, kernels, profile=args.profile)
     phase_large_train(args.seed, kernels, profile=args.profile)
     phase_tp(args.seed, kernels)
+    phase_cp(args.seed, kernels)
     phase_roofline_tool(kernels)
     phase_bench()
     phase_trace()

@@ -220,9 +220,19 @@ class AugmentConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Process mesh layout: 'data' is the data-parallel axis, 'model' the
-    Megatron tensor-parallel one (parallel/sharding.py). Context and
-    pipeline parallelism and FSDP are not ported yet (ROADMAP.md): setting
+    """Process mesh layout (parallel/sharding.py): 'data' is the
+    data-parallel axis, 'model' the Megatron tensor-parallel one.
+
+    Context (sequence) parallelism runs the backbone's tokens sharded over
+    a ring of ranks (ops/ring_attention.py), in either of the JAX
+    package's two modes:
+    - `context_parallel_size` > 0: a dedicated 'context' axis on a
+      three-axis ('data', 'context', 'model') mesh, which composes with
+      tensor parallelism over 'model' (DP x CP x TP);
+    - `context_parallel`: the legacy mode, where the ring runs over the
+      two-axis mesh's model axis (of `model_parallel_size` ranks) and the
+      params stay replicated over it (no tensor parallelism).
+    Pipeline parallelism and FSDP are not ported yet (ROADMAP.md): setting
     any of their fields raises."""
 
     data_axis: str = "data"
@@ -239,9 +249,35 @@ class MeshConfig:
     pipeline_chunks: int = 1
 
     def __post_init__(self):
+        # The JAX package's exclusivity checks and messages
+        # (dinov2_od_tpu/config.py MeshConfig.__post_init__).
+        if self.context_parallel and self.pipeline_parallel:
+            raise ValueError(
+                "context_parallel and pipeline_parallel both claim the "
+                "model axis — enable at most one"
+            )
+        if self.context_parallel_size > 0 and self.context_parallel:
+            raise ValueError(
+                "use either context_parallel (legacy: ring over the model "
+                "axis) or context_parallel_size (dedicated context axis, "
+                "composable with TP) — not both"
+            )
+        if self.context_parallel_size > 0 and self.pipeline_parallel:
+            raise ValueError(
+                "context_parallel_size and pipeline_parallel cannot be "
+                "combined (the pipeline claims the model axis for stages)"
+            )
+        if self.pipeline_parallel_size > 0 and (
+            self.pipeline_parallel
+            or self.context_parallel
+            or self.context_parallel_size > 0
+        ):
+            raise ValueError(
+                "pipeline_parallel_size (dedicated stage axis) is "
+                "exclusive with pipeline_parallel, context_parallel, and "
+                "context_parallel_size"
+            )
         unported = {
-            "context parallelism": (self.context_parallel
-                                    or self.context_parallel_size > 0),
             "pipeline parallelism": (self.pipeline_parallel
                                      or self.pipeline_parallel_size > 0
                                      or self.pipeline_microbatches > 0
@@ -254,6 +290,21 @@ class MeshConfig:
                     f"{what} is not ported to PyTorch yet (ROADMAP.md)")
         if self.model_parallel_size < 1:
             raise ValueError("model_parallel_size must be >= 1")
+        if self.context_parallel_size < 0:
+            raise ValueError("context_parallel_size must be >= 0")
+
+    @property
+    def tensor_parallel_size(self) -> int:
+        """The Megatron degree: the model axis's size, except in legacy
+        context parallelism, where that axis carries tokens."""
+        return 1 if self.context_parallel else self.model_parallel_size
+
+    @property
+    def context_size(self) -> int:
+        """The ring's size: 1 without context parallelism."""
+        if self.context_parallel:
+            return self.model_parallel_size
+        return max(self.context_parallel_size, 1)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -43,6 +43,7 @@ def detector_apply(
     deterministic: bool = True,
     attn_impl: str = "auto",
     mesh=None,
+    seq_axis: Optional[str] = None,
     use_remat: bool = False,
 ) -> Dict[str, Any]:
     """Full forward pass on pixel_values [B, H, W, 3] (NHWC).
@@ -50,13 +51,17 @@ def detector_apply(
     `generator` (on the params' device) drives the decoder's dropout when
     deterministic is False. Under `mesh` (parallel/) params are this
     rank's shard (`shard_params`), pixel_values this rank's batch slice,
-    and the outputs are replicated over the model axis. `use_remat`
+    and the outputs are replicated over the model axis. With
+    attn_impl="ring" and `seq_axis` the backbone's tokens are split over
+    the mesh's context ring (models/vit.py); the decoder then runs whole
+    on every rank of the ring, on the gathered features, and the outputs
+    are replicated over the ring too. `use_remat`
     recomputes each adapted backbone block in the backward. Returns
     {"pred_logits": [B, Q, C], "pred_boxes": [B, Q, 4]}, plus
     "aux_outputs" in train mode when the decoder's aux_loss is set."""
     features = backbone_apply(
         params["backbone"], cfg.backbone, pixel_values, attn_impl=attn_impl,
-        mesh=mesh, use_remat=use_remat,
+        mesh=mesh, seq_axis=seq_axis, use_remat=use_remat,
     )
     return decoder_apply(params["decoder"], cfg.decoder, features,
                          generator=generator, deterministic=deterministic,

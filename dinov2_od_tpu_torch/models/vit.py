@@ -19,7 +19,8 @@ HWIO `[p, p, 3, D]` kernel used as a `(py, px, c)`-ordered patch GEMM.
 - `lora_mode="fold"` trains through W + alpha * A @ B, built each call
   and cast to the activation dtype: one GEMM a linear, and the gradients
   of A and B come through the fold.
-- No sequence padding: the attention kernel masks its own ragged edge.
+- No sequence padding on one process: the attention kernel masks its own
+  ragged edge.
 
 - int8 params (models/quantize.py) are dispatched on "kernel_q": q/k/v as
   one int8 GEMM whose output the attention kernel reads in place, and
@@ -30,15 +31,29 @@ HWIO `[p, p, 3, D]` kernel used as a `(py, px, c)`-ordered patch GEMM.
   fused GEMM), proj and fc2 row-parallel with one all-reduce each and the
   bias added after it; attention runs on the rank's `num_heads / tp`
   heads. LoRA follows its base linear: B sharded with a column-parallel
-  kernel, A with a row-parallel one.
+  kernel, A with a row-parallel one. SwiGLU's fc1 shard holds the rank's
+  slice of each half (parallel/sharding.py), so `silu(x1) * x2` pairs
+  as on one process. int8 layers take the unfused path (B6 off, as in
+  JAX); a row-parallel int8 linear quantizes against the model group's
+  absmax (models/quantize.py `int8_row_parallel`).
+- Context parallelism (`attn_impl="ring"` with a mesh and its `seq_axis`):
+  after the embeddings the tokens are padded once to a multiple of the
+  ring's size and each rank keeps its contiguous `[B, S_pad / n, D]`
+  rows through every block (LayerNorm, the MLP and LayerScale are
+  token-local; attention is the ring, ops/ring_attention.py, with the
+  pad's keys masked), so a rank's backbone activations are 1/n of the
+  whole. The rows are gathered and the pad dropped before the final
+  norm. Padded rows never reach a real one (their keys are masked) and
+  get a zero cotangent, so outputs and gradients are exact (the JAX
+  package's pad-once argument).
 
-The dense `mlp` and `swiglu` FFNs are ported (SwiGLU not under tensor
-parallelism); MoE raises NotImplementedError (ROADMAP.md).
+The dense `mlp` and `swiglu` FFNs are ported; MoE raises
+NotImplementedError (ROADMAP.md).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -46,8 +61,13 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import BackboneConfig
 from ..ops.attention import multi_head_attention
-from ..parallel.collectives import copy_to_model, reduce_from_model
-from ..parallel.sharding import model_size
+from ..parallel.collectives import (
+    copy_to_model,
+    gather_tokens,
+    reduce_from_model,
+    shard_tokens,
+)
+from ..parallel.sharding import context_size, model_size
 from .layers import (
     compute_dtype,
     index_params,
@@ -60,7 +80,12 @@ from .layers import (
     torch_linear_init,
     trunc_normal_init,
 )
-from .quantize import int8_qkv, quantize_blocks
+from .quantize import (
+    int8_linear,
+    int8_qkv,
+    int8_row_parallel,
+    quantize_blocks,
+)
 
 Params = Dict[str, Any]
 
@@ -128,8 +153,11 @@ def _eff_kernel(p: Params, alpha: float, dtype, mode: str) -> torch.Tensor:
     return w.to(dtype)
 
 
-def _maybe_lora(x, p: Params, cfg: BackboneConfig, active: bool = True):
-    if "kernel_q" in p or not active:  # int8: LoRA folded by contract
+def _maybe_lora(x, p: Params, cfg: BackboneConfig, active: bool = True,
+                mesh=None):
+    if "kernel_q" in p:  # int8: LoRA folded by contract; B6 off under TP
+        return int8_linear(x, p, fused=model_size(mesh) == 1)
+    if not active:
         return linear(x, p)
     if cfg.lora_mode == "fold" and "lora_A" in p:
         w = _eff_kernel(p, cfg.lora_alpha, x.dtype, "fold")
@@ -137,10 +165,10 @@ def _maybe_lora(x, p: Params, cfg: BackboneConfig, active: bool = True):
     return lora_linear(x, p, cfg.lora_alpha)
 
 
-def _qkv(x, bp: Params, cfg: BackboneConfig, lora_active: bool):
+def _qkv(x, bp: Params, cfg: BackboneConfig, lora_active: bool, mesh=None):
     """q, k and v as one `[B, N, 3D]` buffer from one fused GEMM."""
     if "kernel_q" in bp["q"]:  # int8 params: LoRA folded by contract
-        return int8_qkv(x, bp)
+        return int8_qkv(x, bp, fused=model_size(mesh) == 1)
     alpha = cfg.lora_alpha
     mode = cfg.lora_mode if lora_active else "skip"
     names = ("q", "k", "v")
@@ -163,6 +191,8 @@ def _row_parallel(x, p: Params, cfg: BackboneConfig, active: bool, mesh):
     once, then the replicated bias."""
     if model_size(mesh) == 1:
         return _maybe_lora(x, p, cfg, active)
+    if "kernel_q" in p:
+        return int8_row_parallel(x, p, mesh)
     mode = cfg.lora_mode if active else "skip"
     y = x @ _eff_kernel(p, cfg.lora_alpha, x.dtype, mode)
     if mode not in ("fold", "skip") and "lora_A" in p:
@@ -172,24 +202,28 @@ def _row_parallel(x, p: Params, cfg: BackboneConfig, active: bool, mesh):
 
 
 def _attention(x, bp: Params, cfg: BackboneConfig, attn_impl: str,
-               lora_active: bool, mesh=None):
+               lora_active: bool, mesh=None, seq_axis=None, valid_len=None):
     b, n, d = x.shape
     tp = model_size(mesh)
     h, dh = cfg.num_heads // tp, d // cfg.num_heads
-    qkv = _qkv(copy_to_model(x, mesh), bp, cfg, lora_active)
+    qkv = _qkv(copy_to_model(x, mesh), bp, cfg, lora_active, mesh)
     # Three strided [B, N, H, dh] views of the one qkv buffer (this rank's
-    # heads under tensor parallelism).
+    # heads under tensor parallelism, its tokens under context
+    # parallelism).
     q, k, v = (t.view(b, n, h, dh) for t in qkv.chunk(3, dim=-1))
     out = multi_head_attention(
-        q, k, v, impl=attn_impl, mesh=mesh,
+        q, k, v, impl=attn_impl, mesh=mesh, seq_axis=seq_axis,
         tp_axis=mesh.cfg.model_axis if tp > 1 else None,
+        kv_valid_len=valid_len,
     ).reshape(b, n, h * dh)
     return _row_parallel(out, bp["proj"], cfg, lora_active, mesh)
 
 
 def _ffn(x, bp: Params, cfg: BackboneConfig, lora_active: bool, mesh=None):
-    h = _maybe_lora(copy_to_model(x, mesh), bp["fc1"], cfg, lora_active)
+    h = _maybe_lora(copy_to_model(x, mesh), bp["fc1"], cfg, lora_active,
+                    mesh)
     if cfg.ffn_type == "swiglu":
+        # This rank's slice of each half under TP (its fc1 shard's layout).
         x1, x2 = h.chunk(2, dim=-1)
         h = F.silu(x1) * x2
     else:
@@ -198,10 +232,12 @@ def _ffn(x, bp: Params, cfg: BackboneConfig, lora_active: bool, mesh=None):
 
 
 def _block_apply(x, bp: Params, cfg: BackboneConfig, attn_impl: str,
-                 lora_active: bool, mesh=None):
+                 lora_active: bool, mesh=None, seq_axis=None,
+                 valid_len=None):
     """Pre-norm ViT block with LayerScale."""
     x = x + bp["ls1"].to(x.dtype) * _attention(
-        layer_norm(x, bp["ln1"]), bp, cfg, attn_impl, lora_active, mesh
+        layer_norm(x, bp["ln1"]), bp, cfg, attn_impl, lora_active, mesh,
+        seq_axis, valid_len,
     )
     x = x + bp["ls2"].to(x.dtype) * _ffn(
         layer_norm(x, bp["ln2"]), bp, cfg, lora_active, mesh
@@ -216,16 +252,20 @@ def backbone_apply(
     *,
     attn_impl: str = "auto",
     mesh=None,
+    seq_axis: Optional[str] = None,
     use_remat: bool = False,
 ) -> torch.Tensor:
     """Run the backbone.
 
     Args:
       pixel_values: [B, H, W, 3] float images (NHWC).
+      attn_impl: the blocks' attention ('auto' | 'flash' | 'xla'), or
+        'ring' for context parallelism over `mesh`'s ring `seq_axis`.
       mesh: a process mesh (parallel/) whose model axis splits the blocks
-        (params: this rank's shard, `shard_params`); None runs whole.
+        (params: this rank's shard, `shard_params`) and, under 'ring',
+        whose context ring splits the tokens; None runs whole.
       use_remat: under autograd, keep only each adapted block's input and
-        recompute the block in the backward.
+        recompute the block (its ring included) in the backward.
 
     Returns:
       [B, seq, out_dim] features; seq = patches (+1 CLS unless
@@ -233,12 +273,9 @@ def backbone_apply(
       projection to target_dim.
     """
     _check_supported(cfg)
-    if model_size(mesh) > 1 and (cfg.prefix_int8
-                                 or "kernel_q" in params["blocks"]["q"]):
-        # As the JAX package turns B6 off under TP (ops/int8_gemm.py).
-        raise NotImplementedError(
-            "int8 layers under tensor parallelism are not ported yet "
-            "(ROADMAP.md)")
+    ring = attn_impl == "ring"
+    if ring and (mesh is None or seq_axis is None):
+        raise ValueError("attn_impl='ring' requires mesh and seq_axis")
     dtype = compute_dtype(cfg.dtype)
     x = pixel_values.to(dtype)
 
@@ -256,10 +293,22 @@ def backbone_apply(
     x = torch.cat([cls, x], dim=1)
     x = x + params["pos_embed"].to(dtype)
 
+    seq = x.shape[1]
+    valid_len = None
+    if ring:
+        # Pad once to a multiple of the ring, then keep this rank's rows.
+        n = context_size(mesh)
+        s_pad = -(-seq // n) * n
+        if s_pad != seq:
+            x = F.pad(x, (0, 0, 0, s_pad - seq))
+            valid_len = seq
+        x = shard_tokens(x, mesh)
+    blk = dict(mesh=mesh, seq_axis=seq_axis, valid_len=valid_len)
+
     adapted = _block_apply
     if use_remat and torch.is_grad_enabled():
-        adapted = lambda *a: checkpoint(_block_apply, *a,
-                                        use_reentrant=False)
+        adapted = lambda *a, **kw: checkpoint(_block_apply, *a, **kw,
+                                              use_reentrant=False)
     # The prefix below the last `lora_last_n_blocks` blocks runs without
     # autograd and without its LoRA factors (zero by construction there).
     k = max(0, cfg.depth - cfg.lora_last_n_blocks)
@@ -270,18 +319,21 @@ def backbone_apply(
                 # The prefix is pure inference, so the W8A8 scheme applies
                 # in training too: its six linears quantize here, from the
                 # stacked (possibly bf16) kernels of the first k blocks.
-                prefix = quantize_blocks(index_params(prefix, slice(0, k)))
+                prefix = quantize_blocks(index_params(prefix, slice(0, k)),
+                                         mesh)
             for i in range(k):
                 x = _block_apply(x, index_params(prefix, i), cfg,
-                                 attn_impl, False, mesh)
+                                 attn_impl, False, **blk)
         for i in range(k, cfg.depth):
             x = adapted(x, index_params(params["blocks"], i), cfg,
-                        attn_impl, True, mesh)
+                        attn_impl, True, **blk)
     else:
         for i in range(cfg.depth):
             x = adapted(x, index_params(params["blocks"], i), cfg,
-                        attn_impl, cfg.lora_last_n_blocks > 0, mesh)
+                        attn_impl, cfg.lora_last_n_blocks > 0, **blk)
 
+    if ring:
+        x = gather_tokens(x, mesh)[:, :seq]
     x = layer_norm(x, params["ln_f"])
     if "projection" in params:
         x = linear(x, params["projection"])

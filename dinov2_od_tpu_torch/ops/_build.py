@@ -39,11 +39,16 @@ build_logs: Dict[str, str] = {}  # ptxas register/spill report per source
 # Launches per kernel. A wrapper adds one right where it launches its
 # kernel and nowhere else, so a run can show that it went through it.
 launch_counts: Dict[str, int] = {name: 0 for name in SOURCES}
+# Launches made through a route that rides those kernels (B3,
+# `flash_attention_lse`: its forward's and its backward's), counted apart
+# from them and beside them.
+route_counts: Dict[str, int] = {"flash_attention_lse": 0}
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, route_counts):
+        for name in counts:
+            counts[name] = 0
 
 
 def _nvcc() -> str:

@@ -16,11 +16,15 @@ dinov2_od_tpu/ops/attention.py).
   mask their own ragged edges) when nothing is dropped, else 'xla' — on
   the CPU always 'xla', as JAX takes XLA off the TPU.
 
+- 'ring': context parallelism (ops/ring_attention.py): q, k and v are
+  this rank's shards of the sequence, split over the mesh's ring
+  (`seq_axis`), and `kv_valid_len` is the global count of real keys; the
+  ring's inner loop is 'auto' (flash on a CUDA tensor).
+
 Tensor-parallel attention (`tp_axis`) needs no collective: each rank's
 q, k and v already hold only its heads, and attention is independent per
 head; the mesh only places an attention-dropout mask (drawn over every
-head, sliced to this rank's). Ring attention (`impl='ring'`, `seq_axis`)
-is not ported yet (ROADMAP.md) and raises.
+head, sliced to this rank's). Under CP x TP the ring runs on those heads.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch
 
 from ..parallel.sharding import keep_mask
 from .flash_attention import HEAD_DIM, NEG_INF, flash_attention
+from .ring_attention import ring_attention
 
 
 def _xla_attention(q, k, v, scale: float, dropout_rate: float = 0.0,
@@ -78,7 +83,10 @@ def multi_head_attention(
 
     Args:
       q: [B, Sq, H, Dh]; k, v: [B, Sk, H, Dh].
-      impl: 'auto' | 'flash' | 'xla'.
+      impl: 'auto' | 'flash' | 'xla' | 'ring' (context parallelism: q,
+        k, v this rank's [B, S / n, H, Dh] shards of a self-attention over
+        the ring of `mesh` named `seq_axis`; `kv_valid_len` the global
+        count of real keys).
       dropout_rate / generator: attention-probability dropout, active only
         when both are set, drawn from `generator` (on q's device).
       mesh / tp_axis: the process mesh, and the model axis when q, k, v
@@ -89,13 +97,24 @@ def multi_head_attention(
     Returns:
       [B, Sq, H, Dh]
     """
-    if impl == "ring" or seq_axis:
-        raise NotImplementedError(
-            "ring attention is not ported to PyTorch yet (ROADMAP.md, "
-            "Queue A: parallel layouts)"
-        )
     scale = 1.0 / (q.shape[-1] ** 0.5)
     use_dropout = dropout_rate > 0.0 and generator is not None
+    if impl == "ring":
+        # The JAX package's checks and messages.
+        if mesh is None or seq_axis is None:
+            raise ValueError("impl='ring' requires mesh and seq_axis")
+        if use_dropout:
+            raise ValueError(
+                "attention-probability dropout is not supported under "
+                "ring attention (probabilities are never materialized)"
+            )
+        if q.shape[:2] != k.shape[:2]:
+            raise ValueError(
+                "ring attention supports self-attention shapes only "
+                f"(got Sq={q.shape[1]}, Sk={k.shape[1]})"
+            )
+        return ring_attention(q, k, v, scale=scale, mesh=mesh, axis=seq_axis,
+                              head_axis=tp_axis, valid_len=kv_valid_len)
     if impl == "auto":
         impl = "flash" if _flash_eligible(q, k) and not use_dropout else "xla"
     if impl == "flash":

@@ -766,14 +766,19 @@ class _FlashAttention(torch.autograd.Function):
     """o and the log2 lse from the flat, all-heads or blocked forward;
     the backward takes the flat kernel after a flat forward and, after a
     BHSD one, the all-heads or blocked kernel by the backward's own rule;
-    each function looked up at call time."""
+    each function looked up at call time. `lse_route` marks a call of
+    `flash_attention_lse` (B3), whose launches on the card it counts in
+    `_build.route_counts` too."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, kv_len, flat):
+    def forward(ctx, q, k, v, scale, kv_len, flat, lse_route=False):
         o, lse2 = _forward_fn(q, k, flat)(q, k, v, scale=scale,
                                           kv_len=kv_len)
+        if lse_route and q.is_cuda:
+            _build.route_counts["flash_attention_lse"] += 1
         ctx.save_for_backward(q, k, v, o, lse2)
         ctx.scale, ctx.kv_len, ctx.flat = scale, kv_len, flat
+        ctx.lse_route = lse_route
         ctx.set_materialize_grads(False)
         return o, lse2
 
@@ -785,7 +790,9 @@ class _FlashAttention(torch.autograd.Function):
         bwd = _backward_fn(q, k, ctx.flat)
         dq, dk, dv = bwd(q, k, v, o, lse2, do, scale=ctx.scale,
                          kv_len=ctx.kv_len, glse2=glse2)
-        return dq, dk, dv, None, None, None
+        if ctx.lse_route and q.is_cuda:
+            _build.route_counts["flash_attention_lse"] += 1
+        return dq, dk, dv, None, None, None, None
 
 
 def _family(q, k, v, kv_len, flat: Optional[bool]):
@@ -816,9 +823,11 @@ def flash_attention_lse(
     """Attention plus its natural-log lse `[B, Sq, H]` (fp32), as the JAX
     `flash_attention_lse` returns them; differentiable in both (autograd
     turns the natural-log cotangent into the log2 one the kernels
-    take)."""
+    take). The kernel route of ring attention (ops/ring_attention.py);
+    its launches on the card are counted in `_build.route_counts` as
+    well as the kernels'."""
     kv_len, flat = _family(q, k, v, kv_len, flat)
-    o, lse2 = _FlashAttention.apply(q, k, v, scale, kv_len, flat)
+    o, lse2 = _FlashAttention.apply(q, k, v, scale, kv_len, flat, True)
     return o, lse2.transpose(1, 2) * _LN2
 
 

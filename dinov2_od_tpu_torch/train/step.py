@@ -16,7 +16,14 @@ batch slice and its param shard, as GSPMD runs the JAX step: the forward
 places its tensor-parallel collectives itself, each rank matches its own
 (model-replicated) predictions, the partial gradients of replicated
 leaves are summed over the model group and every gradient over the data
-group, and the optimizer updates the shards.
+group, and the optimizer updates the shards. Under context parallelism
+(either of `MeshConfig`'s modes) the backbone's attention is the ring
+(`_cp_kwargs`): each rank of the ring runs the backbone on its tokens and
+the decoder, the matcher and the loss whole on the gathered features, so
+the backbone leaves' gradients are summed over the ring and the decoder's
+are not (parallel/collectives.py `reduce_gradients`). The decoder's
+dropout masks are drawn alike on every rank of the ring, from generators
+seeded alike.
 """
 
 from __future__ import annotations
@@ -80,6 +87,20 @@ def prep_images(images: torch.Tensor, normalize: bool) -> torch.Tensor:
     return x
 
 
+def _cp_kwargs(cfg: TrainConfig, mesh) -> dict:
+    """detector_apply's kwargs for context parallelism (the JAX step's
+    `_cp_kwargs`): ring attention over the mesh's ring in either mode,
+    composed with Megatron TP over the model axis on the three-axis mesh;
+    {} without a ring."""
+    if mesh is None or cfg.mesh.context_size == 1:
+        return {}
+    if mesh.context_size != cfg.mesh.context_size:
+        raise ValueError(f"cfg.mesh asks for a ring of "
+                         f"{cfg.mesh.context_size}; the mesh has "
+                         f"{mesh.context_size}")
+    return {"attn_impl": "ring", "seq_axis": mesh.seq_axis}
+
+
 def train_loss(cfg: TrainConfig, params, batch: Batch,
                generator: Optional[torch.Generator] = None, *,
                attn_impl: str = "auto", mesh=None,
@@ -92,9 +113,10 @@ def train_loss(cfg: TrainConfig, params, batch: Batch,
     one."""
     det_cfg = cfg.detector
     images = prep_images(batch["images"], cfg.data.normalize)
+    kw = {"attn_impl": attn_impl, **_cp_kwargs(cfg, mesh)}
     out = detector_apply(params, det_cfg, images, generator=generator,
-                         deterministic=False, attn_impl=attn_impl, mesh=mesh,
-                         use_remat=cfg.use_remat)
+                         deterministic=False, mesh=mesh,
+                         use_remat=cfg.use_remat, **kw)
     kw = dict(matcher_cfg=cfg.matcher, loss_cfg=cfg.loss,
               num_classes=det_cfg.decoder.num_classes, mesh=mesh)
     gt = (batch["labels"], batch["boxes"], batch["valid"])
@@ -200,15 +222,15 @@ def make_train_step(cfg: TrainConfig, mesh=None):
       count (with the mini-step) becomes a 0-dim tensor that indexes the
       host's bias corrections and learning rates (`AdamTable`).
 
-    Under `mesh` (parallel/sharding.py `create_mesh`, its model axis of
-    cfg.mesh.model_parallel_size) every rank calls the step with its state
-    of param shards (`shard_params`), its batch slice (`batch_sharding`)
-    and a generator seeded as every other rank's; the metrics are the
-    global batch's."""
-    tp = cfg.mesh.model_parallel_size
+    Under `mesh` (parallel/sharding.py `create_mesh` from cfg.mesh) every
+    rank calls the step with its state of param shards (`shard_params`),
+    its batch slice (`batch_sharding`) and a generator seeded as every
+    other rank's; the metrics are the global batch's."""
+    tp = cfg.mesh.tensor_parallel_size
     if (mesh.model_size if mesh is not None else 1) != tp:
-        raise ValueError(f"cfg.mesh.model_parallel_size={tp} needs a mesh "
-                         f"with a model axis of that size")
+        raise ValueError(f"cfg.mesh's tensor-parallel size {tp} needs a "
+                         f"mesh with a model axis of that size")
+    _cp_kwargs(cfg, mesh)
     check_tp_compatible(cfg.detector, tp)
     det_cfg = cfg.detector
     k_acc = cfg.optim.gradient_accumulation_steps
@@ -308,14 +330,17 @@ def make_train_step(cfg: TrainConfig, mesh=None):
 
 def make_eval_step(cfg: TrainConfig, mesh=None):
     """eval_step(params, images) -> the detector's raw outputs, in eval
-    mode (no dropout, no gradient)."""
+    mode (no dropout, no gradient). Under `mesh`, as the train step: this
+    rank's param shards and batch slice, the ring under context
+    parallelism."""
     det_cfg = cfg.detector
+    cp = _cp_kwargs(cfg, mesh)
 
     @torch.inference_mode()
     def eval_step(params, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         return detector_apply(params, det_cfg,
                               prep_images(images, cfg.data.normalize),
-                              deterministic=True, mesh=mesh)
+                              deterministic=True, mesh=mesh, **cp)
 
     return eval_step
 
@@ -326,15 +351,17 @@ def make_eval_topk_step(cfg: TrainConfig, mesh=None,
     """eval_topk_step(params, images, orig_sizes) -> {"topk": [B, K, 6]}
     fp32, (score, label, x, y, w, h) along the last dim (labels exact in
     fp32): the forward and the top-k over (query, class) on the device,
-    one compact tensor for the host to copy (evaluate_dataset's path)."""
+    one compact tensor for the host to copy (evaluate_dataset's path).
+    Under `mesh` as `make_eval_step`."""
     det_cfg = cfg.detector
+    cp = _cp_kwargs(cfg, mesh)
 
     @torch.inference_mode()
     def eval_topk_step(params, images: torch.Tensor,
                        orig_sizes: torch.Tensor) -> Dict[str, torch.Tensor]:
         out = detector_apply(params, det_cfg,
                              prep_images(images, cfg.data.normalize),
-                             deterministic=True, mesh=mesh)
+                             deterministic=True, mesh=mesh, **cp)
         scores, labels, boxes = select_topk_detections(
             out["pred_logits"], out["pred_boxes"], orig_sizes,
             max_detections=max_detections, parity_mode=parity_mode)

@@ -167,14 +167,16 @@ def test_unsupported_inputs_raise():
     # Sq != Sk takes the BHSD family; the flat one is self-attention only.
     with pytest.raises(ValueError):
         fa.flash_attention(q, k[:, :5], v[:, :5], scale=0.125, flat=True)
-    with pytest.raises(NotImplementedError):
+    # As JAX's: the ring needs a mesh and its axis.
+    with pytest.raises(ValueError, match="requires mesh and seq_axis"):
         multi_head_attention(q, k, v, impl="ring")
     # The flash kernel never materialises the probabilities to drop.
     with pytest.raises(ValueError, match="dropout"):
         multi_head_attention(q, k, v, impl="flash", dropout_rate=0.1,
                              generator=torch.Generator())
-    with pytest.raises(NotImplementedError):
-        multi_head_attention(q, k, v, seq_axis="model")
+    # As in JAX, seq_axis matters only to impl='ring'.
+    assert torch.equal(multi_head_attention(q, k, v, seq_axis="model"),
+                       multi_head_attention(q, k, v))
     # Tensor-parallel heads are this rank's heads: attention as it is.
     assert torch.equal(multi_head_attention(q, k, v, tp_axis="model"),
                        multi_head_attention(q, k, v))

@@ -188,3 +188,60 @@ def test_kernel_matches_plain_on_card(dtype, kv_len):
         err = (g.float() - r.float()).abs().max().item()
         assert err <= tol * max(1.0, r.float().abs().max().item())
     assert not got[1][:, kv_len:].any() and not got[2][:, kv_len:].any()
+
+
+# B3 on the card, each family at a shape a path gives it: the flat
+# kernels at ring attention's local ViT-L/560 shard under a ring of 2
+# (801 tokens, 16 heads; kv_len 801 and the straddling shard's 800), the
+# all-heads pair at ViT-B's 3 heads a rank under TP 4, the blocked pair
+# at ViT-L/560 whole (1601 tokens). (batch, S, heads, kv_len, the forward
+# and backward kernels the family launches)
+LSE_CASES = [
+    (8, 801, 16, 801, "flash_attn_fwd", "flash_attn_bwd"),
+    (8, 801, 16, 800, "flash_attn_fwd", "flash_attn_bwd"),
+    (32, 257, 3, 257, "flash_attn_allheads_fwd", "flash_attn_allheads_bwd"),
+    (8, 1601, 16, 1601, "flash_attn_bhsd_fwd", "flash_attn_bhsd_bwd"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", LSE_CASES,
+                         ids=lambda c: f"s{c[1]}_h{c[2]}_kv{c[3]}")
+def test_lse_route_with_lse_cotangent_matches_plain_on_card(case):
+    """B3, `flash_attention_lse`, bf16 with a nonzero cotangent of its lse
+    (as ring attention's backward gives it): o, the lse and dq, dk, dv
+    against the plain versions composed on the same inputs (the plain
+    forward, then the lse cotangent folded into delta and the plain
+    backward). One forward and one backward launch of the family's
+    kernels, two of the route. Tolerances: chip_smoke.py TOL (o, lse) and
+    BWD_TOL (gradients)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    b, s, h, kv_len, fwd_name, bwd_name = case
+    gen = torch.Generator().manual_seed(s + kv_len)
+    q, k, v, do = (torch.randn((b, s, h, DH), generator=gen).to(
+        "cuda", torch.bfloat16) for _ in range(4))
+    dlse = torch.randn((b, s, h), generator=gen).cuda()
+    qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+    before = (dict(_build.launch_counts), dict(_build.route_counts))
+    o, lse = fa.flash_attention_lse(qq, kk, vv, scale=SCALE, kv_len=kv_len)
+    got = torch.autograd.grad((o, lse), (qq, kk, vv), (do, dlse))
+    torch.cuda.synchronize()
+    counts, route = _build.launch_counts, _build.route_counts
+    assert counts[fwd_name] == before[0][fwd_name] + 1
+    assert counts[bwd_name] == before[0][bwd_name] + 1
+    assert route["flash_attention_lse"] == (
+        before[1]["flash_attention_lse"] + 2)
+    o_ref, lse2 = fa.flash_attention_bhsd_fwd_plain(q, k, v, scale=SCALE,
+                                                    kv_len=kv_len)
+    glse2 = (dlse * fa._LN2).transpose(1, 2)
+    ref = fa.flash_attention_bhsd_bwd_plain(
+        q, k, v, do, lse2, fa._delta(do, o_ref, glse2), scale=SCALE,
+        kv_len=kv_len)
+    assert (o.float() - o_ref.float()).abs().max().item() <= 1e-2
+    assert (lse - lse2.transpose(1, 2) * fa._LN2).abs().max().item() <= (
+        3e-3 * fa._LN2)
+    for g, r in zip(got, ref):
+        err = (g.float() - r.float()).abs().max().item()
+        assert err <= 2.0 ** -7 * max(1.0, r.float().abs().max().item())
+    assert not got[1][:, kv_len:].any() and not got[2][:, kv_len:].any()

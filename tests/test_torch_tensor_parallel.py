@@ -425,8 +425,8 @@ def test_dropout_under_tp_drops_what_one_process_drops(run):
 
 @pytest.mark.parametrize("tp", [2, 3, 4, 8])
 def test_check_tp_compatible_matches_jax(tp):
-    """The port accepts and refuses what JAX's check does, and refuses the
-    SwiGLU FFN, whose split is not ported."""
+    """The port accepts and refuses what JAX's check does, the SwiGLU FFN
+    (ViT-g) and a context axis included; FSDP still raises as unported."""
     for backbone in (MESHES["2x2"][2], MESHES["1x4"][2]):
         jc, pc = _cfgs(backbone)
         try:
@@ -439,13 +439,18 @@ def test_check_tp_compatible_matches_jax(tp):
         else:
             with pytest.raises(ValueError):
                 psh.check_tp_compatible(pc.detector, tp)
-    giant = pcfg.DetectorConfig(
-        backbone=pcfg.BackboneConfig(variant="giant", target_dim=768),
-        decoder=pcfg.DecoderConfig())
-    if tp in (2, 4, 8):
-        with pytest.raises(NotImplementedError, match="SwiGLU"):
-            psh.check_tp_compatible(giant, tp)
-    with pytest.raises(NotImplementedError):
-        pcfg.MeshConfig(context_parallel_size=2)
+    giant = dict(variant="giant", target_dim=768)
+    jgiant = jcfg.DetectorConfig(backbone=jcfg.BackboneConfig(**giant),
+                                 decoder=jcfg.DecoderConfig())
+    pgiant = pcfg.DetectorConfig(backbone=pcfg.BackboneConfig(**giant),
+                                 decoder=pcfg.DecoderConfig())
+    try:
+        jax_check_tp(jgiant, tp)
+        psh.check_tp_compatible(pgiant, tp)
+    except ValueError:
+        with pytest.raises(ValueError):
+            psh.check_tp_compatible(pgiant, tp)
+    assert jcfg.MeshConfig(context_parallel_size=2).context_parallel_size == 2
+    assert pcfg.MeshConfig(context_parallel_size=2).context_size == 2
     with pytest.raises(NotImplementedError):
         pcfg.MeshConfig(fsdp=True)
