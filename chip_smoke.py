@@ -95,6 +95,22 @@ non-zero and prints no result:
              Predictor.from_checkpoint equal to the in-memory Predictor;
              serve.main in a thread (GET endpoints, concurrent POST
              /detect, 12 B1 a batch);
+7a. import export - pretrained weights in and serving bundles out at
+             ViT-B/14 224 px: a random state dict under HF Dinov2Model's
+             names at 518 px (37 x 37 positions) through the HF importer,
+             every copied leaf equal to its source and pos_embed to the
+             16 x 16 resample on the CPU, the imported model's b32 eval
+             forward (12 B1) against plain attention with controls;
+             `train.cli.main --pretrained_backbone` for one epoch (12 B1 +
+             2 B2 a step, 12 B1 a val batch); its final params through
+             save_reference_checkpoint and `--import_reference_checkpoint
+             --only_evaluate`, equal to the run's validation metrics;
+             tools/export.main to a bf16 and an int8 bundle (batch sizes
+             1, 8, 32), each reloaded and against a Predictor over the
+             same params bit for bit on 32 and 41 images, 3 images padded
+             onto 8 equal to an 8-image call's first 3 (12 B1, and 12 B6
+             in int8, a forward); `serve.main --bundle` answering POST
+             /detect with ServingModel.detect's detections;
 7b. train recipes - the recorded recipes' options at ViT-B/224 b32 (bf16,
              25 GT slots unless named): remat (14 B1 + 2 B2 a step, the
              LoRA gradients bit-equal to the step's without it under
@@ -384,6 +400,15 @@ CLI_RESUME_MEAN_TOL = 0.02
 # int8 evaluation of the final checkpoint against the bf16 evaluation of
 # the same checkpoint: |AP_int8 - AP_bf16| (COCO AP in [0, 1]).
 CLI_INT8_AP_TOL = 0.02
+# Import/export phase: an HF-named random ViT-B/14 state dict at DINOv2's
+# 518 px (a 37 x 37 position grid) imported into 224 px; one epoch of the
+# CLI from it on IMPORT_TRAIN_IMAGES packed images (10 steps at batch 32)
+# and CLI_VAL_IMAGES val images; bundles exported at BUNDLE_BATCHES and
+# checked on BUNDLE_IMAGES images (and 41, 8, 3 and 1).
+IMPORT_SRC_GRID = 37
+IMPORT_TRAIN_IMAGES = 320
+BUNDLE_BATCHES = (1, 8, 32)
+BUNDLE_IMAGES = 32
 # Train recipes phase (the recorded recipes' step options and the cached
 # loop at ViT-B/224 b32, bf16 unless named, 25 GT slots for the step
 # checks). Steps driven each way with remat; its LoRA gradients must be
@@ -2288,6 +2313,32 @@ def _ap(out_dir: str, epoch: int) -> dict:
         return json.load(f)
 
 
+@contextlib.contextmanager
+def _serve_main(args):
+    """serve.main(args) in a thread: yields the listening server, then
+    shuts it down and fails unless main returned 0."""
+    from dinov2_od_tpu_torch import serve
+
+    ready, result = [], {}
+    thread = threading.Thread(target=lambda: result.setdefault(
+        "rc", serve.main(args, on_ready=ready.append)))
+    thread.start()
+    try:
+        for _ in range(3000):
+            if ready or not thread.is_alive():
+                break
+            thread.join(timeout=0.1)
+        if not ready:
+            raise AssertionError(f"serve.main {args[:2]} did not start")
+        yield ready[0]
+    finally:
+        if ready:
+            ready[0].shutdown()
+        thread.join(timeout=120)
+    if thread.is_alive() or result.get("rc") != 0:
+        raise AssertionError(f"serve.main {args[:2]}: rc {result.get('rc')}")
+
+
 def _cli_serve(final: str, seed: int, image_size: int):
     """serve.main in a thread on a free port with the final checkpoint:
     its GET endpoints, then concurrent POST /detect requests (PNG bodies)
@@ -2298,25 +2349,14 @@ def _cli_serve(final: str, seed: int, image_size: int):
 
     from PIL import Image
 
-    from dinov2_od_tpu_torch import serve
     from dinov2_od_tpu_torch.ops import _build
 
-    ready, result = [], {}
     args = ["--checkpoint", final, "--image_size", str(image_size),
             "--batch_size", "16", "--host", "127.0.0.1", "--port", "0",
             "--max_batch", "16", "--batch_wait_ms", "50"]
     _build.reset_launch_counts()
-    thread = threading.Thread(target=lambda: result.setdefault(
-        "rc", serve.main(args, on_ready=ready.append)))
-    thread.start()
-    try:
-        for _ in range(3000):
-            if ready or not thread.is_alive():
-                break
-            thread.join(timeout=0.1)
-        if not ready:
-            raise AssertionError("serve.main did not start")
-        url = f"http://127.0.0.1:{ready[0].server_address[1]}"
+    with _serve_main(args) as server:
+        url = f"http://127.0.0.1:{server.server_address[1]}"
         with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
             health = json.load(r)
         rng = np.random.default_rng(seed)
@@ -2351,13 +2391,9 @@ def _cli_serve(final: str, seed: int, image_size: int):
             c.join(timeout=300)
         with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
             metrics = r.read().decode()
-    finally:
-        if ready:
-            ready[0].shutdown()
-        thread.join(timeout=120)
     counts = dict(_build.launch_counts)
-    if errors or thread.is_alive() or result.get("rc") != 0:
-        raise AssertionError(f"serve.main: {errors}, rc {result.get('rc')}")
+    if errors:
+        raise AssertionError(f"serve.main: {errors}")
     if health.get("status") != "ok" or any(
             a is None or len(a) != n or not all(len(d) for d in a)
             for a, n in zip(answers, (3, 5, 2, 6))):
@@ -2641,6 +2677,442 @@ def phase_train_cli(seed: int, kernels: dict, bare_ips: float) -> float:
         kernels["flash_attn_fwd"]["launches"] += serve_counts[
             "flash_attn_fwd"]
     return logs[CLI_EPOCHS - 1]["images_per_sec"]
+
+
+# HF Dinov2 names of each block linear, by the port's leaf name.
+HF_BLOCK_LINEARS = {"q": "attention.attention.query",
+                    "k": "attention.attention.key",
+                    "v": "attention.attention.value",
+                    "proj": "attention.output.dense",
+                    "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
+
+
+def _hf_state_dict(seed: int, bb, grid: int = IMPORT_SRC_GRID) -> dict:
+    """A random state dict under HF Dinov2Model's key names for the
+    backbone `bb` at a `grid` x `grid` patch grid (37: DINOv2's 518 px),
+    fp32 on the CPU, drawn from `seed` with the port's init distributions
+    (nn.Linear's uniform, truncated normals of std 0.02 for the
+    embeddings, unit norms and LayerScale)."""
+    import math
+
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    d, m = bb.hidden_dim, bb.mlp_dim
+    shapes = {"q": (d, d), "k": (d, d), "v": (d, d), "proj": (d, d),
+              "fc1": (m, d), "fc2": (d, m)}
+
+    def uniform(*shape, fan_in):
+        return (torch.rand(shape, generator=gen) * 2 - 1) / math.sqrt(fan_in)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen).clamp_(-2, 2) * 0.02
+
+    sd = {"embeddings.cls_token": normal(1, 1, d),
+          "embeddings.mask_token": torch.zeros(1, d),
+          "embeddings.position_embeddings": normal(1, 1 + grid * grid, d),
+          "embeddings.patch_embeddings.projection.weight": normal(
+              d, 3, bb.patch_size, bb.patch_size),
+          "embeddings.patch_embeddings.projection.bias": torch.zeros(d),
+          "layernorm.weight": torch.ones(d), "layernorm.bias": torch.zeros(d)}
+    for i in range(bb.depth):
+        pre = f"encoder.layer.{i}."
+        for ours, hf in HF_BLOCK_LINEARS.items():
+            n_out, n_in = shapes[ours]
+            sd[pre + hf + ".weight"] = uniform(n_out, n_in, fan_in=n_in)
+            sd[pre + hf + ".bias"] = uniform(n_out, fan_in=n_in)
+        for norm in ("norm1", "norm2"):
+            sd[pre + norm + ".weight"] = torch.ones(d)
+            sd[pre + norm + ".bias"] = torch.zeros(d)
+        for scale in ("layer_scale1", "layer_scale2"):
+            sd[pre + scale + ".lambda1"] = torch.full((d,),
+                                                      bb.layerscale_init)
+    return sd
+
+
+def _check_hf_import(bb, sd: dict, imported: dict) -> int:
+    """Every leaf the importer copies equals its source exactly (moved to
+    the CPU; linear weights transposed, the patch kernel OIHW -> HWIO),
+    and pos_embed is the 37 x 37 -> 16 x 16 resample run on the CPU.
+    Returns the number of leaves checked."""
+    import torch
+
+    from dinov2_od_tpu_torch.models.vit import interpolate_pos_embed
+
+    pairs = [
+        (imported["patch_embed"]["kernel"],
+         sd["embeddings.patch_embeddings.projection.weight"]
+         .permute(2, 3, 1, 0)),
+        (imported["patch_embed"]["bias"],
+         sd["embeddings.patch_embeddings.projection.bias"]),
+        (imported["cls_token"], sd["embeddings.cls_token"]),
+        (imported["pos_embed"], interpolate_pos_embed(
+            sd["embeddings.position_embeddings"], IMPORT_SRC_GRID,
+            bb.grid_size)),
+        (imported["ln_f"]["scale"], sd["layernorm.weight"]),
+        (imported["ln_f"]["bias"], sd["layernorm.bias"]),
+    ]
+    blocks = imported["blocks"]
+    for i in range(bb.depth):
+        pre = f"encoder.layer.{i}."
+        for ours, hf in HF_BLOCK_LINEARS.items():
+            pairs += [(blocks[ours]["kernel"][i], sd[pre + hf + ".weight"].t()),
+                      (blocks[ours]["bias"][i], sd[pre + hf + ".bias"])]
+        pairs += [(blocks["ln1"]["scale"][i], sd[pre + "norm1.weight"]),
+                  (blocks["ln1"]["bias"][i], sd[pre + "norm1.bias"]),
+                  (blocks["ln2"]["scale"][i], sd[pre + "norm2.weight"]),
+                  (blocks["ln2"]["bias"][i], sd[pre + "norm2.bias"]),
+                  (blocks["ls1"][i], sd[pre + "layer_scale1.lambda1"]),
+                  (blocks["ls2"][i], sd[pre + "layer_scale2.lambda1"])]
+    bad = [n for n, (got, want) in enumerate(pairs)
+           if got.dtype != torch.float32 or not torch.equal(got.cpu(), want)]
+    if bad or imported["pos_embed"].shape != (1, bb.seq_len, bb.hidden_dim):
+        raise AssertionError(f"import: {len(bad)} of {len(pairs)} leaves "
+                             f"differ from their source (first: {bad[:5]})")
+    return len(pairs)
+
+
+def _bundle_checks(model, predictor, pixel, sizes, quantize, bb):
+    """One bundle against a Predictor over the same params and config:
+    call_packed on BUNDLE_IMAGES images bit for bit against the
+    Predictor's batch-32 forward plus top-k; 41 images chunked as
+    _chunks gives them (32, then 9 padded onto 32), each chunk bit for
+    bit; 3 images padded onto 8 equal to the first 3 of an 8-image call;
+    1 image on the b1 size. Returns (launch counts, device batches)."""
+    import torch
+
+    from dinov2_od_tpu_torch.ops import _build
+
+    def ref(x, s):
+        pad = BUNDLE_IMAGES - len(x)
+        x = np.concatenate([x, np.zeros((pad,) + x.shape[1:], x.dtype)])
+        s = np.concatenate([s, np.ones((pad, 2), s.dtype)])
+        out = predictor._forward_topk(predictor._upload(x),
+                                      predictor._upload(s), 100)
+        return out[:BUNDLE_IMAGES - pad].cpu().numpy()
+
+    want32 = ref(pixel[:32], sizes[:32])
+    want_tail = ref(pixel[32:41], sizes[32:41])
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    model.device_batches = 0
+    got32 = model.call_packed(pixel[:32], sizes[:32])
+    got41 = model.call_packed(pixel[:41], sizes[:41])
+    got8 = model.call_packed(pixel[:8], sizes[:8])
+    got3 = model.call_packed(pixel[:3], sizes[:3])
+    got1 = model.call_packed(pixel[:1], sizes[:1])
+    torch.cuda.synchronize()
+    counts = dict(_build.launch_counts)
+    batches = model.device_batches
+    chunks = [model._chunks(n) for n in (32, 41, 8, 3, 1)]
+    want_chunks = [[(0, 32)], [(0, 32), (32, 32)], [(0, 8)], [(0, 8)],
+                   [(0, 1)]]
+    what = f"bundle {quantize or 'bf16'}"
+    if chunks != want_chunks:
+        raise AssertionError(f"{what}: chunks {chunks}, expected "
+                             f"{want_chunks}")
+    checks = {
+        "32 images == Predictor(batch_size=32)": np.array_equal(got32,
+                                                                want32),
+        "41 images: chunk 0 == the 32-image call": np.array_equal(
+            got41[:32], got32),
+        "41 images: 9 padded onto 32 == the Predictor's": np.array_equal(
+            got41[32:], want_tail),
+        "3 images padded onto 8 == the first 3 of an 8-image call":
+            np.array_equal(got3, got8[:3]),
+        "1 image on b1: finite, [1, 100, 6]": got1.shape == (1, 100, 6)
+            and bool(np.isfinite(got1).all()),
+    }
+    log(f"import export: {what}: " + ", ".join(
+        f"{k}: {v}" for k, v in checks.items()))
+    if not all(checks.values()):
+        raise AssertionError(f"{what} differs from the Predictor")
+    want = _counts(flash_attn_fwd=bb.depth * batches,
+                   int8_gemm=bb.depth * batches if quantize else 0)
+    if counts != want or batches != 6:
+        raise AssertionError(f"{what}: launches {counts} for {batches} "
+                             f"device batches; expected {want} "
+                             f"({bb.depth} B1{' and B6' if quantize else ''}"
+                             f" a forward, 6 forwards)")
+    return counts, batches
+
+
+def _bundle_serve(bundle: str, model, images_u8) -> dict:
+    """serve.main --bundle in a thread on a free port: POST /detect with
+    PNG bodies answers what ServingModel.detect returns on the decoded
+    images, and B1 runs 12 times a device batch of the server's model
+    (the warm-up included)."""
+    import base64
+    import io
+    import urllib.request
+
+    from PIL import Image
+
+    from dinov2_od_tpu_torch.ops import _build
+
+    def png(arr):
+        buf = io.BytesIO()
+        Image.fromarray(arr).save(buf, format="PNG")
+        return base64.b64encode(buf.getvalue()).decode()
+
+    body = json.dumps({"images": [png(a) for a in images_u8],
+                       "score_threshold": 0.0}).encode()
+    args = ["--bundle", bundle, "--host", "127.0.0.1", "--port", "0",
+            "--max_batch", "32", "--batch_wait_ms", "20"]
+    _build.reset_launch_counts()
+    with _serve_main(args) as server:
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            health = json.load(r)
+        req = urllib.request.Request(
+            url + "/detect", data=body,
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            answer = json.load(r)["detections"]
+        served_batches = server.RequestHandlerClass.model.device_batches
+    counts = dict(_build.launch_counts)
+    want = model.detect([a.astype(np.float32) / 255.0 for a in images_u8],
+                        score_threshold=0.0)
+    want_counts = _counts(flash_attn_fwd=12 * served_batches)
+    if (health.get("model") != "bundle:" + bundle or answer != want
+            or not all(len(d) for d in answer)):
+        raise AssertionError(f"serve.main --bundle answered {health}, "
+                             f"detections equal to ServingModel.detect's: "
+                             f"{answer == want}")
+    if counts != want_counts:
+        raise AssertionError(f"serve.main --bundle launches {counts} for "
+                             f"{served_batches} device batches; expected "
+                             f"{want_counts}")
+    log(f"import export: serve.main --bundle: /healthz {health}; POST "
+        f"/detect of {len(images_u8)} PNG images answered "
+        f"ServingModel.detect's {sum(map(len, answer))} detections "
+        f"exactly; {served_batches} device batches (the warm-up "
+        f"included), launches {counts}")
+    return counts
+
+
+def phase_import_export(seed: int, kernels: dict) -> None:
+    """Pretrained weights in and serving bundles out at ViT-B/14 224 px:
+    an HF-named state dict (518 px grid) through the importer and an eval
+    forward against plain attention; `train.cli.main --pretrained_backbone`
+    for one epoch; its final params through save_reference_checkpoint and
+    back through `--import_reference_checkpoint --only_evaluate` to the
+    same validation AP; tools/export.main to a bf16 and an int8 bundle,
+    each against a Predictor over the same params bit for bit; and
+    `serve.main --bundle` over HTTP."""
+    import os
+    import tempfile
+
+    import torch
+
+    from dinov2_od_tpu_torch.config import detector_config_for_model_name
+    from dinov2_od_tpu_torch.data.packed import PackedDataset
+    from dinov2_od_tpu_torch.export import load_serving_bundle
+    from dinov2_od_tpu_torch.inference import (Predictor, checkpoint_params,
+                                               prepare_images)
+    from dinov2_od_tpu_torch.models.detector import (
+        detector_apply, fold_detector_lora, init_detector_params)
+    from dinov2_od_tpu_torch.models.export_reference import (
+        save_reference_checkpoint)
+    from dinov2_od_tpu_torch.models.import_torch import (
+        load_dinov2_backbone_params)
+    from dinov2_od_tpu_torch.ops import _build
+    from dinov2_od_tpu_torch.tools import export as export_tool
+    from dinov2_od_tpu_torch.train import cli
+
+    t_phase = time.perf_counter()
+    image_size = 224
+    cfg = detector_config_for_model_name("facebook/dinov2-base",
+                                         image_size=image_size)
+    cfg16 = dataclasses.replace(
+        cfg, backbone=dataclasses.replace(cfg.backbone, dtype="bfloat16"))
+    bb = cfg.backbone
+    steps = IMPORT_TRAIN_IMAGES // CLI_BATCH
+    val_batches = -(-CLI_VAL_IMAGES // CLI_BATCH)
+    timings = {}
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="import_export_",
+                                     dir=build) as root:
+        # 1. The HF importer on a 518 px checkpoint, into 224 px.
+        hf_dir = os.path.join(root, "hf")
+        os.makedirs(hf_dir)
+        sd = _hf_state_dict(seed, bb)
+        torch.save(sd, os.path.join(hf_dir, "pytorch_model.bin"))
+        template = init_detector_params(torch.Generator().manual_seed(0),
+                                        cfg, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        imported = load_dinov2_backbone_params(hf_dir, bb,
+                                               template["backbone"])
+        torch.cuda.synchronize()
+        timings["hf_import_s"] = time.perf_counter() - t0
+        n_leaves = _check_hf_import(bb, sd, imported)
+        log(f"import export: HF state dict of ViT-B/14 at 518 px "
+            f"({len(sd)} tensors, position grid {IMPORT_SRC_GRID}^2) "
+            f"imported into {image_size} px in {timings['hf_import_s']:.2f} "
+            f"s; {n_leaves} copied leaves equal their sources exactly, "
+            f"pos_embed equal to the {IMPORT_SRC_GRID} -> {bb.grid_size} "
+            f"resample on the CPU")
+        del sd
+
+        # The imported model's eval forward: the kernel against plain
+        # attention, with controls (keys dropped) that must fail.
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        params = fold_detector_lora({**template, "backbone": imported}, cfg)
+        pixels, _ = prepare_images(_requests(seed, image_size, (32,))[0],
+                                   image_size, normalize=True)
+        x = torch.from_numpy(pixels).to("cuda")
+        with torch.inference_mode():
+            ref = detector_apply(params, cfg, x, attn_impl="xla")
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            runs = {"kernel": detector_apply(params, cfg, x,
+                                             attn_impl="auto")}
+            torch.cuda.synchronize()
+            fwd_counts = dict(_build.launch_counts)
+            for kv_len in CONTROLS:
+                with _keys_dropped(kv_len):
+                    runs[f"control kv_len={kv_len}"] = detector_apply(
+                        params, cfg, x, attn_impl="auto")
+        if fwd_counts != _counts(flash_attn_fwd=bb.depth):
+            raise AssertionError(f"import: the b32 forward launched "
+                                 f"{fwd_counts}; expected {bb.depth} B1")
+        _check_model("import export: imported ViT-B detector_apply float32",
+                     "plain attention", runs, ref, MODEL_TOL["float32"],
+                     _max_abs, "max abs err")
+        del params, runs, ref, x, template, imported
+        torch.cuda.empty_cache()
+
+        # 2. The CLI from the HF directory, then the reference round trip.
+        splits = _cli_splits(seed, root, image_size,
+                             n_train=IMPORT_TRAIN_IMAGES)
+        common = ["--packed_train_data", splits["train"],
+                  "--packed_val_data", splits["val"],
+                  "--dino_model", "facebook/dinov2-base",
+                  "--image_size", str(image_size),
+                  "--backbone_dtype", "bfloat16",
+                  "--batch_size", str(CLI_BATCH), "--num_epochs", "1",
+                  "--val_frequency", "1", "--log_frequency", "5"]
+        out = os.path.join(root, "pretrained")
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(common + ["--pretrained_backbone", hf_dir,
+                                "--output_dir", out])
+        torch.cuda.synchronize()
+        timings["cli_pretrained_s"] = time.perf_counter() - t0
+        counts = dict(_build.launch_counts)
+        want = _counts(flash_attn_fwd=bb.depth * (steps + val_batches),
+                       flash_attn_bwd=2 * steps)
+        logs = _epoch_logs(out, [0])[0]
+        log(f"import export: train.cli.main --pretrained_backbone: rc {rc} "
+            f"in {timings['cli_pretrained_s']:.1f} s, {steps} steps, mean "
+            f"loss {logs['mean_loss']}, launches {counts}")
+        if rc != 0 or counts != want:
+            raise AssertionError(f"--pretrained_backbone run: rc {rc}, "
+                                 f"launches {counts}, expected {want}")
+        if not np.isfinite(logs["losses"]).all():
+            raise AssertionError(f"--pretrained_backbone losses: "
+                                 f"{logs['losses']}")
+        trained = _ap(out, 0)
+        for name in ("flash_attn_fwd", "flash_attn_bwd"):
+            kernels[name]["launches"] += counts[name]
+            kernels[name]["launches_import_export_cli"] = counts[name]
+
+        final = os.path.join(out, "final_model")
+        final_params = checkpoint_params(final, cfg16, "cuda")
+        ref_file = os.path.join(root, "reference.pt")
+        t0 = time.perf_counter()
+        save_reference_checkpoint(ref_file, final_params, cfg16)
+        timings["reference_save_s"] = time.perf_counter() - t0
+        ev_out = os.path.join(root, "reference_eval")
+        _build.reset_launch_counts()
+        rc = cli.main(common + ["--only_evaluate",
+                                "--import_reference_checkpoint", ref_file,
+                                "--output_dir", ev_out])
+        torch.cuda.synchronize()
+        counts = dict(_build.launch_counts)
+        migrated = _ap(ev_out, 0)
+        log(f"import export: the run's final params through "
+            f"save_reference_checkpoint ({os.path.getsize(ref_file)} bytes "
+            f"in {timings['reference_save_s']:.2f} s) and "
+            f"--import_reference_checkpoint --only_evaluate: AP "
+            f"{migrated['AP']} against the run's final validation AP "
+            f"{trained['AP']} (AP50 {migrated['AP50']} / "
+            f"{trained['AP50']}), launches {counts}")
+        if rc != 0 or counts != _counts(flash_attn_fwd=bb.depth
+                                        * val_batches):
+            raise AssertionError(f"reference evaluation: rc {rc}, launches "
+                                 f"{counts}")
+        if migrated != trained:
+            raise AssertionError(f"the migrated checkpoint's metrics "
+                                 f"{migrated} differ from the run's "
+                                 f"{trained}")
+        kernels["flash_attn_fwd"]["launches"] += counts["flash_attn_fwd"]
+
+        # 3. The serving bundles, bf16 and int8, from the final checkpoint.
+        val = PackedDataset(splits["val"]).get_batch(range(BUNDLE_IMAGES + 9))
+        images = list(val["images"].astype(np.float32) / 255.0)
+        pixel, sizes = prepare_images(images, image_size, normalize=True)
+        x32 = torch.from_numpy(pixel[:32]).to("cuda")
+        s32 = torch.from_numpy(sizes[:32]).to("cuda")
+        for quantize in (None, "int8"):
+            what = quantize or "bf16"
+            bundle = os.path.join(root, f"bundle_{what}")
+            t0 = time.perf_counter()
+            rc = export_tool.main(
+                ["--checkpoint", final, "--output_dir", bundle,
+                 "--image_size", str(image_size), "--batch_sizes",
+                 ",".join(map(str, BUNDLE_BATCHES)),
+                 "--backbone_dtype", "bfloat16"]
+                + (["--quantize", quantize] if quantize else []))
+            timings[f"export_{what}_s"] = time.perf_counter() - t0
+            size = sum(os.path.getsize(os.path.join(bundle, f))
+                       for f in os.listdir(bundle))
+            t0 = time.perf_counter()
+            model = load_serving_bundle(bundle)
+            torch.cuda.synchronize()
+            timings[f"load_{what}_s"] = time.perf_counter() - t0
+            if rc != 0 or sorted(os.listdir(bundle)) != ["manifest.json",
+                                                         "params.npz"]:
+                raise AssertionError(f"tools/export {what}: rc {rc}")
+            predictor = Predictor(final_params, cfg16, batch_size=32,
+                                  quantize=quantize)
+            counts, batches = _bundle_checks(model, predictor, pixel, sizes,
+                                             quantize, bb)
+            kernels["flash_attn_fwd"]["launches"] += counts["flash_attn_fwd"]
+            kernels["flash_attn_fwd"][f"launches_bundle_{what}"] = counts[
+                "flash_attn_fwd"]
+            if quantize:
+                kernels["int8_gemm"]["launches"] += counts["int8_gemm"]
+                kernels["int8_gemm"]["launches_bundle_int8"] = counts[
+                    "int8_gemm"]
+            bundle_ms, pred_ms = (
+                time_ms(lambda p=p: p._forward_topk(x32, s32, 100), iters=5,
+                        warmup=3, repeats=3)
+                for p in (model._predictor, predictor))
+            log("import export: " + json.dumps({
+                "metric": f"serving bundle ({what}): tools/export and load "
+                          f"times, the b32 forward + top-k of the bundle's "
+                          f"model and of a Predictor over the same params",
+                "export_s": timings[f"export_{what}_s"],
+                "load_s": timings[f"load_{what}_s"], "bytes": size,
+                "bundle_ms_per_batch": bundle_ms,
+                "predictor_ms_per_batch": pred_ms, "card": card_line()}))
+            if quantize is None:
+                u8 = val["images"][:5]
+                serve_counts = _bundle_serve(bundle, model, u8)
+                kernels["flash_attn_fwd"]["launches"] += serve_counts[
+                    "flash_attn_fwd"]
+            del model, predictor
+            torch.cuda.empty_cache()
+        del final_params
+        torch.cuda.empty_cache()
+    timings["phase_s"] = time.perf_counter() - t_phase
+    log("import export: " + json.dumps({
+        "metric": "phase wall time and its parts (host clock)",
+        **timings, "card": card_line()}))
 
 
 def _recipe_params(seed: int, det):
@@ -5180,6 +5652,7 @@ def main(argv=None) -> int:
     phase_int8_serving(args.seed, kernels, serving_ips, profile=args.profile)
     train_ips = phase_train(args.seed, kernels, profile=args.profile)
     loop_ips = phase_train_cli(args.seed, kernels, train_ips)
+    phase_import_export(args.seed, kernels)
     phase_train_recipes(args.seed, kernels, train_ips, loop_ips)
     phase_prefix_int8_train(args.seed, kernels, train_ips,
                             profile=args.profile)

@@ -3,8 +3,9 @@
 Its serving path (backbone, decoder, device-side top-k, Predictor and the
 HTTP server, in bf16 or int8 W8A8), its train step and its training CLI
 (`python -m dinov2_od_tpu_torch.train`: COCO-format or packed data, COCO
-AP, checkpoints, resume; `python -m dinov2_od_tpu_torch.serve` serves a
-checkpoint) run on an NVIDIA H100; the backbone's self-attention goes
+AP, checkpoints, resume, a pretrained HF DINOv2 backbone or a reference
+checkpoint imported; `python -m dinov2_od_tpu_torch.serve` serves a
+checkpoint or a bundle of `tools/export.py`) run on an NVIDIA H100; the backbone's self-attention goes
 through hand-written CUDA flash-attention kernels (csrc/flash_attn_fwd.cu,
 csrc/flash_attn_bwd.cu) and its int8 fc2 through a fused quantize + int8
 GEMM kernel (csrc/int8_gemm.cu), built with nvcc at first use. Imports

@@ -94,6 +94,24 @@ def _to_device(tree, device):
     return tree.detach().to(device)
 
 
+def checkpoint_params(checkpoint_path: str, cfg: DetectorConfig,
+                      device="cuda"):
+    """The params of a checkpoint directory of the training loop
+    (`checkpoint_epoch_N` or `final_model`), restored onto a template
+    drawn from seed 0 on `device` (leaves absent from the checkpoint keep
+    the template's values, with a warning). Under a bf16 backbone the
+    template stores the frozen weights in bf16, as the training loop
+    saved them, so LoRA folds in the dtype it folds in for the loop's
+    params."""
+    from .train.checkpoint import restore_checkpoint
+
+    template = init_detector_params(torch.Generator().manual_seed(0), cfg,
+                                    device=device)
+    if cfg.backbone.dtype == "bfloat16":
+        template = cast_frozen_weights(template, cfg)
+    return restore_checkpoint(checkpoint_path, template).params
+
+
 class Predictor:
     def __init__(
         self,
@@ -142,23 +160,12 @@ class Predictor:
         device="cuda",
         **kwargs,
     ) -> "Predictor":
-        """A Predictor over the params of a checkpoint directory
-        (`checkpoint_epoch_N` or `final_model`), restored onto a template
-        drawn from seed 0 on `device` (leaves absent from the checkpoint
-        keep the template's values, with a warning). Under a bf16
-        backbone the template stores the frozen weights in bf16, as the
-        training loop saved them, so LoRA folds in the dtype it folds in
-        for the loop's params."""
-        from .train.checkpoint import restore_checkpoint
-
+        """A Predictor over the params of a checkpoint directory of the
+        training loop (`checkpoint_params`)."""
         cfg = detector_cfg or detector_config_for_model_name(
             model_name, num_classes=num_classes)
-        template = init_detector_params(torch.Generator().manual_seed(0),
-                                        cfg, device=device)
-        if cfg.backbone.dtype == "bfloat16":
-            template = cast_frozen_weights(template, cfg)
-        params = restore_checkpoint(checkpoint_path, template).params
-        return cls(params, cfg, device=device, **kwargs)
+        return cls(checkpoint_params(checkpoint_path, cfg, device), cfg,
+                   device=device, **kwargs)
 
     @torch.inference_mode()
     def _forward_topk(self, x: torch.Tensor, sizes: torch.Tensor,

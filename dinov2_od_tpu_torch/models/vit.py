@@ -245,6 +245,30 @@ def _block_apply(x, bp: Params, cfg: BackboneConfig, attn_impl: str,
     return x
 
 
+def interpolate_pos_embed(pos_embed: torch.Tensor, src_grid: int,
+                          dst_grid: int) -> torch.Tensor:
+    """Bicubic-resample patch position embeddings `[1, 1 + src^2, D]` to a
+    new grid (the CLS position is passed through). Used by the HF
+    importer when the target image size differs from the checkpoint's
+    native 518 px / 37x37 grid.
+
+    The JAX package resamples with `jax.image.resize(..., "bicubic")`,
+    whose cubic kernel has a = -0.5. torch's plain bicubic uses a = -0.75;
+    its antialiased path uses a = -0.5 (and, when shrinking, widens the
+    kernel by the scale, as jax.image.resize does), so `antialias=True`
+    is what matches."""
+    if src_grid == dst_grid:
+        return pos_embed
+    cls_pos, patch_pos = pos_embed[:, :1], pos_embed[:, 1:]
+    d = patch_pos.shape[-1]
+    grid = patch_pos.reshape(1, src_grid, src_grid, d).permute(0, 3, 1, 2)
+    resized = F.interpolate(grid.float(), size=(dst_grid, dst_grid),
+                            mode="bicubic", align_corners=False,
+                            antialias=True)
+    resized = resized.permute(0, 2, 3, 1).reshape(1, dst_grid * dst_grid, d)
+    return torch.cat([cls_pos, resized.to(pos_embed.dtype)], dim=1)
+
+
 def backbone_apply(
     params: Params,
     cfg: BackboneConfig,

@@ -16,10 +16,12 @@ server. `main` is the command line:
 
     python -m dinov2_od_tpu_torch.serve --checkpoint outputs/final_model \
         [--quantize int8] [--max_batch 32] [--batch_wait_ms 5]
+    python -m dinov2_od_tpu_torch.serve --bundle serving/detector-v1
 
-It serves a checkpoint of the training loop (`Predictor.from_checkpoint`);
-the JAX package's other source, an exported StableHLO bundle
-(`--bundle`), is not ported yet (ROADMAP.md Queue A item 9) and raises.
+It serves a checkpoint of the training loop (`Predictor.from_checkpoint`)
+or a serving bundle of tools/export.py (`export.load_serving_bundle`:
+folded weights and the detector config, served by the port's model
+code).
 """
 
 from __future__ import annotations
@@ -297,15 +299,16 @@ def install_drain_handler(server: ThreadingHTTPServer) -> None:
 def main(argv: Optional[List[str]] = None,
          on_ready: Optional[Callable[[ThreadingHTTPServer], None]] = None
          ) -> int:
-    """Serve a checkpoint until SIGTERM, Ctrl-C or `server.shutdown()`.
-    `on_ready`, when given, gets the server once it listens (a caller
-    running `main` in a thread stops it so; SIGTERM draining is installed
-    only from the main thread)."""
+    """Serve a checkpoint or a bundle until SIGTERM, Ctrl-C or
+    `server.shutdown()`. `on_ready`, when given, gets the server once it
+    listens (a caller running `main` in a thread stops it so; SIGTERM
+    draining is installed only from the main thread)."""
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--checkpoint",
                      help="checkpoint directory of the training loop")
-    src.add_argument("--bundle", help="AOT serving bundle (not ported yet)")
+    src.add_argument("--bundle",
+                     help="serving bundle directory (tools/export.py)")
     p.add_argument("--model_name", default="facebook/dinov2-base")
     p.add_argument("--num_classes", type=int, default=91)
     p.add_argument("--lightweight", action="store_true",
@@ -314,7 +317,7 @@ def main(argv: Optional[List[str]] = None,
     p.add_argument("--image_size", type=int, default=224)
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--quantize", default=None, choices=[None, "int8"],
-                   help="int8 W8A8 serving path")
+                   help="int8 W8A8 serving path (checkpoint mode)")
     p.add_argument("--compilation_cache", default="",
                    help="the JAX package's XLA cache; raises here")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -331,34 +334,39 @@ def main(argv: Optional[List[str]] = None,
                    help="dynamic batching: max time to wait for "
                         "more requests before dispatching")
     args = p.parse_args(argv)
-    if args.bundle:
-        raise NotImplementedError(
-            "--bundle (export.py's serving bundle) is not ported yet "
-            "(ROADMAP.md Queue A item 9); serve a --checkpoint")
     if args.compilation_cache:
         raise NotImplementedError(
             "--compilation_cache is XLA's; the port has no counterpart")
 
     logging.basicConfig(level=logging.INFO)
-    from .config import (detector_config_for_model_name,
-                         lightweight_detector_config)
-    from .inference import Predictor
+    if args.bundle:
+        from .export import load_serving_bundle
 
-    if args.lightweight:
-        det_cfg = lightweight_detector_config(
-            num_classes=args.num_classes, image_size=args.image_size)
+        model = load_serving_bundle(args.bundle, device=args.device)
+        info = {"model": "bundle:" + args.bundle,
+                "quantize": model.manifest["quantize"] or "no"}
+        size = model.image_size
     else:
-        det_cfg = detector_config_for_model_name(
-            args.model_name, num_classes=args.num_classes,
-            image_size=args.image_size)
-    model = Predictor.from_checkpoint(
-        args.checkpoint, detector_cfg=det_cfg, batch_size=args.batch_size,
-        quantize=args.quantize, device=args.device)
-    info = {"model": args.model_name, "quantize": args.quantize or "no",
-            "backend": str(model.device)}
+        from .config import (detector_config_for_model_name,
+                             lightweight_detector_config)
+        from .inference import Predictor
+
+        if args.lightweight:
+            det_cfg = lightweight_detector_config(
+                num_classes=args.num_classes, image_size=args.image_size)
+        else:
+            det_cfg = detector_config_for_model_name(
+                args.model_name, num_classes=args.num_classes,
+                image_size=args.image_size)
+        model = Predictor.from_checkpoint(
+            args.checkpoint, detector_cfg=det_cfg,
+            batch_size=args.batch_size, quantize=args.quantize,
+            device=args.device)
+        info = {"model": args.model_name, "quantize": args.quantize or "no"}
+        size = det_cfg.backbone.image_size
+    info["backend"] = str(model.device)
 
     # Warm the path (kernel builds) before accepting traffic.
-    size = det_cfg.backbone.image_size
     model.detect([np.zeros((size, size, 3), np.float32)], score_threshold=1.0)
 
     batcher = None

@@ -399,9 +399,6 @@ UNPORTED = (
     (lambda a: (a.download_train_data or a.download_val_data
                 or a.download_test_data), "--download_*",
      "Queue A (tools/download.py needs the network; no port item)"),
-    (lambda a: a.pretrained_backbone or a.import_reference_checkpoint,
-     "--pretrained_backbone/--import_reference_checkpoint",
-     "Queue A item 9"),
     (lambda a: a.compilation_cache, "--compilation_cache",
      "Queue A (XLA's cache; torch has no counterpart)"),
 )
@@ -481,10 +478,26 @@ def main(argv: Optional[List[str]] = None) -> int:
     )
     logger.info("device: %s", device)
     logger.info("detector config: %s", det_cfg)
-    logger.warning("no pretrained backbone: the backbone is randomly "
-                   "initialized (nothing is downloaded)")
+    # Model init (+ optional pretrained backbone or full reference import).
     params = init_detector_params(torch.Generator().manual_seed(cfg.seed),
                                   det_cfg, device=device)
+    if args.import_reference_checkpoint:
+        from ..models.import_reference import load_reference_detector_params
+
+        params = load_reference_detector_params(
+            args.import_reference_checkpoint, det_cfg, params)
+        logger.info("migrated full reference checkpoint from %s",
+                    args.import_reference_checkpoint)
+    elif args.pretrained_backbone:
+        from ..models.import_torch import load_dinov2_backbone_params
+
+        params["backbone"] = load_dinov2_backbone_params(
+            args.pretrained_backbone, det_cfg.backbone, params["backbone"])
+        logger.info("imported pretrained backbone from %s",
+                    args.pretrained_backbone)
+    else:
+        logger.warning("no --pretrained_backbone given: the backbone is "
+                       "randomly initialized (nothing is downloaded)")
     if det_cfg.backbone.dtype == "bfloat16":
         # As the loop stores them (and saves them): the restore template's
         # dtypes are the checkpoint's.

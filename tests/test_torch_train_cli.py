@@ -3,8 +3,9 @@
 the --lightweight config (ViT-S, decoder width 256) and 56 px: --debug
 training with validation, --only_evaluate in fp32 and int8 from the
 checkpoint it wrote, every flag of a later slice (each raises
-NotImplementedError naming its ROADMAP.md item), the devices and decode
-backends, and `serve.main` serving a saved checkpoint over HTTP.
+NotImplementedError naming its ROADMAP.md item), the import flags on a
+missing path, the devices and decode backends, and `serve.main` serving
+a saved checkpoint over HTTP.
 """
 
 import base64
@@ -82,7 +83,6 @@ LATER_SLICES = [
     ["--context_parallel"], ["--context_parallel_size", "2"],
     ["--pipeline_parallel"], ["--pipeline_parallel_size", "2"],
     ["--pipeline_microbatches", "4"], ["--fsdp"], ["--ffn_type", "moe"], ["--download_val_data"],
-    ["--pretrained_backbone", "x"], ["--import_reference_checkpoint", "x"],
     ["--compilation_cache", "x"],
 ]
 
@@ -91,6 +91,22 @@ LATER_SLICES = [
 def test_flags_of_later_slices_raise(flags, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(flags + ["--output_dir", str(tmp_path), "--device", "cpu"])
+
+
+@pytest.mark.parametrize("flag", ["--pretrained_backbone",
+                                  "--import_reference_checkpoint"])
+def test_import_flags_raise_on_a_missing_path(flag, tmp_path):
+    """Both import flags run (they raised NotImplementedError before the
+    importers were ported); a path that is not there raises the JAX
+    package's error, FileNotFoundError, from the same loader."""
+    from dinov2_od_tpu.models.import_torch import _load_state_dict
+
+    missing = str(tmp_path / "x")
+    with pytest.raises(FileNotFoundError):
+        _load_state_dict(missing)
+    with pytest.raises(FileNotFoundError):
+        cli.main([flag, missing, "--lightweight", "--image_size", "56",
+                  "--output_dir", str(tmp_path), "--device", "cpu"])
 
 
 def test_cli_devices_and_decode_backends(tmp_path, synth, monkeypatch):
@@ -163,5 +179,8 @@ def test_serve_main_serves_a_checkpoint_over_http(tmp_path):
             ready[0].shutdown()
         t.join(timeout=60)
     assert not t.is_alive() and result["rc"] == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.main(["--bundle", str(tmp_path)])
+    # --bundle serves a bundle of tools/export.py; a directory without
+    # one raises as the JAX package's loader does.
+    with pytest.raises(FileNotFoundError, match="manifest.json"):
+        serve.main(["--bundle", str(tmp_path / "no_bundle"),
+                    "--device", "cpu"])
