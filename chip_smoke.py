@@ -111,6 +111,21 @@ non-zero and prints no result:
              onto 8 equal to an 8-image call's first 3 (12 B1, and 12 B6
              in int8, a forward); `serve.main --bundle` answering POST
              /detect with ServingModel.detect's detections;
+7a2. moe   - the MoE backbone FFN at bench.py's BENCH_FFN=moe (ViT-B/14
+             224 px bf16, 8 experts, top-2, capacity factor 1.25 in the 2
+             adapted blocks): moe_routing on [32, 257, 8] fp32 logits with
+             tied rows, the card against the CPU (the same experts and
+             slots, the lower index first on ties); the b32 forward (12
+             B1) against plain attention in fp32 and bf16 with the same
+             forward at top-1 as the control; 3 train steps (12 B1 + 2 B2
+             a step) and 3 under remat (14 B1 + 2 B2), finite loss and
+             loss_moe_aux, every router and expert leaf moved, the frozen
+             prefix and its LoRA factors bit-identical; Predictor in bf16
+             (12 B1) and int8 (12 B1 + 10 B6: the dense prefix's fc2s) on
+             32 images, images/s beside the dense model's; `train.cli.main
+             --ffn_type moe` for one epoch, `--only_evaluate`,
+             Predictor.from_checkpoint equal to the in-memory Predictor,
+             the final params as a bundle behind `serve.main --bundle`;
 7b. train recipes - the recorded recipes' options at ViT-B/224 b32 (bf16,
              25 GT slots unless named): remat (14 B1 + 2 B2 a step, the
              LoRA gradients bit-equal to the step's without it under
@@ -189,9 +204,10 @@ non-zero and prints no result:
              launched exactly by the stages' calls and production through
              B5f and nothing else;
 13. bench   - dinov2_od_tpu_torch.bench in-process, the ViT-B/224 b32 train
-             step (its default) and BENCH_MODE=eval: bench.py's four keys,
-             a positive images/s, the card's name in the metric, B1 and B2
-             launched (B1 alone in eval) and nothing else;
+             step (its default), BENCH_MODE=eval and BENCH_FFN=moe:
+             bench.py's four keys, a positive images/s, the card's name in
+             the metric, B1 and B2 launched (B1 alone in eval) and nothing
+             else;
 14. trace   - tools/trace_step.py over 3 steps of the ViT-B train step, of
              the ViT-B batch-32 forward and of the ViT-L/560 batch-8
              forward: the groups sum to the total device time, the flash
@@ -426,6 +442,32 @@ BUNDLE_IMAGES = 32
 # same draws applied on the CPU, pixels within RECIPE_AUG_PIXEL_TOL
 # (cuBLAS against the host's matmul order), boxes and valid bits equal;
 # the control inverts the flip mask.
+# MoE phase (bench.py's BENCH_FFN=moe: ViT-B/14 224 px, bf16, the MoE FFN
+# with 8 experts, top-2, capacity factor 1.25 (81 slots an expert for 257
+# tokens) in the last 2 blocks). Routing: the card against the CPU on the
+# same fp32 logits, combine and aux within MOE_ROUTING_TOL (max abs; the
+# two softmaxes' exp may round apart in the last bit) and the same
+# experts and slots for every token. The b32 forward with the kernels
+# against plain attention: fp32, max abs error per output; bf16, relative
+# error in norm, because the bf16 router logits of the two attention
+# paths send some tokens to other experts, which moves those tokens'
+# outputs by as much as the control moves every token's (a max abs
+# reading cannot tell them apart). The control is the same forward at
+# top-1, which must exceed a limit. Each limit lies between the sound
+# reading and the control's, seed 0 on an H100 (NVIDIA H100 80GB HBM3,
+# 700 W; PERF.md §6): routing combine and aux 1.19e-7; fp32 logits
+# 2.17e-5 | 1.407, boxes 1.10e-6 | 0.0946; bf16 (184 and 192 of 8224
+# tokens on other experts in the two MoE blocks) logits 0.0530 | 0.313,
+# boxes 0.00455 | 0.0275. MOE_STEPS train steps each way (with and
+# without remat); the CLI on MOE_CLI_*_IMAGES packed images (4 steps of
+# 32, one val batch).
+MOE_ROUTING_TOL = 1e-6
+MOE_MODEL_TOL = {
+    "float32": {"pred_logits": 1e-3, "pred_boxes": 1e-4},
+    "bfloat16": {"pred_logits": 0.15, "pred_boxes": 0.015},
+}
+MOE_STEPS = 3
+MOE_CLI_TRAIN_IMAGES, MOE_CLI_VAL_IMAGES = 128, 32
 RECIPE_STEPS = 3
 RECIPE_REMAT_DECODER_TOL = 1e-5
 RECIPE_ACC_TOL = 1e-6
@@ -1916,8 +1958,9 @@ def _int8_gemm_as(kind: str):
 
 
 def phase_int8_serving(seed: int, kernels: dict, bf16_ips: float,
-                       profile: bool = False):
-    """The int8 W8A8 serving path: Predictor(quantize="int8")."""
+                       profile: bool = False) -> float:
+    """The int8 W8A8 serving path: Predictor(quantize="int8"); returns its
+    images/s."""
     import torch
 
     from dinov2_od_tpu_torch.inference import Predictor, prepare_images
@@ -1978,6 +2021,7 @@ def phase_int8_serving(seed: int, kernels: dict, bf16_ips: float,
     }))
     if profile:
         profile_device(fwd_call, ms, "int8 serving forward")
+    return 32 / ms * 1e3
 
 
 def _groups(params, cfg):
@@ -2065,12 +2109,15 @@ def _plain_backward():
 
 
 def _drive_train(seed: int, det, steps: int, want_per_step: dict,
-                 phase: str, profile: bool, batch_size: int = B):
+                 phase: str, profile: bool, batch_size: int = B,
+                 use_remat: bool = False):
     """The train main path: `steps` full-width steps on a fixed synthetic
     batch with the launch counts set to 0 before and read after, held to
     `want_per_step` launches; finite losses that drop, frozen leaves and
-    the non-adapted LoRA rows bit-identical; then the step's throughput.
-    Returns (train config, batch, launch counts, images/s)."""
+    the non-adapted LoRA rows bit-identical (under the MoE FFN also a
+    finite loss_moe_aux and every router and expert leaf moved); then the
+    step's throughput. Returns (train config, batch, launch counts,
+    images/s)."""
     import torch
 
     from dinov2_od_tpu_torch.config import DataConfig, OptimConfig, TrainConfig
@@ -2084,11 +2131,12 @@ def _drive_train(seed: int, det, steps: int, want_per_step: dict,
     cfg = TrainConfig(detector=det,
                       data=DataConfig(batch_size=batch_size,
                                       max_boxes=MAX_BOXES),
-                      optim=OptimConfig())
+                      optim=OptimConfig(), use_remat=use_remat)
     bb, dec = det.backbone, det.decoder
     log(f"{phase}: ViT-{bb.variant} depth {bb.depth} ({bb.seq_len} tokens) "
         f"bf16, LoRA r={bb.lora_r} {bb.lora_mode} on the last "
-        f"{bb.lora_last_n_blocks} blocks, prefix_int8={bb.prefix_int8}; "
+        f"{bb.lora_last_n_blocks} blocks, prefix_int8={bb.prefix_int8}, "
+        f"ffn {bb.ffn_type}, remat={use_remat}; "
         f"decoder {dec.num_layers} layers fp32 dropout {dec.dropout}; batch "
         f"{batch_size}, {MAX_BOXES} GT slots, matcher "
         f"{cfg.matcher.assignment}; "
@@ -2100,6 +2148,10 @@ def _drive_train(seed: int, det, steps: int, want_per_step: dict,
                      image_size=bb.image_size, max_boxes=MAX_BOXES)
     batch = {k: torch.from_numpy(v).to("cuda") for k, v in raw.items()}
     snap = _snapshot(params, det)
+    experts = {}
+    if "moe_blocks" in params["backbone"]:
+        experts = {k: (v, v.clone()) for k, v in
+                   params["backbone"]["moe_blocks"]["moe"].items()}
     step = make_train_step(cfg)
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -2114,6 +2166,15 @@ def _drive_train(seed: int, det, steps: int, want_per_step: dict,
     counts = dict(_build.launch_counts)
     _check_steps(phase, torch.stack(losses).tolist(), metrics, counts,
                  want_per_step, steps, snap)
+    if experts:
+        aux = metrics["loss_moe_aux"].item()
+        still = [k for k, (t, before) in experts.items()
+                 if torch.equal(t, before)]
+        log(f"{phase}: loss_moe_aux {aux:.4f} at the last step; routers "
+            f"and experts unchanged: {still or 'none'}")
+        if not np.isfinite(aux) or still:
+            raise AssertionError(f"{phase}: loss_moe_aux {aux}, unchanged "
+                                 f"MoE leaves {still}")
 
     # Throughput of the train step on the fixed batch.
     ms = time_ms(lambda: step(state, batch, gen), iters=5, warmup=2,
@@ -2121,36 +2182,39 @@ def _drive_train(seed: int, det, steps: int, want_per_step: dict,
     ips = batch_size / ms * 1e3
     log(f"{phase}: " + json.dumps({
         "metric": f"train step, batch {batch_size}, bf16 backbone, "
-                  f"prefix_int8={bb.prefix_int8}, {MAX_BOXES} GT slots",
+                  f"prefix_int8={bb.prefix_int8}, ffn {bb.ffn_type}, "
+                  f"remat={use_remat}, {MAX_BOXES} GT slots",
         "ms_per_step": ms, "images_per_s": ips,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "card": card_line(),
     }))
     if profile:
         profile_device(lambda: step(state, batch, gen), ms, f"{phase} step")
-    del state, params, snap
+    del state, params, snap, experts
     torch.cuda.empty_cache()
     return cfg, batch, counts, ips
 
 
 def _snapshot(params, det):
     """Copies of the frozen leaves and of the non-adapted blocks' rows of
-    the stacked LoRA leaves, for `_check_steps`."""
+    the stacked LoRA leaves in "blocks" (all of them under the MoE FFN,
+    whose adapted blocks are "moe_blocks"), for `_check_steps`."""
     from dinov2_od_tpu_torch.models.detector import trainable_mask
 
     first = det.backbone.depth - det.backbone.lora_last_n_blocks
     frozen, lora_rows = [], []
 
-    def walk(t, m):
+    def walk(t, m, path):
         for key in t:
             if isinstance(t[key], dict):
-                walk(t[key], m[key])
+                walk(t[key], m[key], path + (key,))
             elif not m[key]:
                 frozen.append((t[key], t[key].clone()))
-            elif key in ("lora_A", "lora_B") and t[key].dim() == 3:
+            elif (key in ("lora_A", "lora_B") and t[key].dim() == 3
+                  and "blocks" in path):
                 lora_rows.append((t[key], t[key][:first].clone()))
 
-    walk(params, trainable_mask(params, det))
+    walk(params, trainable_mask(params, det), ())
     return first, frozen, lora_rows
 
 
@@ -2837,7 +2901,8 @@ def _bundle_checks(model, predictor, pixel, sizes, quantize, bb):
     return counts, batches
 
 
-def _bundle_serve(bundle: str, model, images_u8) -> dict:
+def _bundle_serve(bundle: str, model, images_u8,
+                  phase: str = "import export") -> dict:
     """serve.main --bundle in a thread on a free port: POST /detect with
     PNG bodies answers what ServingModel.detect returns on the decoded
     images, and B1 runs 12 times a device batch of the server's model
@@ -2883,7 +2948,7 @@ def _bundle_serve(bundle: str, model, images_u8) -> dict:
         raise AssertionError(f"serve.main --bundle launches {counts} for "
                              f"{served_batches} device batches; expected "
                              f"{want_counts}")
-    log(f"import export: serve.main --bundle: /healthz {health}; POST "
+    log(f"{phase}: serve.main --bundle: /healthz {health}; POST "
         f"/detect of {len(images_u8)} PNG images answered "
         f"ServingModel.detect's {sum(map(len, answer))} detections "
         f"exactly; {served_batches} device batches (the warm-up "
@@ -3113,6 +3178,335 @@ def phase_import_export(seed: int, kernels: dict) -> None:
     log("import export: " + json.dumps({
         "metric": "phase wall time and its parts (host clock)",
         **timings, "card": card_line()}))
+
+
+def _moe_dets(**backbone):
+    """bench.py's BENCH_FFN=moe configuration: ViT-B/14 224 px + 3-layer
+    deformable DETR, the MoE FFN (8 experts, top-2, capacity factor 1.25,
+    aux weight 0.01) in the 2 adapted blocks; (fp32, bf16 backbone)."""
+    return _train_dets(ffn_type_override="moe", **backbone)
+
+
+def _moe_routing_check(seed: int) -> None:
+    """moe_routing on one fp32 logits tensor [32, 257, 8], with tied rows,
+    on the CPU and on the card: the same experts and slots for every
+    token, combine and aux within MOE_ROUTING_TOL."""
+    import torch
+
+    from dinov2_od_tpu_torch.ops.moe import moe_capacity, moe_routing
+
+    e, k, cf = 8, 2, 1.25
+    cap = moe_capacity(S, e, k, cf)
+    logits = torch.from_numpy(np.random.default_rng(seed).normal(
+        0, 1.0, (B, S, e)).astype(np.float32))
+    logits[0, 0] = torch.tensor([np.log(0.9)] + [np.log(0.1 / 7)] * 7)
+    logits[0, 1] = 0.0
+    cpu = moe_routing(logits, k, cap)
+    card = moe_routing(logits.cuda(), k, cap)
+    torch.cuda.synchronize()
+    combine, aux = (t.cpu() for t in card)
+    same_support = torch.equal(combine > 0, cpu[0] > 0)
+    err = (combine - cpu[0]).abs().max().item()
+    aux_err = abs(aux.item() - cpu[1].item())
+    bits = torch.equal(combine, cpu[0]) and aux.item() == cpu[1].item()
+    tied = [torch.nonzero(combine[0, t].sum(-1) > 0).ravel().tolist()
+            for t in (0, 1)]
+    log(f"moe: moe_routing [{B}, {S}, {e}] fp32, top-{k}, capacity {cap}: "
+        f"card against CPU: the same experts and slots {same_support}, "
+        f"combine max abs err {err:.3g}, aux {aux.item():.6f} err "
+        f"{aux_err:.3g} (tol {MOE_ROUTING_TOL}), bit-equal {bits}; "
+        f"{int((combine > 0).sum())} of {B * S * k} assignments kept; the "
+        f"tied rows chose experts {tied}")
+    if not (same_support and err <= MOE_ROUTING_TOL
+            and aux_err <= MOE_ROUTING_TOL and tied == [[0, 1], [0, 1]]):
+        raise AssertionError("moe: routing on the card differs from the "
+                             "CPU's")
+
+
+@contextlib.contextmanager
+def _routing_recorded(into: list):
+    """Each moe_routing call of the model appends the experts every token
+    reaches, [B, N, E] bool (a dropped assignment reaches none)."""
+    from dinov2_od_tpu_torch.ops import moe
+
+    real = moe.moe_routing
+
+    def recorded(logits, top_k, capacity):
+        combine, aux = real(logits, top_k, capacity)
+        into.append(combine.sum(-1) > 0)
+        return combine, aux
+
+    moe.moe_routing = recorded
+    try:
+        yield
+    finally:
+        moe.moe_routing = real
+
+
+def _moe_forward_check(seed: int, kernels: dict) -> None:
+    """The b32 eval forward with the kernels (exactly 12 B1) against plain
+    attention, fp32 and bf16, and the tokens whose experts differ between
+    the two; the same forward at top-1 as the control."""
+    import torch
+
+    from dinov2_od_tpu_torch.inference import prepare_images
+    from dinov2_od_tpu_torch.models.detector import (
+        cast_frozen_weights, detector_apply, fold_detector_lora,
+        init_detector_params)
+    from dinov2_od_tpu_torch.ops import _build
+
+    det32, det16 = _moe_dets()
+    params = fold_detector_lora(init_detector_params(
+        torch.Generator().manual_seed(seed), det32, device="cuda"), det32)
+    pixels, _ = prepare_images(_requests(seed, 224, (B,))[0], 224,
+                               normalize=True)
+    x = torch.from_numpy(pixels).to("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for name, c, p in (("float32", det32, params),
+                       ("bfloat16", det16, cast_frozen_weights(params,
+                                                               det16))):
+        top1 = dataclasses.replace(c, backbone=dataclasses.replace(
+            c.backbone, moe_top_k=1))
+        plain_routes, kernel_routes = [], []
+        with torch.inference_mode():
+            with _routing_recorded(plain_routes):
+                ref = detector_apply(p, c, x, attn_impl="xla")
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            with _routing_recorded(kernel_routes):
+                runs = {"kernel": detector_apply(p, c, x, attn_impl="auto")}
+            torch.cuda.synchronize()
+            counts = dict(_build.launch_counts)
+            runs["control top-1"] = detector_apply(p, top1, x,
+                                                   attn_impl="auto")
+        aux = runs["kernel"]["moe_aux"].item()
+        moved = [int((a != b).any(-1).sum())
+                 for a, b in zip(plain_routes, kernel_routes)]
+        log(f"moe: b{B} forward {name}: launches {counts}, moe_aux "
+            f"{aux:.4f} (plain attention {ref['moe_aux'].item():.4f}); "
+            f"tokens whose experts differ from plain attention's, by MoE "
+            f"block: {moved} of {B * S}; max abs err "
+            + ", ".join(f"{k} {_max_abs(runs['kernel'][k], ref[k]):.4g}"
+                        for k in OUTPUTS))
+        if counts != _counts(flash_attn_fwd=det32.backbone.depth):
+            raise AssertionError(f"moe forward launched {counts}; expected "
+                                 f"{det32.backbone.depth} B1")
+        if not np.isfinite(aux):
+            raise AssertionError(f"moe forward: moe_aux {aux}")
+        kernels["flash_attn_fwd"]["launches"] += counts["flash_attn_fwd"]
+        if name == "float32":
+            _check_model(f"moe: detector_apply {name}", "plain attention",
+                         runs, ref, MOE_MODEL_TOL[name], _max_abs,
+                         "max abs err")
+        else:
+            _check_model(f"moe: detector_apply {name}", "plain attention",
+                         runs, ref, MOE_MODEL_TOL[name], _rel_norm,
+                         "rel err")
+    del params, runs, ref, x
+    torch.cuda.empty_cache()
+
+
+def _moe_serving(seed: int, kernels: dict, dense_ips: dict) -> None:
+    """Predictor over the MoE model in bf16 (12 B1 a forward) and int8 (12
+    B1 + 10 B6: the dense prefix's fc2s) on 32 images, and the b32
+    forward's images/s beside the dense model's."""
+    import torch
+
+    from dinov2_od_tpu_torch.inference import Predictor
+    from dinov2_od_tpu_torch.models.detector import (
+        cast_frozen_weights, init_detector_params)
+    from dinov2_od_tpu_torch.ops import _build
+
+    _, det16 = _moe_dets()
+    bb = det16.backbone
+    prefix = bb.depth - bb.lora_last_n_blocks
+    params = cast_frozen_weights(init_detector_params(
+        torch.Generator().manual_seed(seed), det16, device="cuda"), det16)
+    images = _requests(seed, bb.image_size, (B,))[0]
+    for quantize in (None, "int8"):
+        what = quantize or "bf16"
+        predictor = Predictor(params, det16, batch_size=B, device="cuda",
+                              quantize=quantize)
+        predictor.device_batches = 0
+        _build.reset_launch_counts()
+        dets = predictor.detect(images, score_threshold=0.0)
+        torch.cuda.synchronize()
+        counts = dict(_build.launch_counts)
+        n = predictor.device_batches
+        want = _counts(flash_attn_fwd=bb.depth * n,
+                       int8_gemm=prefix * n if quantize else 0)
+        if counts != want or n != 1 or len(dets) != B or not all(
+                np.isfinite([d["score"] for d in im]).all() for im in dets):
+            raise AssertionError(f"moe {what} serving: launches {counts} in "
+                                 f"{n} device batches, expected {want}")
+        kernels["flash_attn_fwd"]["launches"] += counts["flash_attn_fwd"]
+        kernels["flash_attn_fwd"][f"launches_moe_{what}_serving"] = counts[
+            "flash_attn_fwd"]
+        if quantize:
+            kernels["int8_gemm"]["launches"] += counts["int8_gemm"]
+            kernels["int8_gemm"]["launches_moe_int8_serving"] = counts[
+                "int8_gemm"]
+        ms, _ = _forward_ms(predictor, bb.image_size)
+        log("moe: " + json.dumps({
+            "metric": f"batch-32 forward + top-k, {what} backbone, MoE FFN "
+                      f"(E {bb.moe_num_experts}, top-{bb.moe_top_k}) in the "
+                      f"last {bb.lora_last_n_blocks} blocks",
+            "launches_per_forward": counts, "ms_per_batch": ms,
+            "images_per_s": B / ms * 1e3,
+            "dense_images_per_s": dense_ips[what], "card": card_line()}))
+        del predictor
+        torch.cuda.empty_cache()
+
+
+def _moe_cli(seed: int, kernels: dict) -> None:
+    """`train.cli.main --ffn_type moe` for one epoch on packed synthetic
+    splits, `--only_evaluate` from its checkpoint, Predictor.from_checkpoint
+    against a Predictor over the loop's final params, and the final params
+    through export_serving_bundle and `serve.main --bundle`."""
+    import os
+    import tempfile
+
+    import torch
+
+    from dinov2_od_tpu_torch.data.packed import PackedDataset
+    from dinov2_od_tpu_torch.export import (export_serving_bundle,
+                                            load_serving_bundle)
+    from dinov2_od_tpu_torch.inference import Predictor
+    from dinov2_od_tpu_torch.ops import _build
+    from dinov2_od_tpu_torch.train import cli, loop
+    from dinov2_od_tpu_torch.train.state import tree_leaves
+
+    _, det16 = _moe_dets()
+    steps = MOE_CLI_TRAIN_IMAGES // CLI_BATCH
+    val_batches = -(-MOE_CLI_VAL_IMAGES // CLI_BATCH)
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="moe_", dir=build) as root:
+        splits = _cli_splits(seed, root, 224, n_train=MOE_CLI_TRAIN_IMAGES,
+                             n_val=MOE_CLI_VAL_IMAGES)
+        common = ["--packed_train_data", splits["train"],
+                  "--packed_val_data", splits["val"],
+                  "--dino_model", "facebook/dinov2-base",
+                  "--image_size", "224", "--backbone_dtype", "bfloat16",
+                  "--batch_size", str(CLI_BATCH), "--num_epochs", "1",
+                  "--val_frequency", "1", "--log_frequency", "1",
+                  "--ffn_type", "moe"]
+        det = cli.build_detector_config(cli.build_arg_parser().parse_args(
+            common))
+        if det.backbone != det16.backbone:
+            raise AssertionError(f"the CLI's MoE backbone {det.backbone} is "
+                                 f"not the bench's {det16.backbone}")
+        out = os.path.join(root, "out")
+        real_run, state = loop.run_training, {}
+
+        def keep_state(*a, **k):
+            state["s"] = real_run(*a, **k)
+            return state["s"]
+
+        loop.run_training = keep_state
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            rc = cli.main(common + ["--output_dir", out])
+        finally:
+            loop.run_training = real_run
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(_build.launch_counts)
+        want = _counts(flash_attn_fwd=12 * (steps + val_batches),
+                       flash_attn_bwd=2 * steps)
+        rec = _epoch_logs(out, [0])[0]
+        aux = rec.get("loss_moe_aux", [])
+        log(f"moe: train.cli.main --ffn_type moe: rc {rc} in {wall:.1f} s, "
+            f"{steps} steps, losses {rec['losses']}, loss_moe_aux {aux}, "
+            f"AP {_ap(out, 0)['AP']}, launches {counts}")
+        if rc != 0 or counts != want:
+            raise AssertionError(f"moe cli: rc {rc}, launches {counts}, "
+                                 f"expected {want}")
+        if len(aux) != steps or not np.isfinite(aux + rec["losses"]).all():
+            raise AssertionError(f"moe cli: train_epoch_0.json {rec}")
+        for name in ("flash_attn_fwd", "flash_attn_bwd"):
+            kernels[name]["launches"] += counts[name]
+            kernels[name]["launches_moe_cli"] = counts[name]
+
+        final = os.path.join(out, "final_model")
+        ev_out = os.path.join(root, "eval")
+        _build.reset_launch_counts()
+        rc = cli.main(common + ["--only_evaluate", "--checkpoint", final,
+                                "--output_dir", ev_out])
+        torch.cuda.synchronize()
+        counts = dict(_build.launch_counts)
+        log(f"moe: --only_evaluate on final_model: rc {rc}, AP "
+            f"{_ap(ev_out, 0)['AP']} (the run's last validation "
+            f"{_ap(out, 0)['AP']}), launches {counts}")
+        if rc != 0 or counts != _counts(flash_attn_fwd=12 * val_batches):
+            raise AssertionError(f"moe evaluation: rc {rc}, launches "
+                                 f"{counts}")
+        kernels["flash_attn_fwd"]["launches"] += counts["flash_attn_fwd"]
+
+        val = PackedDataset(splits["val"]).get_batch(range(B))
+        images = list(val["images"].astype(np.float32) / 255.0)
+        served = Predictor.from_checkpoint(final, detector_cfg=det,
+                                           batch_size=B)
+        direct = Predictor(state["s"].params, det, batch_size=B)
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(served.params), tree_leaves(direct.params)))
+        _build.reset_launch_counts()
+        got = served.detect(images, score_threshold=0.0)
+        torch.cuda.synchronize()
+        counts = dict(_build.launch_counts)
+        ref = direct.detect(images, score_threshold=0.0)
+        log(f"moe: Predictor.from_checkpoint(final_model): params equal "
+            f"the loop's {same}, detections on {B} val images equal "
+            f"{got == ref}, launches {counts}")
+        if not same or got != ref:
+            raise AssertionError("moe: from_checkpoint differs from the "
+                                 "in-memory Predictor")
+        kernels["flash_attn_fwd"]["launches"] += counts["flash_attn_fwd"]
+
+        bundle = export_serving_bundle(direct.params, det,
+                                       os.path.join(root, "bundle"),
+                                       batch_sizes=(8, 32), fold_lora=False)
+        model = load_serving_bundle(bundle)
+        if model.cfg != det:
+            raise AssertionError(f"moe bundle config {model.cfg}")
+        serve_counts = _bundle_serve(bundle, model, val["images"][:5],
+                                     "moe")
+        kernels["flash_attn_fwd"]["launches"] += serve_counts[
+            "flash_attn_fwd"]
+        del served, direct, model, state
+        torch.cuda.empty_cache()
+
+
+def phase_moe(seed: int, kernels: dict, bf16_ips: float, int8_ips: float,
+              train_ips: float) -> None:
+    """The MoE backbone FFN at bench.py's BENCH_FFN=moe configuration:
+    routing on the card against the CPU, the b32 forward against plain
+    attention with a top-1 control, 3 train steps (and 3 under remat),
+    Predictor in bf16 and int8, and the CLI from a dataset to a checkpoint
+    to the server."""
+    t0 = time.perf_counter()
+    _moe_routing_check(seed)
+    _moe_forward_check(seed, kernels)
+    _, det16 = _moe_dets()
+    bb = det16.backbone
+    for remat, want in ((False, _counts(flash_attn_fwd=bb.depth,
+                                        flash_attn_bwd=2)),
+                        (True, _counts(flash_attn_fwd=bb.depth + 2,
+                                       flash_attn_bwd=2))):
+        what = "moe remat train" if remat else "moe train"
+        _, _, counts, ips = _drive_train(seed, det16, MOE_STEPS, want, what,
+                                         False, use_remat=remat)
+        for name in ("flash_attn_fwd", "flash_attn_bwd"):
+            kernels[name]["launches"] += counts[name]
+            kernels[name][f"launches_{what.replace(' ', '_')}"] = counts[name]
+        log(f"{what}: images/s {ips:.1f} beside the dense step's "
+            f"{train_ips:.1f} (phase train); {card_line()}")
+    _moe_serving(seed, kernels, {"bf16": bf16_ips, "int8": int8_ips})
+    _moe_cli(seed, kernels)
+    log(f"moe: phase wall time {time.perf_counter() - t0:.1f} s (host "
+        f"clock); {card_line()}")
 
 
 def _recipe_params(seed: int, det):
@@ -5040,10 +5434,11 @@ def phase_roofline_tool(kernels: dict):
 
 
 def phase_bench():
-    """`dinov2_od_tpu_torch.bench` in-process, train (its default) and
-    BENCH_MODE=eval: the four keys of bench.py's line, a positive value,
-    the card's name in the metric, and the flash kernels launched (B1 and
-    B2 in the train step, B1 in the forward), nothing else."""
+    """`dinov2_od_tpu_torch.bench` in-process, train (its default),
+    BENCH_MODE=eval and BENCH_FFN=moe (the train step with the MoE FFN):
+    the four keys of bench.py's line, a positive value, the card's name
+    (and for MoE "moe-E8") in the metric, and the flash kernels launched
+    (B1 and B2 in the train step, B1 in the forward), nothing else."""
     import torch
 
     from dinov2_od_tpu_torch import bench
@@ -5051,7 +5446,9 @@ def phase_bench():
 
     name = torch.cuda.get_device_name(0)
     for env, want in (({}, _counts(flash_attn_fwd=1, flash_attn_bwd=1)),
-                      ({"BENCH_MODE": "eval"}, _counts(flash_attn_fwd=1))):
+                      ({"BENCH_MODE": "eval"}, _counts(flash_attn_fwd=1)),
+                      ({"BENCH_FFN": "moe"}, _counts(flash_attn_fwd=1,
+                                                     flash_attn_bwd=1))):
         t0 = time.perf_counter()
         _build.reset_launch_counts()
         rec = bench.run(env)
@@ -5067,6 +5464,8 @@ def phase_bench():
             problems.append(f"value {rec['value']}")
         if name not in rec["metric"]:
             problems.append(f"the metric does not name {name}")
+        if env.get("BENCH_FFN") and "moe-E8 FFN" not in rec["metric"]:
+            problems.append("the metric does not name the MoE FFN")
         if launched != want:
             problems.append(f"launched {launched}, expected {want}")
         if problems:
@@ -5649,10 +6048,12 @@ def main(argv=None) -> int:
     kernels["attn_roofline"] = phase_roofline_kernel(args.seed)
     kernels["flash_attention_lse"] = phase_lse_kernel(args.seed)
     serving_ips = phase_slice(args.seed, kernels, profile=args.profile)
-    phase_int8_serving(args.seed, kernels, serving_ips, profile=args.profile)
+    int8_ips = phase_int8_serving(args.seed, kernels, serving_ips,
+                                  profile=args.profile)
     train_ips = phase_train(args.seed, kernels, profile=args.profile)
     loop_ips = phase_train_cli(args.seed, kernels, train_ips)
     phase_import_export(args.seed, kernels)
+    phase_moe(args.seed, kernels, serving_ips, int8_ips, train_ips)
     phase_train_recipes(args.seed, kernels, train_ips, loop_ips)
     phase_prefix_int8_train(args.seed, kernels, train_ips,
                             profile=args.profile)

@@ -9,11 +9,12 @@ Prints ONE JSON line:
 - Builds the configuration of bench.py from the same environment knobs
   (`bench_config`): BENCH_BATCH (32), BENCH_MODEL (small|base|large|giant,
   base), BENCH_IMAGE_SIZE (224), BENCH_PREFIX_INT8=1, BENCH_REMAT=1,
-  BENCH_AUG=1, BENCH_FFN, BENCH_MOE_EXPERTS (named in the metric only);
+  BENCH_AUG=1, BENCH_FFN=moe with BENCH_MOE_EXPERTS (8: the MoE FFN of
+  ops/moe.py in the 2 adapted blocks, top-2, capacity factor 1.25);
   BENCH_SCAN_UNROLL is accepted and has no effect (the port's backbone is
   unrolled). BENCH_REMAT=1 recomputes the adapted blocks in the
   backward, BENCH_AUG=1 augments each batch on the card (hflip 0.5,
-  colour 0.3, scale 0.25). An MoE FFN raises NotImplementedError at init.
+  colour 0.3, scale 0.25).
 - Random weights from seed 0, frozen backbone weights stored in bf16
   (`cast_frozen_weights`), the batch `make_batch(default_rng(0), ...,
   max_boxes=25)`.
@@ -59,7 +60,8 @@ def bench_config(env: Mapping[str, str]) -> TrainConfig:
     det = dataclasses.replace(det, backbone=dataclasses.replace(
         det.backbone, dtype="bfloat16",
         prefix_int8=env.get("BENCH_PREFIX_INT8", "0") == "1",
-        ffn_type_override=ffn or None))
+        ffn_type_override=ffn or None,
+        moe_num_experts=int(env.get("BENCH_MOE_EXPERTS", "8"))))
     augment = (AugmentConfig(hflip_prob=0.5, color_jitter=0.3,
                              scale_jitter=0.25)
                if env.get("BENCH_AUG", "0") == "1" else AugmentConfig())
@@ -135,7 +137,6 @@ def run(env: Mapping[str, str]) -> dict:
                                                 iters=8)
     images_per_sec = cfg.data.batch_size / sec_per_step
     model = env.get("BENCH_MODEL", "base")
-    experts = env.get("BENCH_MOE_EXPERTS", "8")
     return {
         "metric": (
             f"ViT-{model[0].upper()}/14+DETR(deformable) {mode} "
@@ -143,7 +144,7 @@ def run(env: Mapping[str, str]) -> dict:
             f"{det.backbone.image_size}px, "
             + ("int8 W8A8 backbone, " if mode == "eval" and quant == "int8"
                else "bf16 backbone, ")
-            + (f"moe-E{experts} FFN, "
+            + (f"moe-E{det.backbone.moe_num_experts} FFN, "
                if det.backbone.ffn_type_override == "moe" else "")
             + f"{torch.cuda.get_device_name()})"
         ),

@@ -2,10 +2,10 @@
 
 Own copies of the JAX package's dataclasses (dinov2_od_tpu/config.py),
 restricted to the fields the serving path, the train step and the
-training loop read: the MoE and the remaining loader fields come back
-with the slices that read them. The field names and defaults are the JAX
-package's, so the keyword arguments of a port config also build the JAX
-one.
+training loop read (the MoE FFN's four knobs included); the remaining
+loader fields come back with the slices that read them. The field names
+and defaults are the JAX package's, so the keyword arguments of a port
+config also build the JAX one.
 """
 
 from __future__ import annotations
@@ -53,7 +53,16 @@ class BackboneConfig:
     depth_override: Optional[int] = None
     num_heads_override: Optional[int] = None
     mlp_ratio_override: Optional[float] = None
+    # "mlp" | "swiglu" | "moe" (None = the variant's). "moe" swaps the dense
+    # FFN of the adapted last `lora_last_n_blocks` blocks for a mixture of
+    # experts (ops/moe.py; the sparse-upcycling layout of models/vit.py).
     ffn_type_override: Optional[str] = None
+    moe_num_experts: int = 8
+    moe_top_k: int = 2
+    # Slots an expert a batch row: ceil(top_k * tokens / experts * cf).
+    moe_capacity_factor: float = 1.25
+    # Weight of the router's load-balance loss in the training objective.
+    moe_aux_weight: float = 0.01
 
     @property
     def hidden_dim(self) -> int:

@@ -28,8 +28,16 @@ Every leaf is cast to fp32 on the CPU (a bf16 or fp16 checkpoint
 included: the casts are exact), the position embeddings are resampled
 there, and the tree is then placed on the template's device. The port's
 bf16 storage (models/detector.py `cast_frozen_weights`) applies after
-the import. The MoE backbone is not ported yet (ROADMAP.md Queue A
-item 8), so its sparse-upcycling branch raises.
+the import.
+
+Under the MoE FFN (sparse upcycling) the checkpoint's blocks below
+`moe_boundary` fill "blocks" as above; each block of the MoE suffix
+fills "moe_blocks" with its attention and norms, and every one of its E
+experts starts as a copy of the block's dense fc1 / fc2, while the
+router (and the LoRA factors) keep the template's values. With ample
+capacity every token then reaches its experts, whose renormalised gates
+sum to 1, so the upcycled block computes the dense block. A SwiGLU
+checkpoint cannot be upcycled and raises.
 """
 
 from __future__ import annotations
@@ -42,7 +50,7 @@ import torch
 
 from ..config import BackboneConfig
 from .layers import stack_params
-from .vit import interpolate_pos_embed
+from .vit import interpolate_pos_embed, moe_boundary
 
 Params = Dict[str, Any]
 
@@ -116,10 +124,6 @@ def load_dinov2_backbone_params(
       params with the template's structure, fp32, on the template's
       device.
     """
-    if cfg.ffn_type == "moe":
-        raise NotImplementedError(
-            "importing into the MoE backbone (sparse upcycling) is not "
-            "ported yet (ROADMAP.md Queue A item 8)")
     sd = _load_state_dict(checkpoint)
     # Tolerate a 'dinov2.' / 'dino.' prefix (wrapped checkpoints).
     for prefix in _PREFIXES:
@@ -137,9 +141,15 @@ def load_dinov2_backbone_params(
 
     pos = a("embeddings.position_embeddings")  # [1, 1+N_src, D]
     src_grid = int(round((pos.shape[1] - 1) ** 0.5))
+    moe = cfg.ffn_type == "moe"
+    boundary = moe_boundary(cfg) if moe else cfg.depth
+    if moe and "encoder.layer.0.mlp.weights_in.weight" in sd:
+        raise ValueError(
+            "MoE expert upcycling requires an MLP (gelu) DINOv2 "
+            "checkpoint; this one uses SwiGLU FFNs (weights_in/out)")
     swiglu = cfg.ffn_type == "swiglu"
     fc1, fc2 = ("weights_in", "weights_out") if swiglu else ("fc1", "fc2")
-    blocks = []
+    blocks, moe_blocks = [], []
     for i in range(cfg.depth):
         pre = f"encoder.layer.{i}."
 
@@ -147,7 +157,7 @@ def load_dinov2_backbone_params(
             return {"kernel": t(pre + name + ".weight"),
                     "bias": a(pre + name + ".bias")}
 
-        blocks.append({
+        block = {
             "ln1": {"scale": a(pre + "norm1.weight"), "bias": a(pre + "norm1.bias")},
             "q": lin("attention.attention.query"),
             "k": lin("attention.attention.key"),
@@ -156,9 +166,18 @@ def load_dinov2_backbone_params(
             "ls1": a(pre + "layer_scale1.lambda1"),
             "ln2": {"scale": a(pre + "norm2.weight"), "bias": a(pre + "norm2.bias")},
             "ls2": a(pre + "layer_scale2.lambda1"),
-            "fc1": lin("mlp." + fc1),
-            "fc2": lin("mlp." + fc2),
-        })
+        }
+        ffn = {"fc1": lin("mlp." + fc1), "fc2": lin("mlp." + fc2)}
+        if i < boundary:
+            blocks.append({**block, **ffn})
+        else:
+            # Every expert starts as a copy of the block's dense FFN.
+            e = cfg.moe_num_experts
+            block["moe"] = {
+                f"{name}_{leaf}": ffn[name][leaf].expand(
+                    e, *ffn[name][leaf].shape).contiguous()
+                for name in ("fc1", "fc2") for leaf in ("kernel", "bias")}
+            moe_blocks.append(block)
     imported = {
         "patch_embed": {
             # OIHW -> HWIO
@@ -168,14 +187,20 @@ def load_dinov2_backbone_params(
         },
         "cls_token": a("embeddings.cls_token"),
         "pos_embed": interpolate_pos_embed(pos, src_grid, cfg.grid_size),
-        "blocks": stack_params(blocks),  # stacked over depth
         "ln_f": {"scale": a("layernorm.weight"), "bias": a("layernorm.bias")},
     }
+    # Stacked over depth: the dense blocks, and under MoE the suffix.
+    for stack, got in (("blocks", blocks), ("moe_blocks", moe_blocks)):
+        if got:
+            imported[stack] = stack_params(got)
     params: Params = dict(template)
     params.update(_to_device(imported, _device_of(template)))
-    # Graft the template's LoRA factors back in.
-    for lin_name, tmpl in template["blocks"].items():
-        for lora_key in ("lora_A", "lora_B"):
-            if isinstance(tmpl, dict) and lora_key in tmpl:
-                params["blocks"][lin_name][lora_key] = tmpl[lora_key]
+    # Graft the template's LoRA factors (and MoE routers) back in.
+    for stack in ("blocks", "moe_blocks"):
+        for name, tmpl in template.get(stack, {}).items():
+            if not isinstance(tmpl, dict):
+                continue
+            for key in ("lora_A", "lora_B", "router_kernel"):
+                if key in tmpl:
+                    params[stack][name][key] = tmpl[key]
     return params

@@ -8,9 +8,10 @@ prefix of training (counterpart of dinov2_od_tpu/models/quantize.py).
 - The product: exact int8 x int8 -> int32, rescaled by x_scale * w_scale
   and the bias added in one fp32 fma, cast to x's dtype.
 
-Only the six linears of each ViT block are quantized; patch and position
-embeddings, LayerNorm, attention internals and the decoder stay in
-floating point. The apply functions (models/layers.py `linear`,
+Only the six linears of each ViT block are quantized (q, k, v and proj
+of a MoE block); patch and position embeddings, LayerNorm, attention
+internals, the MoE routers and experts and the decoder stay in floating
+point. The apply functions (models/layers.py `linear`,
 models/vit.py) dispatch on "kernel_q" in a linear's params, so one
 `detector_apply` serves fp32, bf16 and int8 trees.
 
@@ -187,28 +188,36 @@ def int8_qkv(x: torch.Tensor, bp: Params, fused: bool = True
 
 
 def quantize_blocks(blocks: Params, mesh=None) -> Params:
-    """The six linears of a stacked block tree as int8 (this rank's shards
-    under `mesh`); other leaves as they are."""
+    """The linears of a stacked block tree as int8 (this rank's shards
+    under `mesh`); other leaves, a MoE block's experts and router
+    included, as they are."""
     return {name: (quantize_linear(sub, mesh, name in _ROW_PARALLEL)
                    if name in _LINEARS else sub)
             for name, sub in blocks.items()}
 
 
 def quantize_backbone_int8(params: Params) -> Params:
-    """Quantize the backbone's per-block linears (stacked `[depth, ...]`).
+    """Quantize the backbone's per-block linears (stacked `[depth, ...]`)
+    in "blocks" and, under the MoE FFN, in "moe_blocks" (q, k, v and proj
+    there: the experts stay in floating point).
 
     LoRA must be folded first (`fold_detector_lora` zeroes the factors):
     a nonzero factor raises, so a training tree cannot be quantized by
     mistake."""
-    blocks = params["blocks"]
-    for name in _LINEARS:
-        bp = blocks[name]
-        if "lora_B" in bp and bool((bp["lora_B"] != 0).any()):
-            raise ValueError(
-                f"block linear '{name}' has unfolded LoRA factors; "
-                "call fold_detector_lora before quantizing")
-    with torch.no_grad():
-        return {**params, "blocks": quantize_blocks(blocks)}
+    out = dict(params)
+    for stack in ("blocks", "moe_blocks"):
+        if stack not in params:
+            continue
+        blocks = params[stack]
+        for name in _LINEARS:
+            bp = blocks.get(name, {})
+            if "lora_B" in bp and bool((bp["lora_B"] != 0).any()):
+                raise ValueError(
+                    f"block linear '{name}' has unfolded LoRA factors; "
+                    "call fold_detector_lora before quantizing")
+        with torch.no_grad():
+            out[stack] = quantize_blocks(blocks)
+    return out
 
 
 def quantize_detector_int8(params: Params, cfg=None) -> Params:

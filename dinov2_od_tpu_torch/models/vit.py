@@ -47,8 +47,15 @@ HWIO `[p, p, 3, D]` kernel used as a `(py, px, c)`-ordered patch GEMM.
   get a zero cotangent, so outputs and gradients are exact (the JAX
   package's pad-once argument).
 
-The dense `mlp` and `swiglu` FFNs are ported; MoE raises
-NotImplementedError (ROADMAP.md).
+- The MoE FFN (ffn_type "moe", ops/moe.py) in the sparse-upcycling layout
+  of the JAX package: the frozen prefix keeps its dense FFN in
+  params["blocks"] (where pretrained weights load and prefix_int8
+  applies), the adapted last `lora_last_n_blocks` blocks hold a router
+  and E experts in params["moe_blocks"] (`moe_boundary`; full-depth MoE
+  has no "blocks"). `backbone_apply` then returns (features, moe_aux),
+  the router's load-balance loss summed in fp32 over the MoE blocks and
+  divided by their number. MoE under a mesh or the ring raises: expert
+  parallelism is ROADMAP.md Queue A item 7.
 """
 
 from __future__ import annotations
@@ -61,6 +68,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import BackboneConfig
 from ..ops.attention import multi_head_attention
+from ..ops.moe import moe_ffn
 from ..parallel.collectives import (
     copy_to_model,
     gather_tokens,
@@ -90,14 +98,33 @@ from .quantize import (
 Params = Dict[str, Any]
 
 
-def _check_supported(cfg: BackboneConfig) -> None:
-    if cfg.ffn_type not in ("mlp", "swiglu"):
+def check_backbone_supported(cfg: BackboneConfig, mesh=None,
+                             attn_impl: str = "auto") -> None:
+    """Raise for an FFN type the port does not know, and for the MoE FFN
+    under a mesh or ring attention."""
+    if cfg.ffn_type not in ("mlp", "swiglu", "moe"):
+        raise ValueError(f"unknown ffn_type {cfg.ffn_type!r}")
+    if cfg.ffn_type == "moe" and (mesh is not None or attn_impl == "ring"):
         raise NotImplementedError(
-            f"ffn_type={cfg.ffn_type!r} is not ported yet (ROADMAP.md: MoE)"
-        )
+            "ffn_type='moe' under a mesh or ring attention (expert "
+            "parallelism) is not ported yet (ROADMAP.md Queue A item 7, "
+            "MoE x EP)")
 
 
-def _init_block(gen, cfg: BackboneConfig, device) -> Params:
+def moe_boundary(cfg: BackboneConfig) -> int:
+    """The first MoE block under ffn_type 'moe': the frozen prefix keeps
+    the dense FFN, the adapted last `lora_last_n_blocks` blocks take the
+    MoE FFN (lora_last_n_blocks = depth gives full-depth MoE)."""
+    if cfg.lora_last_n_blocks <= 0:
+        raise ValueError(
+            "ffn_type='moe' requires lora_last_n_blocks > 0 (MoE lives in "
+            "the adapted blocks; set lora_last_n_blocks = depth for "
+            "full-depth MoE)")
+    return max(0, cfg.depth - cfg.lora_last_n_blocks)
+
+
+def _init_block(gen, cfg: BackboneConfig, device, moe: bool = False
+                ) -> Params:
     d, m, r = cfg.hidden_dim, cfg.mlp_dim, cfg.lora_r
     fc1_out = 2 * m if cfg.ffn_type == "swiglu" else m
 
@@ -115,18 +142,36 @@ def _init_block(gen, cfg: BackboneConfig, device) -> Params:
         "ls1": torch.full((d,), cfg.layerscale_init, device=device),
         "ln2": layernorm_init(d, device),
         "ls2": torch.full((d,), cfg.layerscale_init, device=device),
-        "fc1": adapted(d, fc1_out),
-        "fc2": adapted(m, d),
     }
+    if moe:
+        # Per-expert nn.Linear inits stacked on a leading E axis and a
+        # router; no LoRA on the experts (they train whole).
+        e = cfg.moe_num_experts
+        fc1s = [torch_linear_init(gen, d, m, device) for _ in range(e)]
+        fc2s = [torch_linear_init(gen, m, d, device) for _ in range(e)]
+        block["moe"] = {
+            "router_kernel": trunc_normal_init(gen, (d, e), device),
+            "fc1_kernel": torch.stack([p["kernel"] for p in fc1s]),
+            "fc1_bias": torch.stack([p["bias"] for p in fc1s]),
+            "fc2_kernel": torch.stack([p["kernel"] for p in fc2s]),
+            "fc2_bias": torch.stack([p["bias"] for p in fc2s]),
+        }
+    else:
+        block["fc1"] = adapted(d, fc1_out)
+        block["fc2"] = adapted(m, d)
     return block
 
 
 def init_backbone_params(gen: torch.Generator, cfg: BackboneConfig,
                          device) -> Params:
-    """Random backbone params from `gen`, in the JAX package's tree."""
-    _check_supported(cfg)
+    """Random backbone params from `gen`, in the JAX package's tree: the
+    blocks stacked in "blocks", and under MoE the adapted suffix in
+    "moe_blocks"."""
+    check_backbone_supported(cfg)
     d = cfg.hidden_dim
-    blocks = [_init_block(gen, cfg, device) for _ in range(cfg.depth)]
+    k = moe_boundary(cfg) if cfg.ffn_type == "moe" else cfg.depth
+    blocks = [_init_block(gen, cfg, device, moe=i >= k)
+              for i in range(cfg.depth)]
     params: Params = {
         "patch_embed": {
             "kernel": trunc_normal_init(
@@ -137,8 +182,11 @@ def init_backbone_params(gen: torch.Generator, cfg: BackboneConfig,
         "cls_token": trunc_normal_init(gen, (1, 1, d), device),
         "pos_embed": trunc_normal_init(gen, (1, cfg.seq_len, d), device),
         "ln_f": layernorm_init(d, device),
-        "blocks": stack_params(blocks),
     }
+    if k > 0:
+        params["blocks"] = stack_params(blocks[:k])
+    if k < cfg.depth:
+        params["moe_blocks"] = stack_params(blocks[k:])
     if cfg.target_dim is not None and cfg.target_dim != d:
         params["projection"] = torch_linear_init(gen, d, cfg.target_dim,
                                                  device)
@@ -245,6 +293,24 @@ def _block_apply(x, bp: Params, cfg: BackboneConfig, attn_impl: str,
     return x
 
 
+def _block_apply_moe(x, bp: Params, cfg: BackboneConfig, attn_impl: str,
+                     lora_active: bool, mesh=None, seq_axis=None,
+                     valid_len=None):
+    """Pre-norm block with the MoE FFN (ops/moe.py): (x, its router's
+    load-balance loss)."""
+    x = x + bp["ls1"].to(x.dtype) * _attention(
+        layer_norm(x, bp["ln1"]), bp, cfg, attn_impl, lora_active, mesh,
+        seq_axis, valid_len,
+    )
+    ffn_out, aux = moe_ffn(
+        layer_norm(x, bp["ln2"]), bp["moe"], top_k=cfg.moe_top_k,
+        capacity_factor=cfg.moe_capacity_factor,
+        activation=lambda h: F.gelu(
+            h, approximate="tanh" if cfg.gelu_approximate else "none"),
+    )
+    return x + bp["ls2"].to(x.dtype) * ffn_out, aux
+
+
 def interpolate_pos_embed(pos_embed: torch.Tensor, src_grid: int,
                           dst_grid: int) -> torch.Tensor:
     """Bicubic-resample patch position embeddings `[1, 1 + src^2, D]` to a
@@ -294,9 +360,10 @@ def backbone_apply(
     Returns:
       [B, seq, out_dim] features; seq = patches (+1 CLS unless
       cfg.drop_cls_token). Final LayerNorm applied, then the optional
-      projection to target_dim.
+      projection to target_dim. Under ffn_type 'moe', (features,
+      moe_aux): the MoE blocks' mean load-balance loss, fp32.
     """
-    _check_supported(cfg)
+    check_backbone_supported(cfg, mesh, attn_impl)
     ring = attn_impl == "ring"
     if ring and (mesh is None or seq_axis is None):
         raise ValueError("attn_impl='ring' requires mesh and seq_axis")
@@ -329,28 +396,46 @@ def backbone_apply(
         x = shard_tokens(x, mesh)
     blk = dict(mesh=mesh, seq_axis=seq_axis, valid_len=valid_len)
 
-    adapted = _block_apply
-    if use_remat and torch.is_grad_enabled():
-        adapted = lambda *a, **kw: checkpoint(_block_apply, *a, **kw,
-                                              use_reentrant=False)
+    remat = use_remat and torch.is_grad_enabled()
+
+    def adapted_fn(fn):
+        if not remat:
+            return fn
+        return lambda *a, **kw: checkpoint(fn, *a, **kw, use_reentrant=False)
+
+    adapted = adapted_fn(_block_apply)
+    moe = cfg.ffn_type == "moe"
     # The prefix below the last `lora_last_n_blocks` blocks runs without
     # autograd and without its LoRA factors (zero by construction there).
-    k = max(0, cfg.depth - cfg.lora_last_n_blocks)
-    if 0 < k < cfg.depth:
-        with torch.no_grad():
-            prefix = params["blocks"]
-            if cfg.prefix_int8:
-                # The prefix is pure inference, so the W8A8 scheme applies
-                # in training too: its six linears quantize here, from the
-                # stacked (possibly bf16) kernels of the first k blocks.
-                prefix = quantize_blocks(index_params(prefix, slice(0, k)),
-                                         mesh)
-            for i in range(k):
-                x = _block_apply(x, index_params(prefix, i), cfg,
-                                 attn_impl, False, **blk)
-        for i in range(k, cfg.depth):
-            x = adapted(x, index_params(params["blocks"], i), cfg,
-                        attn_impl, True, **blk)
+    # Under MoE the prefix is all of params["blocks"] (dense FFNs) and the
+    # suffix is params["moe_blocks"].
+    k = (moe_boundary(cfg) if moe
+         else max(0, cfg.depth - cfg.lora_last_n_blocks))
+    moe_aux = None
+    if moe or 0 < k < cfg.depth:
+        if k > 0:
+            with torch.no_grad():
+                prefix = index_params(params["blocks"], slice(0, k))
+                if cfg.prefix_int8:
+                    # The prefix is pure inference, so the W8A8 scheme
+                    # applies in training too: its six linears quantize
+                    # here, from the stacked (possibly bf16) kernels.
+                    prefix = quantize_blocks(prefix, mesh)
+                for i in range(k):
+                    x = _block_apply(x, index_params(prefix, i), cfg,
+                                     attn_impl, False, **blk)
+        if moe:
+            moe_block = adapted_fn(_block_apply_moe)
+            moe_aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            for i in range(cfg.depth - k):
+                x, aux = moe_block(x, index_params(params["moe_blocks"], i),
+                                   cfg, attn_impl, True, **blk)
+                moe_aux = moe_aux + aux
+            moe_aux = moe_aux / (cfg.depth - k)
+        else:
+            for i in range(k, cfg.depth):
+                x = adapted(x, index_params(params["blocks"], i), cfg,
+                            attn_impl, True, **blk)
     else:
         for i in range(cfg.depth):
             x = adapted(x, index_params(params["blocks"], i), cfg,
@@ -363,4 +448,4 @@ def backbone_apply(
         x = linear(x, params["projection"])
     if cfg.drop_cls_token:
         x = x[:, 1:]
-    return x
+    return x if moe_aux is None else (x, moe_aux)

@@ -1,7 +1,7 @@
 """Rerun the JAX package's synthetic-5k accuracy recipes with the port's
 training CLI and set their AP curves beside the recorded ones
 (BENCH.md "Synthetic convergence headline at 5k images",
-runs/synthetic5k_{dense60,aug60}/).
+runs/synthetic5k_{dense60,aug60,moe60}/).
 
     python -m dinov2_od_tpu_torch.tools.synthetic_recipes
         [--arms dense,aug] [--epochs 60] [--data build/synthetic5k]
@@ -17,7 +17,10 @@ runs/synthetic5k_{dense60,aug60}/).
   2 blocks, 7 classes, aux loss, bf16 backbone, fp32 decoder, 25
   queries) with batch 16, a constant lr of 1e-4, the device cache at 16
   steps a dispatch and validation every 10 epochs; the aug arm adds
-  hflip 0.5 and scale jitter 0.25.
+  hflip 0.5 and scale jitter 0.25; the moe arm (`--arms moe`, not a
+  default) swaps the 2 adapted blocks' FFN for the MoE FFN at the CLI's
+  defaults: 8 experts (the JAX run's log records moe_num_experts=8),
+  top-2, capacity factor 1.25, aux weight 0.01.
 - An arm with a checkpoint under --runs resumes from the latest one; with
   --deadline_s the arms get SIGTERM at that many seconds and save a
   preemption checkpoint (exact mid-epoch resume).
@@ -47,8 +50,10 @@ RECIPE = ["--lightweight", "--num_classes", "7", "--aux_loss", "true",
           "--device_cache", "--steps_per_dispatch", "16",
           "--val_frequency", "10", "--checkpoint_frequency", "10",
           "--log_frequency", "16"]
-ARMS = {"dense": [], "aug": ["--hflip_prob", "0.5", "--scale_jitter", "0.25"]}
-REFERENCE = {"dense": "runs/synthetic5k_dense60", "aug": "runs/synthetic5k_aug60"}
+ARMS = {"dense": [], "aug": ["--hflip_prob", "0.5", "--scale_jitter", "0.25"],
+        "moe": ["--ffn_type", "moe"]}
+REFERENCE = {"dense": "runs/synthetic5k_dense60", "aug": "runs/synthetic5k_aug60",
+             "moe": "runs/synthetic5k_moe60"}
 KEYS = ("AP", "AP50", "AP75", "AR100")
 
 

@@ -209,14 +209,14 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "per-layer matching)")
     p.add_argument("--n_points", type=int, default=2)
     p.add_argument("--dino_model", type=str, default="facebook/dinov2-base")
-    # MoE backbone FFN (beyond reference; ops/moe.py). Experts shard
-    # over the model axis (expert parallelism) under --model_parallel.
+    # MoE backbone FFN (beyond reference; ops/moe.py), in the adapted
+    # blocks. Expert parallelism is ROADMAP.md Queue A item 7.
     p.add_argument("--ffn_type", type=str, default=None,
                    choices=["mlp", "swiglu", "moe"],
                    help="override the backbone FFN type (default: the "
                         "ViT variant's — mlp, swiglu for giant); 'moe' "
-                        "swaps in a mixture-of-experts FFN with "
-                        "expert-parallel sharding")
+                        "swaps in a mixture-of-experts FFN in the adapted "
+                        "blocks")
     p.add_argument("--moe_experts", type=int,
                    default=8,
                    help="experts per MoE layer (with --ffn_type moe)")
@@ -373,11 +373,17 @@ def build_detector_config(args) -> C.DetectorConfig:
             cfg,
             backbone=dataclasses.replace(cfg.backbone, prefix_int8=True),
         )
-    if args.ffn_type:  # 'moe' raises in main (not ported yet)
+    if args.ffn_type:
         cfg = dataclasses.replace(
             cfg,
             backbone=dataclasses.replace(
-                cfg.backbone, ffn_type_override=args.ffn_type),
+                cfg.backbone,
+                ffn_type_override=args.ffn_type,
+                moe_num_experts=args.moe_experts,
+                moe_top_k=args.moe_top_k,
+                moe_capacity_factor=args.moe_capacity_factor,
+                moe_aux_weight=args.moe_aux_weight,
+            ),
         )
     return cfg
 
@@ -395,7 +401,6 @@ UNPORTED = (
                 or a.pipeline_microbatches > 0 or a.pipeline_chunks != 1),
      "--pipeline_*", "Queue A item 7"),
     (lambda a: a.fsdp, "--fsdp", "Queue A item 7"),
-    (lambda a: a.ffn_type == "moe", "--ffn_type moe", "Queue A item 8"),
     (lambda a: (a.download_train_data or a.download_val_data
                 or a.download_test_data), "--download_*",
      "Queue A (tools/download.py needs the network; no port item)"),

@@ -7,7 +7,8 @@ of the params.
 Files written under `output_dir`, per epoch N:
 - `train_epoch_N.json`: the epoch's global steps, each step's loss, its
   mean, the images/s of the loop (loader, copies, steps) and the steps
-  the non-finite guard skipped;
+  the non-finite guard skipped; under the MoE FFN also each step's
+  router load-balance loss (`loss_moe_aux`) and its mean;
 - `predictions_epoch_N.json`, `metrics_epoch_N.json`: the validation's
   detections and its twelve COCO stats (AP, AP50, AP75, ...);
 - `checkpoint_epoch_N/` (train/checkpoint.py), and `final_model/` at the
@@ -359,15 +360,17 @@ def run_training(
         if check_preempt(epoch):
             break
         epoch_skip = steps_done
-        losses, skips, steps = [], [], []
+        losses, skips, steps, moe_aux = [], [], [], []
         t_epoch = time.perf_counter()
 
         def log_step(scalars, i):
             logger.info(
                 "epoch %d batch %d/%d loss %.4f (ce %.4f bbox %.4f "
-                "giou %.4f)%s", epoch, i, steps_per_epoch,
+                "giou %.4f)%s%s", epoch, i, steps_per_epoch,
                 scalars["loss"], scalars["loss_ce"],
                 scalars["loss_bbox"], scalars["loss_giou"],
+                (f" moe_aux {scalars['loss_moe_aux']:.4f}"
+                 if "loss_moe_aux" in scalars else ""),
                 " nonfinite_skip" if scalars.get("nonfinite_skip")
                 else "")
             if lr_sched is not None:
@@ -393,6 +396,8 @@ def run_training(
                 losses.append(host["loss"])
                 if "nonfinite_skip" in host:
                     skips.append(host["nonfinite_skip"])
+                if "loss_moe_aux" in host:
+                    moe_aux.append(host["loss_moe_aux"])
                 k = len(host["loss"])
                 if (first // log_frequency != (first + k) // log_frequency
                         or first == epoch_skip):
@@ -442,6 +447,8 @@ def run_training(
                 losses.append(metrics["loss"])
                 if "nonfinite_skip" in metrics:
                     skips.append(metrics["nonfinite_skip"])
+                if "loss_moe_aux" in metrics:
+                    moe_aux.append(metrics["loss_moe_aux"])
                 if i % log_frequency == 0:
                     log_step({k: float(v)
                               for k, v in logged(metrics).items()}, i)
@@ -458,22 +465,32 @@ def run_training(
 
         # One copy to the host for the whole epoch (the cache's dispatches
         # were read already).
-        loss_list = (torch.cat([x.reshape(-1) for x in losses]).float()
-                     .cpu().tolist() if losses else [])
+        def host_list(xs):
+            return (torch.cat([x.reshape(-1) for x in xs]).float().cpu()
+                    .tolist() if xs else [])
+
+        loss_list = host_list(losses)
         n_skipped = (int(torch.cat([x.reshape(-1) for x in skips]).sum())
                      if skips else 0)
         epoch_loss = float(np.mean(loss_list)) if loss_list else float("nan")
         images_per_sec = (len(loss_list) * cfg.data.batch_size
                           / max(time.perf_counter() - t_epoch, 1e-9))
-        logger.info("epoch %d done: mean loss %.4f, %.1f images/sec, %d "
+        record = {"epoch": epoch, "steps": steps[:len(loss_list)],
+                  "losses": loss_list, "mean_loss": epoch_loss,
+                  "images_per_sec": images_per_sec,
+                  "nonfinite_skips": n_skipped}
+        if moe_aux:
+            # The MoE router's load-balance loss of each step, unweighted.
+            record["loss_moe_aux"] = host_list(moe_aux)
+            record["mean_loss_moe_aux"] = float(
+                np.mean(record["loss_moe_aux"]))
+        logger.info("epoch %d done: mean loss %.4f%s, %.1f images/sec, %d "
                     "non-finite steps skipped", epoch, epoch_loss,
-                    images_per_sec, n_skipped)
+                    (f", mean moe_aux {record['mean_loss_moe_aux']:.4f}"
+                     if moe_aux else ""), images_per_sec, n_skipped)
         with open(os.path.join(output_dir, f"train_epoch_{epoch}.json"),
                   "w") as f:
-            json.dump({"epoch": epoch, "steps": steps[:len(loss_list)],
-                       "losses": loss_list, "mean_loss": epoch_loss,
-                       "images_per_sec": images_per_sec,
-                       "nonfinite_skips": n_skipped}, f)
+            json.dump(record, f)
         history["epochs"].append(epoch)
         history["train_loss"].append(epoch_loss)
         log_metrics(writer, {"epoch_loss": epoch_loss,

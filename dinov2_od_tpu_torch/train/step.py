@@ -38,6 +38,7 @@ from ..data.augment import augment_batch
 from ..data.coco import IMAGENET_MEAN, IMAGENET_STD
 from ..evaluation.postprocess import select_topk_detections
 from ..models.detector import detector_apply
+from ..models.vit import check_backbone_supported
 from ..ops.losses import set_criterion
 from ..parallel.collectives import all_reduce_coalesced_, reduce_gradients
 from ..parallel.sharding import check_tp_compatible, leaf_paths
@@ -108,7 +109,9 @@ def train_loss(cfg: TrainConfig, params, batch: Batch,
     """(total loss, loss terms) of one batch in train mode. Each auxiliary
     decoder layer is matched on its own, or reuses the final layer's
     assignment when cfg.share_aux_match, and adds its loss to the total
-    (also reported as loss_aux_i). Under `mesh`, params are this rank's
+    (also reported as loss_aux_i); under the MoE FFN the router's
+    load-balance loss adds moe_aux_weight times itself (reported as
+    loss_moe_aux). Under `mesh`, params are this rank's
     shard and the batch its slice: the loss is its share of the global
     one."""
     det_cfg = cfg.detector
@@ -129,6 +132,10 @@ def train_loss(cfg: TrainConfig, params, batch: Batch,
             match=final_match if cfg.share_aux_match else None, **kw)
         total = total + aux_losses["loss"]
         losses[f"loss_aux_{i}"] = aux_losses["loss"]
+    if "moe_aux" in out:
+        # The MoE router's load-balance loss (ops/moe.py).
+        total = total + det_cfg.backbone.moe_aux_weight * out["moe_aux"]
+        losses["loss_moe_aux"] = out["moe_aux"]
     losses["loss"] = total
     return total, losses
 
@@ -232,6 +239,7 @@ def make_train_step(cfg: TrainConfig, mesh=None):
                          f"mesh with a model axis of that size")
     _cp_kwargs(cfg, mesh)
     check_tp_compatible(cfg.detector, tp)
+    check_backbone_supported(cfg.detector.backbone, mesh)
     det_cfg = cfg.detector
     k_acc = cfg.optim.gradient_accumulation_steps
     if k_acc < 1:

@@ -211,12 +211,20 @@ def _leaves_equal(loaded, want):
                            b[k].contiguous().view(torch.uint8)), k
 
 
-@pytest.mark.parametrize("dtype,quantize", [
-    ("float32", None), ("bfloat16", None), ("bfloat16", "int8")],
-    ids=["fp32", "bf16", "bf16-int8"])
+MOE = dict(ffn_type_override="moe", moe_num_experts=4, moe_top_k=2,
+           moe_capacity_factor=1.5, moe_aux_weight=0.02)
+
+
+@pytest.mark.parametrize("dtype,quantize,ffn", [
+    ("float32", None, {}), ("bfloat16", None, {}), ("bfloat16", "int8", {}),
+    ("bfloat16", None, MOE), ("bfloat16", "int8", MOE)],
+    ids=["fp32", "bf16", "bf16-int8", "bf16-moe", "bf16-int8-moe"])
 def test_bundle_round_trips_and_equals_the_predictor(tmp_path, dtype,
-                                                     quantize):
-    _, pc = _cfgs(True, dtype=dtype)
+                                                     quantize, ffn):
+    """The MoE cases: the manifest's config carries the four moe_* fields
+    back, the MoE suffix's experts and routers stay fp32 (int8 takes its
+    q, k, v and proj), and the loaded bundle serves as the Predictor."""
+    _, pc = _cfgs(True, dtype=dtype, **ffn)
     params = init_detector_params(torch.Generator().manual_seed(0), pc,
                                   device="cpu")
     if dtype == "bfloat16":
@@ -232,6 +240,8 @@ def test_bundle_round_trips_and_equals_the_predictor(tmp_path, dtype,
     assert manifest["quantize"] == quantize
     assert manifest["torch_version"] == torch.__version__
     assert manifest["detector_config"]["backbone"]["dtype"] == dtype
+    for key, value in ffn.items():
+        assert manifest["detector_config"]["backbone"][key] == value
 
     model = load_serving_bundle(out, device="cpu")
     assert model.cfg == pc and model.device.type == "cpu"
@@ -244,6 +254,10 @@ def test_bundle_round_trips_and_equals_the_predictor(tmp_path, dtype,
         assert kq.dtype == torch.int8 and kq.transpose(-1, -2).is_contiguous()
         assert model.params["backbone"]["blocks"]["q"]["w_scale"].dtype \
             == torch.float32
+    if ffn:
+        moe_blocks = model.params["backbone"]["moe_blocks"]
+        assert moe_blocks["moe"]["fc1_kernel"].dtype == torch.float32
+        assert ("kernel_q" in moe_blocks["proj"]) == (quantize == "int8")
 
     pred = Predictor(params, pc, batch_size=2, quantize=quantize,
                      device="cpu", label_to_cat_id=labels, class_names=names)

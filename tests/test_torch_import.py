@@ -2,7 +2,8 @@
 widths: `interpolate_pos_embed` (dinov2_od_tpu_torch/models/vit.py)
 against `jax.image.resize`'s bicubic, the HF DINOv2 importer
 (models/import_torch.py) fed the same transformers `Dinov2Model` state
-dict as the JAX importer (MLP and SwiGLU, across a grid change), the
+dict as the JAX importer (MLP and SwiGLU, across a grid change; the MoE
+backbone's sparse upcycling), the
 imported backbone's forward against transformers' own, the state-dict
 sources (prefixes, an HF directory, a safetensors file, a bf16 file), and
 the training CLI's --pretrained_backbone and --import_reference_checkpoint
@@ -247,10 +248,48 @@ def test_checkpoint_files_and_directories(tmp_path):
     empty.mkdir()
     with pytest.raises(FileNotFoundError, match="pytorch_model.bin"):
         load_dinov2_backbone_params(str(empty), cfg, tmpl)
-    moe = pcfg.BackboneConfig(**{**_backbone_kw("mlp"),
-                                 "ffn_type_override": "moe"})
-    with pytest.raises(NotImplementedError, match="item 8"):
-        load_dinov2_backbone_params(sd, moe, tmpl)
+
+
+@pytest.mark.parametrize("moe_blocks", [1, 2], ids=["split", "full_depth"])
+def test_upcycling_import_matches_jax_and_the_dense_block(moe_blocks, rng):
+    """Sparse upcycling into the MoE backbone (the last `moe_blocks` of 2
+    blocks MoE, 4 experts): the port's tree equals the JAX importer's leaf
+    for leaf (every expert the block's dense fc1 / fc2, the routers and
+    LoRA factors the template's). With ample capacity (factor E / top_k:
+    no token dropped) the upcycled backbone computes the dense import's
+    features (within FORWARD_TOL) whatever the router says, and its
+    load-balance loss is finite. A SwiGLU checkpoint raises as in JAX."""
+    sd = _hf_model("mlp", image_size=98).state_dict()
+    kw = {**_backbone_kw("mlp"), "ffn_type_override": "moe",
+          "moe_num_experts": 4, "moe_capacity_factor": 2.0,
+          "lora_last_n_blocks": moe_blocks}
+    cfg, tmpl = _port_template(kw)
+    out = load_dinov2_backbone_params(sd, cfg, tmpl)
+    jtmpl = jax.tree_util.tree_map(jnp.asarray, params_to_numpy(tmpl))
+    ref = jax_load_backbone(sd, jcfg.BackboneConfig(**kw), jtmpl)
+    _assert_trees_close(params_to_numpy(out), ref, TREE_TOL)
+    assert ("blocks" in out) == (moe_blocks == 1)
+    moe = out["moe_blocks"]["moe"]
+    assert moe["router_kernel"] is tmpl["moe_blocks"]["moe"]["router_kernel"]
+    w = sd[f"encoder.layer.{LAYERS - 1}.mlp.fc1.weight"]
+    for e in range(4):
+        assert torch.equal(moe["fc1_kernel"][-1, e], w.t())
+
+    dense_cfg, dense_tmpl = _port_template(_backbone_kw("mlp"))
+    dense = load_dinov2_backbone_params(sd, dense_cfg, dense_tmpl)
+    x = torch.from_numpy(rng.normal(size=(2, 56, 56, 3)).astype(np.float32))
+    with torch.no_grad():
+        feats, aux = vit.backbone_apply(out, cfg, x)
+        want = vit.backbone_apply(dense, dense_cfg, x)
+    np.testing.assert_allclose(feats.numpy(), want.numpy(), rtol=0,
+                               atol=FORWARD_TOL)
+    assert torch.isfinite(aux)
+
+    swiglu = _hf_model("swiglu").state_dict()
+    for load, c, t in ((load_dinov2_backbone_params, cfg, tmpl),
+                       (jax_load_backbone, jcfg.BackboneConfig(**kw), jtmpl)):
+        with pytest.raises(ValueError, match="SwiGLU"):
+            load(swiglu, c, t)
 
 
 def test_importer_reads_a_jax_bridged_state_dict():

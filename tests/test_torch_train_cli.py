@@ -2,7 +2,8 @@
 (dinov2_od_tpu_torch/train/cli.py `main`, serve.py `main`) on the CPU at
 the --lightweight config (ViT-S, decoder width 256) and 56 px: --debug
 training with validation, --only_evaluate in fp32 and int8 from the
-checkpoint it wrote, every flag of a later slice (each raises
+checkpoint it wrote, the MoE backbone trained and restored from its
+checkpoint, every flag of a later slice (each raises
 NotImplementedError naming its ROADMAP.md item), the import flags on a
 missing path, the devices and decode backends, and `serve.main` serving
 a saved checkpoint over HTTP.
@@ -82,7 +83,7 @@ LATER_SLICES = [
     ["--distributed"], ["--multihost"], ["--model_parallel", "2"],
     ["--context_parallel"], ["--context_parallel_size", "2"],
     ["--pipeline_parallel"], ["--pipeline_parallel_size", "2"],
-    ["--pipeline_microbatches", "4"], ["--fsdp"], ["--ffn_type", "moe"], ["--download_val_data"],
+    ["--pipeline_microbatches", "4"], ["--fsdp"], ["--download_val_data"],
     ["--compilation_cache", "x"],
 ]
 
@@ -124,6 +125,66 @@ def test_cli_devices_and_decode_backends(tmp_path, synth, monkeypatch):
             == "auto")
     flags = lambda p: {s for a in p._actions for s in a.option_strings}
     assert flags(cli.build_arg_parser()) == flags(jcli.build_arg_parser())
+
+
+def test_main_trains_the_moe_backbone_and_serves_its_checkpoint(
+        tmp_path, synth, monkeypatch):
+    """`--ffn_type moe --moe_experts 4` builds the JAX CLI's config (the
+    four --moe_* flags passed on), trains 2 tiny epochs whose records
+    carry each step's finite loss_moe_aux, and `Predictor.from_checkpoint`
+    on its final_model holds the loop's final params bit for bit and gives
+    their detections exactly."""
+    from dinov2_od_tpu_torch.inference import Predictor
+    from dinov2_od_tpu_torch.train import loop
+    from dinov2_od_tpu_torch.train.state import tree_leaves
+
+    images_dir, ann = synth
+    out = str(tmp_path / "moe")
+    model = ["--lightweight", "--image_size", "56", "--ffn_type", "moe",
+             "--moe_experts", "4", "--moe_capacity_factor", "1.5"]
+    args = ["--train_images", images_dir, "--train_annotations", ann,
+            "--val_images", images_dir, "--val_annotations", ann,
+            "--batch_size", "2", "--debug", "--debug_samples", "4",
+            "--num_epochs", "2", "--val_frequency", "5", "--output_dir", out,
+            "--device", "cpu"] + model
+    det = cli.build_detector_config(cli.build_arg_parser().parse_args(args))
+    jdet = jcli.build_detector_config(jcli.build_arg_parser().parse_args(
+        args))
+    assert det.backbone.ffn_type == "moe"
+    for f in ("moe_num_experts", "moe_top_k", "moe_capacity_factor",
+              "moe_aux_weight", "ffn_type_override", "lora_last_n_blocks"):
+        assert getattr(det.backbone, f) == getattr(jdet.backbone, f), f
+    assert (det.backbone.moe_num_experts,
+            det.backbone.moe_capacity_factor) == (4, 1.5)
+
+    kept = {}
+    real = loop.run_training
+
+    def keep(*a, **k):
+        kept["state"] = real(*a, **k)
+        return kept["state"]
+
+    monkeypatch.setattr(loop, "run_training", keep)
+    assert cli.main(args) == 0
+    with open(os.path.join(out, "train_epoch_1.json")) as f:
+        rec = json.load(f)
+    aux = rec["loss_moe_aux"]
+    assert len(aux) == len(rec["losses"]) == 2
+    assert np.isfinite(aux).all() and min(aux) > 0
+    assert rec["mean_loss_moe_aux"] == pytest.approx(np.mean(aux))
+
+    images = list(np.random.default_rng(3).uniform(
+        size=(3, 56, 56, 3)).astype(np.float32))
+    served = Predictor.from_checkpoint(
+        os.path.join(out, "final_model"), detector_cfg=det, batch_size=2,
+        device="cpu")
+    direct = Predictor(kept["state"].params, det, batch_size=2,
+                       device="cpu")
+    assert "moe_blocks" in served.params["backbone"]
+    assert all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(served.params), tree_leaves(direct.params)))
+    assert (served.detect(images, score_threshold=0.0)
+            == direct.detect(images, score_threshold=0.0))
 
 
 def _png_b64(rng, size=40):
