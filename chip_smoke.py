@@ -198,6 +198,26 @@ non-zero and prints no result:
              top-k batch (12 B4f) and a prefix-int8 step (12 B4f + 2 B4b),
              B6 launched 0 times. The ring's share of the main path's host
              time is printed.
+11c. mesh cli - the training CLI on a mesh of processes, one process a
+             rank: 4 ranks a job, each `python -m dinov2_od_tpu_torch.train`
+             (run as __main__ by `chip_smoke.py --cli-rank`, which writes
+             the rank's launch counts) on cuda:0 in a gloo group, joined
+             through --coordinator_address/--num_processes/--process_id;
+             ViT-B/14 bf16 at 224 px, 32 train and 16 val packed synthetic
+             images, global batch 8, 100 GT slots. (a) --model_parallel 4
+             for 2 epochs with validation and a checkpoint each: exactly
+             12 B4f + 2 B4b a step and 12 B4f a val batch a rank, rank
+             0's files alone; (b) --context_parallel_size 2 (DP 2 x CP 2,
+             129-token shards) from --device_cache --device_cache_layout
+             sharded for 1 epoch: exactly 28 B1 + 4 B2 a step and 24 B1 a
+             val batch a rank, every one through B3's route; (a) and (b)
+             run at once, each beside one process's run of the same flags,
+             per-step losses and the validation's AP held to it (MESH_*);
+             (c) --only_evaluate --quantize int8 --model_parallel 4 from
+             (a)'s last checkpoint: 12 B4f a val batch and B6 0 times, the
+             same checkpoint's one-process bf16 evaluation held to (a)'s
+             last validation. Each job's wall time and s a step are
+             printed, labelled as gloo ranks sharing one card.
 12. roofline tool - the port's tools/bench_attn_roofline.py at its
              defaults, in-process: its four JSON lines (mxu_only, plus_max,
              plus_exp2, production) in order with the JAX tool's keys, T1
@@ -672,6 +692,44 @@ GIANT_MODEL = "facebook/dinov2-giant"
 # that step's own distance from the bf16 step, or TP_GRAD_TOL (the bf16
 # TP noise) where larger.
 INT8_TP_NOISE = 1.5
+
+# The training CLI on a mesh of processes (phase_mesh_cli): each rank a
+# `python -m dinov2_od_tpu_torch.train` process (`--cli-rank` below runs
+# the module as __main__ and writes its launch counts), MESH_WORLD of them
+# on cuda:0 in a gloo group, joined through --coordinator_address/
+# --num_processes/--process_id; ViT-B/14 bf16 at 224 px with the CLI's
+# defaults (LoRA on the last 2 blocks, decoder dropout 0.1, 100 GT slots:
+# the auction); packed synthetic splits of MESH_TRAIN_IMAGES and
+# MESH_VAL_IMAGES images, global batch MESH_BATCH. Jobs: (a) 1 x TP 4 for
+# 2 epochs with validation and a checkpoint each; (b) DP 2 x CP 2 from the
+# sharded device cache for 1 epoch; (c) `--only_evaluate --quantize int8
+# --model_parallel 4` from (a)'s last checkpoint. (a) and (b) run at
+# once, each beside its one-process reference in this process.
+MESH_WORLD = 4
+MESH_TRAIN_IMAGES, MESH_VAL_IMAGES, MESH_BATCH = 32, 16, 8
+MESH_RING = 2
+# A rank that has not exited by then fails the phase (its peers killed).
+MESH_JOB_TIMEOUT_S = 480
+# Each job against one process on the same flags and data, both bf16:
+# the first step is the same function of the same params, batch and
+# dropout masks (`keep_mask` draws them whole), through other kernels
+# (B4f/B4b or the ring's B1/B2 against B1/B2 whole) and sums split over
+# the ranks: within MESH_FIRST_LOSS_TOL, relative (TP_GRAD_TOL's bf16
+# loss limit, 1e-3, for a step of fixed assignment, x 5 for the auction's
+# own rounding). Later steps carry that noise on through Adam, and where
+# two of the auction's bids nearly tie a step can match another query: as
+# a resume on one card (CLI_RESUME_TOL, CLI_RESUME_MEAN_TOL), each later
+# loss within MESH_LOSS_TOL and each epoch's mean within
+# MESH_MEAN_LOSS_TOL. The validation's COCO AP by the mesh and by one
+# process, and the int8 TP evaluation's against the bf16 one: within
+# MESH_AP_TOL, absolute (CLI_INT8_AP_TOL). AP50 and AP75 are logged, not
+# held: on 16 images of a model 8 steps from random weights one
+# detection that changes rank moves AP50 by ~0.03 (a CPU dry run of this
+# phase at ViT-S/56 read AP 0.0057 and AP50 0.0286 apart).
+MESH_FIRST_LOSS_TOL = 5e-3
+MESH_LOSS_TOL = CLI_RESUME_TOL
+MESH_MEAN_LOSS_TOL = CLI_RESUME_MEAN_TOL
+MESH_AP_TOL = CLI_INT8_AP_TOL
 
 # T1, the attention roofline tool's ablation kernel, bf16 [B, H, S_pad, 64]:
 # the tool's default shape (1370 tokens, ViT-L/518, padded to 1376) and
@@ -5276,6 +5334,379 @@ def phase_cp(seed: int, kernels: dict):
         "card": card_line()}))
 
 
+def _cli_rank(counts_file: str, args: list) -> int:
+    """One rank of phase_mesh_cli: `python -m dinov2_od_tpu_torch.train
+    ARGS` (the module run as __main__, as `python -m` runs it), its launch
+    counts from a run that starts at 0 written to `counts_file` as
+    {"rc", "launches", "eval"}: "eval" the launches inside the loop's
+    validation passes (`loop.validate`, `loop.validate_cached`), counted
+    around them."""
+    import runpy
+
+    import torch
+
+    from dinov2_od_tpu_torch.train import loop
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --cli-rank: no CUDA device", file=sys.stderr)
+        return 1
+    evals: dict = {}
+
+    def counted(fn):
+        def run(*a, **k):
+            before = _launched()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            for name, n in _launched().items():
+                evals[name] = evals.get(name, 0) + n - before.get(name, 0)
+            return out
+        return run
+
+    loop.validate = counted(loop.validate)
+    loop.validate_cached = counted(loop.validate_cached)
+    from dinov2_od_tpu_torch.ops import _build
+
+    _build.reset_launch_counts()
+    sys.argv = ["dinov2_od_tpu_torch.train", *args]
+    rc = 0
+    try:
+        runpy.run_module("dinov2_od_tpu_torch.train", run_name="__main__",
+                         alter_sys=True)
+    except SystemExit as stop:
+        rc = stop.code if isinstance(stop.code, int) else 1
+    torch.cuda.synchronize()
+    with open(counts_file, "w") as f:
+        json.dump({"rc": rc, "launches": _launched(),
+                   "eval": {k: v for k, v in evals.items() if v}}, f)
+    return rc
+
+
+class _MeshJob:
+    """MESH_WORLD ranks of the CLI on `args`, each a `--cli-rank` process
+    on a free port, writing its output to work/name.rank{r}.log."""
+
+    def __init__(self, name: str, work: str, args: list):
+        import os
+        import socket
+
+        self.name, self.work = name, work
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        env = {**os.environ, "OMP_NUM_THREADS": "1"}
+        self.procs, self.logs = [], []
+        self.t0 = time.perf_counter()
+        for r in range(MESH_WORLD):
+            path = os.path.join(work, f"{name}.rank{r}.log")
+            self.logs.append(path)
+            with open(path, "wb") as log:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--cli-rank", self.counts(r), "--", *args,
+                     "--coordinator_address", f"127.0.0.1:{port}",
+                     "--num_processes", str(MESH_WORLD),
+                     "--process_id", str(r)],
+                    env=env, stdout=log, stderr=subprocess.STDOUT))
+
+    def counts(self, r: int) -> str:
+        import os
+
+        return os.path.join(self.work, f"{self.name}.rank{r}.json")
+
+    def kill(self) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+        for p in self.procs:
+            p.wait()
+
+    def wait(self) -> list:
+        """Each rank's counts once all exited 0, with the job's wall
+        seconds; a rank that fails or outlives MESH_JOB_TIMEOUT_S fails
+        the phase, its peers killed first."""
+        while any(p.poll() is None for p in self.procs):
+            if (any(p.poll() not in (None, 0) for p in self.procs)
+                    or time.perf_counter() - self.t0 > MESH_JOB_TIMEOUT_S):
+                break
+            time.sleep(0.2)
+        codes = [p.poll() for p in self.procs]
+        self.wall = time.perf_counter() - self.t0
+        self.kill()
+        if any(c != 0 for c in codes):
+            bad = next(r for r, c in enumerate(codes) if c != 0)
+            with open(self.logs[bad], errors="replace") as f:
+                tail = f.read()[-6000:]
+            raise AssertionError(
+                f"mesh cli ({self.name}): ranks exited {codes} after "
+                f"{self.wall:.1f} s (None: killed at the "
+                f"{MESH_JOB_TIMEOUT_S} s timeout); rank {bad}:\n{tail}")
+        out = []
+        for r in range(MESH_WORLD):
+            with open(self.counts(r)) as f:
+                out.append(json.load(f))
+            with open(self.logs[r], errors="replace") as f:
+                out[-1]["log"] = f.read()
+        return out
+
+
+def _mesh_losses(out_dir: str, epochs: int) -> list:
+    logs = _epoch_logs(out_dir, range(epochs))
+    return [x for e in range(epochs) for x in logs[e]["losses"]]
+
+
+def _mesh_compare_losses(job: str, got: list, want: list, epochs: int):
+    """Per-step losses of a mesh job against one process's (MESH_*_TOL)."""
+    if len(got) != len(want) or not np.isfinite(got).all():
+        raise AssertionError(f"mesh cli ({job}): losses {got} against one "
+                             f"process's {want}")
+    rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+    per = len(got) // epochs
+    means = [abs(np.mean(got[e * per:(e + 1) * per])
+                 - np.mean(want[e * per:(e + 1) * per]))
+             / abs(np.mean(want[e * per:(e + 1) * per]))
+             for e in range(epochs)]
+    log(f"mesh cli ({job}): per-step losses {got}; one process {want}; "
+        f"relative differences {rel} (first step limit "
+        f"{MESH_FIRST_LOSS_TOL}, later {MESH_LOSS_TOL}), epoch means "
+        f"{means} (limit {MESH_MEAN_LOSS_TOL})")
+    if (rel[0] > MESH_FIRST_LOSS_TOL or max(rel[1:]) > MESH_LOSS_TOL
+            or max(means) > MESH_MEAN_LOSS_TOL):
+        raise AssertionError(f"mesh cli ({job}): losses disagree with one "
+                             f"process's")
+
+
+def _mesh_compare_metrics(job: str, got: dict, want: dict,
+                          detections: tuple):
+    """COCO AP within MESH_AP_TOL; AP50 and AP75 logged beside it, and
+    the two runs' counts of detections above the score threshold."""
+    diff = {k: abs(got[k] - want[k]) for k in ("AP", "AP50", "AP75")}
+    log(f"mesh cli ({job}): AP {got['AP']:.6f}, AP50 {got['AP50']:.6f}, "
+        f"AP75 {got['AP75']:.6f} against {want['AP']:.6f}, "
+        f"{want['AP50']:.6f}, {want['AP75']:.6f}: {diff} (AP limit "
+        f"{MESH_AP_TOL}); detections {detections[0]} against "
+        f"{detections[1]}")
+    if not all(np.isfinite(got[k]) for k in diff) or (
+            diff["AP"] > MESH_AP_TOL):
+        raise AssertionError(f"mesh cli ({job}): AP disagrees")
+
+
+def _mesh_detections(out: dict, *runs) -> tuple:
+    """The detections above the score threshold in each run's
+    predictions_epoch_N.json, runs given as (name in `out`, N)."""
+    import os
+
+    counts = []
+    for name, epoch in runs:
+        with open(os.path.join(out[name],
+                               f"predictions_epoch_{epoch}.json")) as f:
+            counts.append(len(json.load(f)))
+    return tuple(counts)
+
+
+def _one_process_cli(args: list) -> tuple:
+    """`train.cli.main(args)` in this process on the card: (its launches,
+    wall seconds)."""
+    import torch
+
+    from dinov2_od_tpu_torch.ops import _build
+    from dinov2_od_tpu_torch.train import cli
+
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(args)
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError(f"mesh cli: one-process main {args} -> {rc}")
+    return _launched(), time.perf_counter() - t0
+
+
+def phase_mesh_cli(seed: int, kernels: dict):
+    """The training CLI on a mesh of processes, one process a rank: (a)
+    1 x TP 4 for 2 epochs, validation and checkpoints each; (b) DP 2 x CP
+    2 from the sharded device cache for 1 epoch; (c) `--only_evaluate
+    --quantize int8` under TP 4 from (a)'s last checkpoint. Each against
+    one process's run of the same flags on the same data; the per-rank
+    launches of B4f/B4b (a, c), B1/B2/B3 (b) and B6 (c, 0) asserted
+    exactly; only rank 0 writes files."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from dinov2_od_tpu_torch.config import detector_config_for_model_name
+
+    bb = detector_config_for_model_name("facebook/dinov2-base").backbone
+    depth, adapted = bb.depth, bb.lora_last_n_blocks
+    steps_per_epoch = MESH_TRAIN_IMAGES // MESH_BATCH
+    val_batches = -(-MESH_VAL_IMAGES // MESH_BATCH)
+    t_phase = time.perf_counter()
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build")
+    os.makedirs(build, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="mesh_cli_", dir=build)
+    jobs = []
+    try:
+        splits = _cli_splits(seed, work, 224, MESH_TRAIN_IMAGES,
+                             MESH_VAL_IMAGES)
+        out = {k: os.path.join(work, k) for k in (
+            "tp", "tp_one", "cp", "cp_one", "int8_tp", "eval_one")}
+        common = ["--packed_train_data", splits["train"],
+                  "--packed_val_data", splits["val"],
+                  "--dino_model", "facebook/dinov2-base",
+                  "--image_size", "224", "--backbone_dtype", "bfloat16",
+                  "--batch_size", str(MESH_BATCH), "--val_frequency", "1",
+                  "--checkpoint_frequency", "1", "--log_frequency", "1",
+                  "--num_workers", "2"]
+        tp_args = common + ["--num_epochs", "2"]
+        cp_args = common + ["--num_epochs", "1", "--device_cache"]
+        log(f"mesh cli: ViT-B/14 bf16 at 224 px, {MESH_TRAIN_IMAGES} train "
+            f"and {MESH_VAL_IMAGES} val packed images, global batch "
+            f"{MESH_BATCH}, 100 GT slots; {MESH_WORLD} ranks a job, each a "
+            f"`python -m dinov2_od_tpu_torch.train` process on cuda:0 in a "
+            f"gloo group (host-staged collectives on one shared card: "
+            f"correctness, not a parallel speed); (a) TP 4 and (b) DP 2 x "
+            f"CP 2 run at once")
+        jobs.append(_MeshJob("tp", work, tp_args + [
+            "--model_parallel", str(MESH_WORLD), "--output_dir", out["tp"]]))
+        jobs.append(_MeshJob("cp", work, cp_args + [
+            "--context_parallel_size", str(MESH_RING),
+            "--device_cache_layout", "sharded", "--output_dir", out["cp"]]))
+        one_tp, wall_tp_one = _one_process_cli(tp_args + [
+            "--output_dir", out["tp_one"]])
+        one_cp, wall_cp_one = _one_process_cli(cp_args + [
+            "--output_dir", out["cp_one"]])
+        tp, cp = jobs[0].wait(), jobs[1].wait()
+
+        # (a) TP 4: B4f for every block (3 heads a rank), B4b for the
+        # adapted ones, nothing else.
+        tp_steps, tp_vals = 2 * steps_per_epoch, 2 * val_batches
+        want = {"flash_attn_allheads_fwd": depth * (tp_steps + tp_vals),
+                "flash_attn_allheads_bwd": adapted * tp_steps}
+        want_eval = {"flash_attn_allheads_fwd": depth * tp_vals}
+        for r, res in enumerate(tp):
+            if res["launches"] != want or res["eval"] != want_eval:
+                raise AssertionError(
+                    f"mesh cli (a): rank {r} launches {res['launches']} "
+                    f"(validation {res['eval']}); expected {want} "
+                    f"(validation {want_eval})")
+        _mesh_compare_losses("a: TP 4", _mesh_losses(out["tp"], 2),
+                             _mesh_losses(out["tp_one"], 2), 2)
+        _mesh_compare_metrics("a: TP 4, last validation",
+                              _ap(out["tp"], 1), _ap(out["tp_one"], 1),
+                              _mesh_detections(out, ("tp", 1),
+                                               ("tp_one", 1)))
+        names = sorted(os.listdir(out["tp"]))
+        logs = [n for n in names if n.endswith("_train.log")]
+        want_files = {f"{k}_epoch_{e}.json" for e in (0, 1)
+                      for k in ("train", "metrics", "predictions")}
+        want_files |= {"checkpoint_epoch_0", "checkpoint_epoch_1",
+                       "final_model"}
+        # Rank 0's plots and TensorBoard directory, where matplotlib and
+        # TensorBoard are installed.
+        plots = {"loss_plot.png", "ap_plot.png", "tensorboard"} & set(names)
+        if (len(logs) != 1
+                or set(names) != want_files | set(logs) | plots
+                or not all(f"[rank {r}]" in res["log"]
+                           for r, res in enumerate(tp) if r)):
+            raise AssertionError(f"mesh cli (a): the run's files {names}: "
+                                 f"expected rank 0's alone")
+
+        # (b) DP 2 x CP 2: the ring's B1 (24 forward + the adapted blocks'
+        # 4 recomputed a step, 24 a val batch) and B2, every one through
+        # B3's route.
+        cp_steps, cp_vals = steps_per_epoch, val_batches
+        fwd_step = depth * MESH_RING + adapted * MESH_RING
+        bwd_step = adapted * MESH_RING
+        fwd_val = depth * MESH_RING
+        want = {"flash_attn_fwd": fwd_step * cp_steps + fwd_val * cp_vals,
+                "flash_attn_bwd": bwd_step * cp_steps}
+        want["flash_attention_lse"] = sum(want.values())
+        want_eval = {"flash_attn_fwd": fwd_val * cp_vals,
+                     "flash_attention_lse": fwd_val * cp_vals}
+        for r, res in enumerate(cp):
+            if res["launches"] != want or res["eval"] != want_eval:
+                raise AssertionError(
+                    f"mesh cli (b): rank {r} launches {res['launches']} "
+                    f"(validation {res['eval']}); expected {want} "
+                    f"(validation {want_eval})")
+            if (f"(sharded, {MESH_TRAIN_IMAGES // 2} of "
+                    f"{MESH_TRAIN_IMAGES} rows)") not in res["log"]:
+                raise AssertionError(f"mesh cli (b): rank {r} did not hold "
+                                     f"half the rows")
+        _mesh_compare_losses("b: DP 2 x CP 2, sharded cache",
+                             _mesh_losses(out["cp"], 1),
+                             _mesh_losses(out["cp_one"], 1), 1)
+        _mesh_compare_metrics("b: DP 2 x CP 2, validation",
+                              _ap(out["cp"], 0), _ap(out["cp_one"], 0),
+                              _mesh_detections(out, ("cp", 0),
+                                               ("cp_one", 0)))
+
+        # (c) int8 under TP 4 from (a)'s last checkpoint: B6 off (0), 12
+        # B4f a val batch; the same checkpoint in one process in bf16.
+        last = os.path.join(out["tp"], "checkpoint_epoch_1")
+        ev = ["--packed_val_data", splits["val"],
+              "--dino_model", "facebook/dinov2-base", "--image_size", "224",
+              "--backbone_dtype", "bfloat16", "--batch_size", str(MESH_BATCH),
+              "--only_evaluate", "--checkpoint", last]
+        jobs.append(_MeshJob("int8_tp", work, ev + [
+            "--quantize", "int8", "--model_parallel", str(MESH_WORLD),
+            "--output_dir", out["int8_tp"]]))
+        one_ev, wall_ev_one = _one_process_cli(ev + [
+            "--output_dir", out["eval_one"]])
+        i8 = jobs[2].wait()
+        want = {"flash_attn_allheads_fwd": depth * val_batches}
+        for r, res in enumerate(i8):
+            if res["launches"] != want or res["eval"] != want:
+                raise AssertionError(f"mesh cli (c): rank {r} launches "
+                                     f"{res['launches']}; expected {want} "
+                                     f"and no int8_gemm (B6)")
+        _mesh_compare_metrics("c: one process bf16 on (a)'s last "
+                              "checkpoint vs (a)'s last validation",
+                              _ap(out["eval_one"], 2), _ap(out["tp"], 1),
+                              _mesh_detections(out, ("eval_one", 2),
+                                               ("tp", 1)))
+        _mesh_compare_metrics("c: int8 under TP 4 vs one process bf16",
+                              _ap(out["int8_tp"], 2), _ap(out["eval_one"], 2),
+                              _mesh_detections(out, ("int8_tp", 2),
+                                               ("eval_one", 2)))
+
+        for kname, jobs_counts in (
+                ("flash_attn_allheads_fwd", (("tp", tp), ("int8_tp", i8))),
+                ("flash_attn_allheads_bwd", (("tp", tp),)),
+                ("flash_attn_fwd", (("cp", cp),)),
+                ("flash_attn_bwd", (("cp", cp),)),
+                ("flash_attention_lse", (("cp", cp),)),
+                ("int8_gemm", (("int8_tp", i8),))):
+            k = kernels[kname]
+            for job, ranks in jobs_counts:
+                per_rank = [res["launches"].get(kname, 0) for res in ranks]
+                k["launches"] += sum(per_rank)
+                k.setdefault("launches_mesh_cli", {})[job] = per_rank
+        tp_ips = _epoch_logs(out["tp"], (1,))[1]["images_per_sec"]
+        cp_ips = _epoch_logs(out["cp"], (0,))[0]["images_per_sec"]
+        log("mesh cli: " + json.dumps({
+            "metric": "wall seconds of each job and host seconds a step "
+                      "(rank 0's epoch records) with the ranks sharing "
+                      "one card over host-staged gloo collectives: not a "
+                      "parallel speed",
+            "jobs_a_b_at_once": True,
+            "wall_s": {"a_tp4": jobs[0].wall, "b_dp2_cp2": jobs[1].wall,
+                       "c_int8_tp4": jobs[2].wall},
+            "s_per_step": {"a_tp4_epoch1": MESH_BATCH / tp_ips,
+                           "b_dp2_cp2": MESH_BATCH / cp_ips},
+            "one_process_wall_s": {"a": wall_tp_one, "b": wall_cp_one,
+                                   "c_bf16_eval": wall_ev_one},
+            "one_process_launches": {"a": one_tp, "b": one_cp,
+                                     "c": one_ev},
+            "phase_s": time.perf_counter() - t_phase,
+            "card": card_line()}))
+    finally:
+        for job in jobs:
+            job.kill()
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def _t1_errors(out, ref):
     """(relative Frobenius error, max abs error over the largest |ref|,
     max abs error) of a bf16 T1 output."""
@@ -6022,6 +6453,10 @@ def profile_device(fn, unprofiled_ms: float, what: str, steps: int = 5,
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--cli-rank"]:
+        # One rank of phase_mesh_cli: --cli-rank COUNTS -- CLI_ARGS.
+        return _cli_rank(argv[1], argv[3:])
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
@@ -6061,6 +6496,7 @@ def main(argv=None) -> int:
     phase_large_train(args.seed, kernels, profile=args.profile)
     phase_tp(args.seed, kernels)
     phase_cp(args.seed, kernels)
+    phase_mesh_cli(args.seed, kernels)
     phase_roofline_tool(kernels)
     phase_bench()
     phase_trace()

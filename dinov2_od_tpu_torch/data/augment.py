@@ -146,8 +146,16 @@ def apply_augment(x01: torch.Tensor, boxes: torch.Tensor,
 
 def augment_batch(gen: Optional[torch.Generator], x01: torch.Tensor,
                   boxes: torch.Tensor, valid: torch.Tensor,
-                  cfg: AugmentConfig):
-    """Draw from `gen` and apply: (x01, boxes, valid) augmented."""
+                  cfg: AugmentConfig, mesh=None):
+    """Draw from `gen` and apply: (x01, boxes, valid) augmented. Under a
+    mesh with a data axis of D, x01 is this data rank's slice of the
+    global batch: the draws are made for the global batch (B x D images)
+    and this rank's rows cut out, so with every rank's generator seeded
+    alike the ranks together draw what one process would."""
     b, h, w, _ = x01.shape
-    draws = draw_augment(gen, cfg, b, h, w, x01.device)
+    d = 1 if mesh is None else mesh.data_size
+    draws = draw_augment(gen, cfg, b * d, h, w, x01.device)
+    if d > 1:
+        rows = slice(mesh.data_index * b, (mesh.data_index + 1) * b)
+        draws = {k: v[rows] for k, v in draws.items()}
     return apply_augment(x01, boxes, valid, draws, cfg)

@@ -15,8 +15,15 @@ dinov2_od_tpu/data/loader.py).
 host buffers, copied with `non_blocking=True` on a side stream; the
 consumer's stream waits on the copy's event before it reads the batch.
 
-The loader runs in one process; the JAX loader's per-host slices of a
-multi-host run are not ported (ROADMAP.md).
+Under a mesh of processes (`process_count` > 1: the data axis's size, and
+`process_id` this rank's data index) every process builds the same
+global order from the seed and decodes only its interleaved slice
+`idxs[process_id::process_count]` of each global batch, as the JAX
+loader's hosts do. A trailing partial batch is padded to the global size
+by repeating its first index, and each batch then carries `_local_n`,
+this process's count of real rows (a prefix of its slice). The
+tensor- and context-parallel peers of a data rank pass the same
+`process_id`, so they load the same rows.
 """
 
 from __future__ import annotations
@@ -58,6 +65,8 @@ class DataLoader:
         drop_last: bool = False,
         num_workers: int = 4,
         prefetch: int = 2,
+        process_count: int = 1,
+        process_id: int = 0,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -67,6 +76,12 @@ class DataLoader:
         self.num_workers = max(1, num_workers)
         self.prefetch = prefetch
         self.epoch = 0
+        if process_count > 1 and batch_size % process_count:
+            raise ValueError(
+                f"global batch_size {batch_size} must divide evenly over "
+                f"{process_count} processes")
+        self.process_count = process_count
+        self.process_id = process_id
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
@@ -84,6 +99,18 @@ class DataLoader:
                    for i in range(0, len(order), self.batch_size)]
         if self.drop_last and batches and len(batches[-1]) < self.batch_size:
             batches.pop()
+        local_n: list = []
+        if self.process_count > 1:
+            pid, pc = self.process_id, self.process_count
+            local = []
+            for b in batches:
+                n = len(b)
+                if n < self.batch_size:
+                    b = np.concatenate(
+                        [b, np.full(self.batch_size - n, b[0], b.dtype)])
+                local.append(b[pid::pc])
+                local_n.append(max(0, -(-(n - pid) // pc)))
+            batches = local
 
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
@@ -92,7 +119,7 @@ class DataLoader:
         def produce():
             try:
                 with ThreadPoolExecutor(self.num_workers) as pool:
-                    for idxs in batches:
+                    for bi, idxs in enumerate(batches):
                         if stop.is_set():
                             break
                         if fast_batch is not None:
@@ -102,6 +129,8 @@ class DataLoader:
                                 pool.map(self.dataset.get_example, idxs))
                             batch = {k: np.stack([e[k] for e in examples])
                                      for k in examples[0]}
+                        if local_n:
+                            batch["_local_n"] = np.int64(local_n[bi])
                         q.put(("batch", batch))
             except Exception as e:  # surfaced in the consumer
                 q.put(("error", e))

@@ -1,5 +1,6 @@
-"""Data, context (ring) and Megatron tensor parallelism over
-torch.distributed process groups (counterpart of dinov2_od_tpu/parallel/)."""
+"""The multi-process start-up, and data, context (ring) and Megatron
+tensor parallelism over torch.distributed process groups (counterpart of
+dinov2_od_tpu/parallel/)."""
 
 from .collectives import (
     all_reduce,
@@ -10,8 +11,10 @@ from .collectives import (
     ring_shift,
     shard_tokens,
 )
+from .multihost import host_shard_indices, initialize_multihost
 from .sharding import (
     Mesh,
+    auto_mesh,
     batch_sharding,
     check_tp_compatible,
     context_size,
@@ -22,8 +25,9 @@ from .sharding import (
 )
 
 __all__ = [
-    "Mesh", "all_reduce", "batch_sharding", "check_tp_compatible",
-    "context_size", "copy_to_model", "create_mesh", "gather_params",
-    "gather_tokens", "model_size", "reduce_from_model", "reduce_gradients",
-    "ring_shift", "shard_params", "shard_tokens",
+    "Mesh", "all_reduce", "auto_mesh", "batch_sharding",
+    "check_tp_compatible", "context_size", "copy_to_model", "create_mesh",
+    "gather_params", "gather_tokens", "host_shard_indices",
+    "initialize_multihost", "model_size", "reduce_from_model",
+    "reduce_gradients", "ring_shift", "shard_params", "shard_tokens",
 ]

@@ -22,9 +22,11 @@
 
 The mesh's backend decides the transport. NCCL takes CUDA tensors as they
 are. Gloo reduces host buffers, so a CUDA tensor (ranks that share one
-card) or a non-fp32 one is copied to a host fp32 buffer, reduced or sent
-there and copied back: bf16 partial sums are added in fp32 and rounded
-once, and a bf16 tensor crosses a ring exactly.
+card) or one of another dtype is copied to a host buffer, reduced or sent
+there and copied back: fp32 for floating dtypes (bf16 partial sums are
+added in fp32 and rounded once, and a bf16 tensor crosses a ring
+exactly), int64 for integer and bool ones (image ids, labels and uint8
+pixels cross exactly).
 """
 
 from __future__ import annotations
@@ -37,8 +39,13 @@ import torch.distributed as dist
 from . import sharding
 
 
+def _wire(t: torch.Tensor) -> torch.dtype:
+    """The dtype of a gloo host buffer for `t`."""
+    return torch.float32 if t.dtype.is_floating_point else torch.int64
+
+
 def _staged(t: torch.Tensor, backend: str) -> bool:
-    return backend == "gloo" and (t.is_cuda or t.dtype != torch.float32)
+    return backend == "gloo" and (t.is_cuda or t.dtype != _wire(t))
 
 
 def all_reduce(t: torch.Tensor, group, backend: str,
@@ -46,7 +53,7 @@ def all_reduce(t: torch.Tensor, group, backend: str,
     """The sum (or another `op`) of `t` over `group`, as a new tensor of
     t's dtype and device."""
     if _staged(t, backend):
-        buf = t.detach().to("cpu", torch.float32).contiguous()
+        buf = t.detach().to("cpu", _wire(t)).contiguous()
         dist.all_reduce(buf, op=op, group=group)
         return buf.to(t.device, t.dtype)
     out = t.detach().clone(memory_format=torch.contiguous_format)
@@ -73,7 +80,7 @@ def all_gather(t: torch.Tensor, group, backend: str) -> List[torch.Tensor]:
     """Every group member's `t` (same shape on all), in group rank order,
     on t's device."""
     n = dist.get_world_size(group)
-    src = (t.to("cpu", torch.float32) if backend == "gloo"
+    src = (t.to("cpu", _wire(t)) if backend == "gloo"
            else t).contiguous()
     out = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(out, src, group=group)
@@ -132,7 +139,7 @@ def ring_shift(t: torch.Tensor, mesh, offset: int = 1) -> torch.Tensor:
     dst = dist.get_global_rank(group, (i + offset) % n)
     src = dist.get_global_rank(group, (i - offset) % n)
     staged = _staged(t, mesh.backend)
-    send = (t.detach().to("cpu", torch.float32) if staged
+    send = (t.detach().to("cpu", _wire(t)) if staged
             else t.detach()).contiguous()
     recv = torch.empty_like(send)
     for req in dist.batch_isend_irecv([

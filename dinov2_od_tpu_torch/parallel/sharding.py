@@ -106,6 +106,12 @@ class Mesh:
                 else self.cfg.context_axis)
 
 
+def data_place(mesh: Optional[Mesh]) -> Tuple[int, int]:
+    """(the data axis's size, this rank's data index); (1, 0) without a
+    mesh."""
+    return (1, 0) if mesh is None else (mesh.data_size, mesh.data_index)
+
+
 def model_size(mesh: Optional[Mesh]) -> int:
     """The tensor-parallel degree; 1 without a mesh."""
     return 1 if mesh is None else mesh.model_size
@@ -160,6 +166,46 @@ def create_mesh(model_parallel_size: int = 1,
                 context_group=(ctx[tuple(grid[d, :, m].tolist())]
                                if cp > 1 else None),
                 **common)
+
+
+def mesh_shape(data, model_parallel_size: int, cfg: MeshConfig) -> str:
+    """A mesh as the error messages name it: "data D x context C x model
+    M" (the context axis only when cfg.context_parallel_size > 0); `data`
+    may be a placeholder."""
+    mid = (f" x context {cfg.context_parallel_size}"
+           if cfg.context_parallel_size > 0 else "")
+    return f"data {data}{mid} x model {model_parallel_size}"
+
+
+def auto_mesh(batch_size: int, model_parallel_size: int = 1,
+              cfg: MeshConfig = MeshConfig()) -> Optional[Mesh]:
+    """The run's mesh over the started world (`create_mesh`), checked
+    against the global batch; None in one process without a started
+    world (a mesh of one rank: the single-device run). The JAX package
+    picks the largest data axis that divides the batch and leaves the
+    other devices idle; a rank is a process that cannot sit idle, so here
+    the data axis is the world over model_parallel_size x
+    max(context_parallel_size, 1) (or over the legacy ring's
+    model_parallel_size), and a world or a batch that does not divide
+    raises."""
+    from .multihost import process_count, started
+
+    world = process_count()
+    inner = model_parallel_size * max(cfg.context_parallel_size, 1)
+    if model_parallel_size < 1 or world % inner:
+        raise ValueError(
+            f"a world of {world} processes does not divide into the mesh "
+            f"{mesh_shape('D', model_parallel_size, cfg)} (--model_parallel "
+            f"{model_parallel_size}, --context_parallel_size "
+            f"{cfg.context_parallel_size}; --batch_size {batch_size})")
+    data = world // inner
+    if batch_size % data:
+        raise ValueError(
+            f"--batch_size {batch_size} is not divisible by the data axis "
+            f"of the mesh {mesh_shape(data, model_parallel_size, cfg)} "
+            f"({world} processes): each data rank takes 1/{data} of the "
+            f"global batch")
+    return create_mesh(model_parallel_size, cfg) if started() else None
 
 
 def shard_dim(path: Tuple[str, ...]) -> Optional[int]:
@@ -231,8 +277,9 @@ def local_slice(n: int, mesh: Mesh) -> slice:
 
 def _width(leaves: Params, names, dim: int) -> Optional[int]:
     for name in names:
-        if leaves.get(name) is not None:
-            return leaves[name].shape[dim]
+        leaf = leaves.get(name)
+        if leaf is not None and leaf.dim() > 0:  # not an EMA placeholder
+            return leaf.shape[dim]
     return None
 
 
@@ -261,18 +308,19 @@ def _halves(path: Tuple[str, ...], swiglu: bool) -> bool:
 
 
 def shard_params(params: Params, mesh: Mesh) -> Params:
-    """This rank's shard of a full param tree: each sharded leaf sliced
-    (and copied, contiguous, an int8 kernel_q K-major) at the rank's model
-    index, SwiGLU's fc1 leaves half by half; replicated leaves as they
-    are."""
+    """This rank's shard of a full param tree (or of a tree shaped as it:
+    Adam's moments, the EMA, whose frozen leaves are 0-dim placeholders
+    that stay as they are): each sharded leaf sliced (and copied,
+    contiguous, an int8 kernel_q K-major) at the rank's model index,
+    SwiGLU's fc1 leaves half by half; replicated leaves as they are."""
     from ..models.quantize import k_major
 
     swiglu = _swiglu(params)
 
     def shard(path, leaf):
         d = shard_dim(path)
-        if d is None or mesh.model_size == 1:
-            return leaf
+        if d is None or mesh.model_size == 1 or leaf.dim() == 0:
+            return leaf  # replicated, or the EMA's frozen placeholder
         if _halves(path, swiglu):
             two = leaf.unflatten(-1, (2, leaf.shape[-1] // 2))
             out = two[..., local_slice(two.shape[-1], mesh)].flatten(-2)
@@ -297,7 +345,7 @@ def gather_params(shards: Params, mesh: Mesh) -> Params:
 
     def gather(path, leaf):
         d = shard_dim(path)
-        if d is None or mesh.model_size == 1:
+        if d is None or mesh.model_size == 1 or leaf.dim() == 0:
             return leaf
         parts = all_gather(leaf.detach(), mesh.model_group, mesh.backend)
         if _halves(path, swiglu):

@@ -23,6 +23,17 @@ The restore semantics are the reference's (dino_detector/train.py): a
 shape-tolerant partial restore of the params (`merge_compatible`: leaves
 whose path or shape differ keep the template's value, with a warning),
 and a fresh optimizer when the saved one does not fit.
+
+Under a mesh of processes (parallel/sharding.py) the file holds the
+logical tree, the same file one process writes, so a tensor-parallel
+run's checkpoint loads in one process (`Predictor.from_checkpoint`,
+`serve.main`). Every rank calls `save_checkpoint` and
+`save_final_params` with `mesh`: the params, Adam's moments, the
+accumulator and the EMA are gathered over the model group (a
+collective), world rank 0 writes the file synchronously, and a barrier
+follows, so no rank reads a checkpoint before it is whole. A restore reads
+the logical tree on every rank; `shard_train_trees` then cuts each
+rank's shard of it, the optimizer state and the EMA included.
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ from typing import Any, Dict, List, NamedTuple, Optional
 
 import torch
 
+from ..parallel.multihost import barrier, process_index
 from .state import AdamState, tree_map
 
 logger = logging.getLogger("dinov2_od_tpu_torch")
@@ -142,14 +154,21 @@ def save_checkpoint(
     *,
     step: int = 0,
     ema=None,
+    mesh=None,
 ) -> str:
     """Write one checkpoint under `directory` (reference naming
     checkpoint_epoch_{N}) and return its path. With async_save the
     tensors are copied to the host before the call returns and written by
-    the background writer (at most one save in flight)."""
+    the background writer (at most one save in flight). Under `mesh`
+    every rank calls it: the trees are gathered, rank 0 writes
+    synchronously and the ranks meet at a barrier."""
     global _writer
     name = name or f"checkpoint_epoch_{epoch}"
     path = os.path.abspath(os.path.join(directory, name))
+    if mesh is not None:
+        params, opt_state, ema = gather_train_trees(params, opt_state, ema,
+                                                    mesh)
+        async_save = False
     payload = {
         "epoch": int(epoch),
         "loss": float(loss),
@@ -167,6 +186,8 @@ def save_checkpoint(
     history = (None if metrics_history is None
                else json.loads(json.dumps(metrics_history)))
     wait_for_saves()
+    if mesh is not None:
+        return _written_by_rank0(path, payload, history)
     if not async_save:
         return _write(path, payload, history)
     if _writer is None:
@@ -175,12 +196,56 @@ def save_checkpoint(
     return path
 
 
-def save_final_params(directory: str, params,
-                      name: str = "final_model") -> str:
-    """Bare-params save, the reference's final state_dict-only format."""
+def _written_by_rank0(path: str, payload: dict,
+                      history: Optional[dict]) -> str:
+    if process_index() == 0:
+        _write(path, payload, history)
+    barrier()
+    return path
+
+
+def save_final_params(directory: str, params, name: str = "final_model",
+                      mesh=None) -> str:
+    """Bare-params save, the reference's final state_dict-only format.
+    Under `mesh`, as `save_checkpoint`: gathered, rank 0 writes, a
+    barrier."""
     wait_for_saves()
     path = os.path.abspath(os.path.join(directory, name))
+    if mesh is not None:
+        params = gather_train_trees(params, None, None, mesh)[0]
+        return _written_by_rank0(path, {"params": _to_host(params)}, None)
     return _write(path, {"params": _to_host(params)}, None)
+
+
+def gather_train_trees(params, opt_state: Optional[AdamState], ema, mesh):
+    """The logical params, Adam state and EMA from each rank's shards
+    (`parallel.sharding.gather_params` over the model group); every rank
+    of the mesh must call it."""
+    from ..parallel.sharding import gather_params
+
+    def full(tree):
+        return None if tree is None else gather_params(tree, mesh)
+
+    if opt_state is not None:
+        opt_state = opt_state._replace(mu=full(opt_state.mu),
+                                       nu=full(opt_state.nu),
+                                       acc=full(opt_state.acc))
+    return full(params), opt_state, full(ema)
+
+
+def shard_train_trees(opt_state: Optional[AdamState], ema, mesh):
+    """This rank's shards of a restored logical Adam state and EMA
+    (`parallel.sharding.shard_params`)."""
+    from ..parallel.sharding import shard_params
+
+    def cut(tree):
+        return None if tree is None else shard_params(tree, mesh)
+
+    if opt_state is not None:
+        opt_state = opt_state._replace(mu=cut(opt_state.mu),
+                                       nu=cut(opt_state.nu),
+                                       acc=cut(opt_state.acc))
+    return opt_state, cut(ema)
 
 
 class Restored(NamedTuple):

@@ -5,10 +5,20 @@ The reference's `python -m dino_detector.train` flag surface
 (dino_detector/train.py:1354-1462): dataset paths, debug/overfit mode,
 coco-mini subsets, test-mini, the lightweight config, checkpoints, loss
 and matcher costs, logging. Every flag name of the JAX package's CLI is
-kept, so a JAX command line carries across. The port trains in one
-process on one device (`--device cuda`, the default, or `cpu`). The flags
-of paths not ported yet raise `NotImplementedError` naming their
-ROADMAP.md item when they are asked for (`UNPORTED`).
+kept, so a JAX command line carries across, and the JAX CLI's checks of
+flags that exclude each other stop it the same way. It trains on one
+device (`--device cuda`, the default, or `cpu`) in one process, or as one
+rank of a mesh of processes, one process a rank, under the JAX flags and
+semantics: `--model_parallel N` (DP x TP), `--context_parallel_size C`
+(DP x CP x TP) and `--context_parallel` (the legacy ring over the model
+axis). The ranks join through `--coordinator_address/--num_processes/
+--process_id`, or with `--multihost` alone from a launcher's environment
+(`torchrun`; parallel/multihost.py); `--batch_size` is the global batch.
+Training, validation, checkpoints, resume and `--only_evaluate` all run
+on the mesh, and the run writes one set of files (world rank 0; the
+other ranks log to the console only). The flags of paths not ported yet
+raise `NotImplementedError` naming their ROADMAP.md item when they are
+asked for (`UNPORTED`).
 """
 
 from __future__ import annotations
@@ -60,23 +70,32 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_epochs", type=int, default=None)
     p.add_argument("--learning_rate", type=float, default=None)
 
-    # Parallelism (reference --distributed/--world_size/--dist_url). The
-    # port trains in one process on one card: the multi-process and mesh
-    # flags below raise when asked for (ROADMAP.md Queue A item 7).
+    # Parallelism (reference --distributed/--world_size/--dist_url, which
+    # the JAX CLI accepts and ignores). One process a rank: the ranks join
+    # through the multihost flags (parallel/multihost.py), and the mesh
+    # flags lay them out.
     p.add_argument("--distributed", action="store_true",
-                   help="multi-process data parallelism (not ported yet)")
+                   help="accepted for compatibility; ignored (start the "
+                        "ranks with the multihost flags)")
     p.add_argument("--world_size", type=int, default=0,
                    help="accepted for compatibility; ignored")
     p.add_argument("--dist_url", type=str, default="env://",
                    help="accepted for compatibility; ignored")
     p.add_argument("--multihost", action="store_true",
-                   help="join a multi-host job (not ported yet)")
+                   help="join a multi-process run: with the three flags "
+                        "below, a TCP rendezvous at process 0; alone, "
+                        "from a launcher's environment (RANK, WORLD_SIZE, "
+                        "MASTER_ADDR, MASTER_PORT, LOCAL_RANK: what "
+                        "torchrun sets). One process a rank, each on "
+                        "cuda:{LOCAL_RANK %% cards}; ranks sharing a card "
+                        "or the CPU take gloo, else NCCL")
     p.add_argument("--coordinator_address", type=str, default=None,
                    help="host:port of process 0 (multihost)")
     p.add_argument("--num_processes", type=int, default=None,
-                   help="total process count (multihost)")
+                   help="total process count: the world's ranks "
+                        "(multihost)")
     p.add_argument("--process_id", type=int, default=None,
-                   help="this process's id (multihost)")
+                   help="this process's rank (multihost)")
     p.add_argument("--model_parallel", type=int, default=1,
                    help="model-axis size of the mesh: tensor parallelism "
                         "by default; repurposed as the sequence axis "
@@ -126,7 +145,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--debug", action="store_true")
     p.add_argument("--debug_samples", type=int, default=32)
     p.add_argument("--batch_size", type=int, default=8,
-                   help="images per step on the card")
+                   help="images per step: the global batch, of which each "
+                        "data-parallel rank takes its share")
     p.add_argument("--lr_schedule", type=str, default="constant",
                    choices=["constant", "cosine", "linear"],
                    help="LR schedule (beyond reference, which has none): "
@@ -283,9 +303,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "card's free memory, else it raises)")
     p.add_argument("--device_cache_layout", type=str, default="auto",
                    choices=["auto", "replicated", "sharded"],
-                   help="with --device_cache: the cache's placement; in "
-                        "one process 'auto' is 'replicated' ('sharded' "
-                        "needs data-parallel ranks and raises)")
+                   help="with --device_cache: the cache's placement; "
+                        "'sharded' splits the rows over the data axis "
+                        "(each data rank holds 1/D of the set), "
+                        "'replicated' keeps the whole set on every rank; "
+                        "'auto' shards when the data axis is larger "
+                        "than 1")
     p.add_argument("--steps_per_dispatch", type=int, default=8,
                    help="with --device_cache: train steps queued behind "
                         "one index copy")
@@ -390,13 +413,6 @@ def build_detector_config(args) -> C.DetectorConfig:
 
 # (the flag asked for, the ROADMAP.md item that ports it)
 UNPORTED = (
-    (lambda a: a.distributed or a.multihost or a.coordinator_address
-     or a.num_processes, "--distributed/--multihost",
-     "Queue A item 7 (multi-process layouts)"),
-    (lambda a: a.model_parallel > 1, "--model_parallel > 1",
-     "Queue A item 7 (tensor parallelism in the loop)"),
-    (lambda a: a.context_parallel or a.context_parallel_size > 0,
-     "--context_parallel*", "Queue A item 7"),
     (lambda a: (a.pipeline_parallel or a.pipeline_parallel_size > 0
                 or a.pipeline_microbatches > 0 or a.pipeline_chunks != 1),
      "--pipeline_*", "Queue A item 7"),
@@ -416,9 +432,42 @@ def check_ported(args) -> None:
                 f"{flag} is not ported to PyTorch yet (ROADMAP.md {item})")
 
 
+def check_exclusive(parser: argparse.ArgumentParser, args) -> None:
+    """The JAX CLI's checks of the parallelism flags that exclude each
+    other, with its messages (dinov2_od_tpu/train/cli.py `main`)."""
+    if args.context_parallel and args.pipeline_parallel:
+        parser.error(
+            "--context_parallel and --pipeline_parallel both claim the "
+            "model axis; enable at most one")
+    if args.context_parallel_size > 0 and args.context_parallel:
+        parser.error(
+            "--context_parallel_size (dedicated context axis) and "
+            "--context_parallel (legacy: ring over the model axis) are "
+            "exclusive; use one")
+    if args.context_parallel_size > 0 and args.pipeline_parallel:
+        parser.error(
+            "--context_parallel_size cannot be combined with "
+            "--pipeline_parallel")
+    if args.pipeline_parallel_size > 0 and (
+            args.pipeline_parallel or args.context_parallel
+            or args.context_parallel_size > 0):
+        parser.error(
+            "--pipeline_parallel_size (dedicated stage axis) is exclusive "
+            "with --pipeline_parallel, --context_parallel, and "
+            "--context_parallel_size")
+    if args.fsdp and (
+            args.pipeline_parallel or args.context_parallel
+            or args.context_parallel_size > 0
+            or args.pipeline_parallel_size > 0):
+        parser.error(
+            "--fsdp does not compose with pipeline/context parallelism; "
+            "use it with plain DP or DP x TP (--model_parallel)")
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     parser = build_arg_parser()
     args = parser.parse_args(argv)
+    check_exclusive(parser, args)
     check_ported(args)
 
     import torch
@@ -426,8 +475,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     from ..data.coco import CocoDetectionDataset, CocoTestDataset
     from ..models.detector import (cast_frozen_weights, fold_detector_lora,
                                    init_detector_params)
-    from ..models.layers import resolve_device
     from ..models.quantize import quantize_detector_int8
+    from ..parallel.multihost import (initialize_multihost, process_count,
+                                      process_index)
+    from ..parallel.sharding import (auto_mesh, check_tp_compatible,
+                                     shard_params)
     from ..utils.logging import setup_logger, setup_tensorboard
     from . import checkpoint as ckpt
     from .loop import (create_coco_mini, create_debug_subset,
@@ -438,11 +490,26 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.device not in ("cuda", "cpu"):
         raise ValueError(f"--device must be 'cuda' or 'cpu', not "
                          f"{args.device!r}")
-    device = resolve_device(args.device)
+    # First, as the JAX CLI starts its distributed runtime first: the
+    # rank's card and the world (a no-op without the multihost flags).
+    device = initialize_multihost(
+        coordinator_address=args.coordinator_address,
+        num_processes=args.num_processes, process_id=args.process_id,
+        auto=args.multihost, device=args.device)
+    rank = process_index()
+    primary = rank == 0
+    if device.type == "cpu" and process_count() > 1:
+        # Ranks share the host's cores: torch's thread a core each would
+        # oversubscribe it.
+        torch.set_num_threads(1)
     os.makedirs(args.output_dir, exist_ok=True)
-    logger = setup_logger(args.log_dir or args.output_dir)
-    writer = setup_tensorboard(args.log_dir or args.output_dir,
-                               args.experiment_name)
+    # One set of files a run: rank 0 logs to a file and TensorBoard, the
+    # other ranks to the console only.
+    logger = setup_logger(args.log_dir or args.output_dir,
+                          log_file="train.log" if primary else None,
+                          prefix="" if primary else f"[rank {rank}] ")
+    writer = (setup_tensorboard(args.log_dir or args.output_dir,
+                                args.experiment_name) if primary else None)
 
     det_cfg = build_detector_config(args)
     normalize = not (args.no_normalize or args.parity_mode)
@@ -453,6 +520,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.debug:
         num_epochs = num_epochs or 100
         learning_rate = learning_rate or args.debug_lr
+    mesh_cfg = C.MeshConfig(
+        model_parallel_size=args.model_parallel,
+        context_parallel=args.context_parallel,
+        context_parallel_size=args.context_parallel_size,
+    )
     cfg = C.TrainConfig(
         detector=det_cfg,
         data=C.DataConfig(batch_size=args.batch_size, normalize=normalize,
@@ -480,6 +552,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         num_epochs=num_epochs or 50,
         checkpoint_every_epochs=args.checkpoint_frequency,
         save_on_preemption=args.save_on_preemption,
+        mesh=mesh_cfg,
     )
     logger.info("device: %s", device)
     logger.info("detector config: %s", det_cfg)
@@ -542,19 +615,35 @@ def main(argv: Optional[List[str]] = None) -> int:
     # only_evaluate (reference train.py:750-890)
     # ------------------------------------------------------------------
     if args.only_evaluate:
+        if not cfg.mesh.context_parallel:
+            # The legacy ring's model axis carries tokens, not shards.
+            check_tp_compatible(det_cfg, args.model_parallel)
         if args.quantize == "int8":
+            if args.model_parallel > 1:
+                # As the JAX CLI: the fused quantize + GEMM (B6) off under
+                # tensor parallelism; the int8 linears take the unfused
+                # path on their shards.
+                from ..ops.int8_gemm import set_fused_enabled
+
+                set_fused_enabled(False)
             params = quantize_detector_int8(
                 fold_detector_lora(params, det_cfg), det_cfg)
             logger.info("evaluating with the int8-quantized backbone (W8A8)")
-        eval_step = make_eval_topk_step(cfg, parity_mode=args.parity_mode)
+        mesh = auto_mesh(args.batch_size, args.model_parallel, cfg.mesh)
+        if mesh is not None:
+            params = shard_params(params, mesh)
+        eval_step = make_eval_topk_step(cfg, mesh,
+                                        parity_mode=args.parity_mode)
         if args.testdev_images:
             ds = CocoTestDataset(args.testdev_images, None, args.image_size,
                                  **ds_kwargs)
             if args.test_mini:
                 idx = create_debug_subset(len(ds), args.test_mini_size)
-                with open(os.path.join(args.output_dir,
-                                       "test_mini_indices.json"), "w") as f:
-                    json.dump({"indices": idx}, f)
+                if primary:
+                    with open(os.path.join(args.output_dir,
+                                           "test_mini_indices.json"),
+                              "w") as f:
+                        json.dump({"indices": idx}, f)
                 ds = CocoTestDataset(args.testdev_images, None,
                                      args.image_size, indices=idx,
                                      **ds_kwargs)
@@ -562,7 +651,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                                     "testdev_predictions.json")
             results = evaluate_dataset(
                 eval_step, params, ds, args.batch_size, ds.label_to_cat_id,
-                output_file=out_file, parity_mode=args.parity_mode)
+                output_file=out_file, parity_mode=args.parity_mode,
+                mesh=mesh)
             logger.info("wrote %d detections to %s", len(results), out_file)
             return 0
         if args.packed_val_data:
@@ -580,14 +670,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         if args.use_coco_mini:
             indices = create_coco_mini(
                 len(ds), args.coco_mini_size, args.coco_mini_seed,
-                args.coco_mini_indices_file, args.output_dir)
+                args.coco_mini_indices_file,
+                args.output_dir if primary else "")
         elif args.debug:
             indices = create_debug_subset(len(ds), args.debug_samples)
         if indices is not None:
             ds = make_val(indices)
         metrics = validate(eval_step, params, ds, args.batch_size,
                            start_epoch, args.output_dir,
-                           parity_mode=args.parity_mode)
+                           parity_mode=args.parity_mode, mesh=mesh)
         logger.info("evaluation metrics: %s", metrics)
         return 0
 
@@ -615,7 +706,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     elif args.use_coco_mini:
         indices = create_coco_mini(
             len(train_ds), args.coco_mini_size, args.coco_mini_seed,
-            args.coco_mini_indices_file, args.output_dir)
+            args.coco_mini_indices_file, args.output_dir if primary else "")
     if indices is not None:
         train_ds = make_train_ds(indices)
 

@@ -19,10 +19,25 @@
 
 Before an upload the cache's bytes are held against the card's free
 memory (`torch.cuda.mem_get_info`); a cache that does not fit raises
-rather than falling back to the host loader. In one process there is one
-layout: 'auto' is 'replicated' (the JAX package's single-device layout);
-'sharded' needs more than one data-parallel rank (ROADMAP.md Queue A
-item 7) and raises.
+rather than falling back to the host loader.
+
+Two layouts, as in the JAX package, over a mesh of processes
+(parallel/sharding.py; without one, a single data rank):
+- 'replicated': every rank holds the whole cache, and a data rank's share
+  of a global batch [B] is a gather of its contiguous B / D indices;
+- 'sharded': data rank d holds rows [d n_pad / D, (d + 1) n_pad / D) (the
+  rows zero-padded to a multiple of D; its tensor- and context-parallel
+  peers hold the same rows), so the cache per rank shrinks D-fold. A
+  batch is `sharded_batch_gather`: each rank gathers the rows of the
+  global index it holds into a zero [B, ...], the data group sums them
+  (JAX's psum_scatter; gloo has no reduce-scatter, so an all-reduce and a
+  slice), and each rank keeps its B / D slice. One rank contributes each
+  element, so the sum is exact in every dtype, the uint8 images included.
+'auto' takes 'sharded' when the data axis is larger than 1; 'sharded' in
+one process is the one-shard case. The validation cache lays each batch's
+columns out by data rank (all of them in 'replicated', this rank's in
+'sharded'), so the validation runs without a collective until its one
+gather of the top-k.
 """
 
 from __future__ import annotations
@@ -37,6 +52,9 @@ import torch
 from ..config import TrainConfig
 from ..data.loader import shuffled_order
 from ..evaluation.postprocess import format_detections, select_above_threshold
+from ..parallel.collectives import all_gather, all_reduce
+from ..parallel.multihost import process_index
+from ..parallel.sharding import data_place
 from .step import make_eval_topk_step, make_train_step, step_seed
 
 logger = logging.getLogger("dinov2_od_tpu_torch")
@@ -45,17 +63,24 @@ TRAIN_KEYS = ("images", "boxes", "labels", "valid")
 LAYOUTS = ("auto", "replicated", "sharded")
 
 
-def resolve_layout(layout: str) -> str:
-    """The cache layout a one-process run takes for `layout`."""
+def resolve_layout(layout: str, mesh=None,
+                   batch_size: Optional[int] = None) -> str:
+    """The cache layout a run over `mesh` takes for `layout`: 'auto' is
+    'sharded' when the data axis is larger than 1 (the JAX package's
+    rule), else 'replicated'. Raises when `batch_size` does not divide by
+    the data axis."""
     if layout not in LAYOUTS:
         raise ValueError(f"device cache layout must be one of {LAYOUTS}, "
                          f"not {layout!r}")
-    if layout == "sharded":
-        raise NotImplementedError(
-            "--device_cache_layout sharded splits the cache over the "
-            "data-parallel ranks, which the port does not run yet "
-            "(ROADMAP.md Queue A item 7)")
-    return "replicated"
+    d, _ = data_place(mesh)
+    if batch_size is not None and batch_size % d:
+        raise ValueError(
+            f"--device_cache: --batch_size {batch_size} is not divisible "
+            f"by the mesh's data axis of {d} (mesh data {d} x context "
+            f"{mesh.context_size} x model {mesh.model_size})")
+    if layout == "auto":
+        return "sharded" if d > 1 else "replicated"
+    return layout
 
 
 def _dataset_arrays(dataset, keys) -> Dict[str, np.ndarray]:
@@ -94,20 +119,71 @@ def _to_device(arrays: Dict[str, np.ndarray], device) -> Dict[str,
             for k, v in arrays.items()}
 
 
-def upload_train_cache(dataset, device="cuda",
-                       layout: str = "auto") -> Dict[str, torch.Tensor]:
-    """images, boxes, labels and valid of the whole dataset, on `device`,
-    once. Raises when the card lacks the memory."""
-    resolve_layout(layout)
-    nbytes = cache_nbytes(dataset)
-    check_fits(nbytes, device, "training-set cache")
+def upload_train_cache(dataset, device="cuda", layout: str = "auto",
+                       mesh=None) -> Dict[str, torch.Tensor]:
+    """images, boxes, labels and valid of the whole dataset on `device`,
+    once: every row ('replicated') or this data rank's block of rows
+    ('sharded'). Raises when the card lacks the memory."""
+    layout = resolve_layout(layout, mesh)
+    d, di = data_place(mesh)
+    n = len(dataset)
+    n_loc = -(-n // d) if layout == "sharded" else n
+    check_fits(cache_nbytes(dataset) * n_loc // max(n, 1), device,
+               "training-set cache")
     arrays = _dataset_arrays(dataset, TRAIN_KEYS)
     if arrays["images"].dtype != np.uint8:
         logger.warning("device cache with float images: 4x the memory of "
                        "a uint8 feed (use --feed_dtype uint8)")
-    logger.info("uploading %.2f GB dataset cache to %s",
-                sum(a.nbytes for a in arrays.values()) / 1e9, device)
+    if layout == "sharded":
+        pad = n_loc * d - n
+        arrays = {k: np.concatenate([v, np.zeros((pad,) + v.shape[1:],
+                                                 v.dtype)])[
+                                                     di * n_loc:
+                                                     (di + 1) * n_loc]
+                  for k, v in arrays.items()}
+    logger.info("uploading %.2f GB dataset cache to %s (%s, %d of %d rows)",
+                sum(a.nbytes for a in arrays.values()) / 1e9, device, layout,
+                n_loc, n)
     return _to_device(arrays, device)
+
+
+def sharded_batch_gather(cache: Dict[str, torch.Tensor], idx: torch.Tensor,
+                         mesh=None) -> Dict[str, torch.Tensor]:
+    """This data rank's B / D rows of the global batch `idx` [B] from a
+    'sharded' cache: the rows this rank holds gathered into zeros, summed
+    over the data group, and this rank's contiguous slice kept. Exact in
+    every dtype (one contributor an element); bit-equal to the
+    replicated layout's gather."""
+    d, di = data_place(mesh)
+    n_loc = next(iter(cache.values())).shape[0]
+    local = idx - di * n_loc
+    ok = (local >= 0) & (local < n_loc)
+    safe = torch.where(ok, local, torch.zeros_like(local))
+    w = idx.shape[0] // d
+    out = {}
+    for k, x in cache.items():
+        v = x.index_select(0, safe)
+        was_bool = v.dtype == torch.bool
+        if was_bool:
+            v = v.to(torch.uint8)
+        v = torch.where(ok.view((-1,) + (1,) * (v.dim() - 1)), v,
+                        torch.zeros((), dtype=v.dtype, device=v.device))
+        if d > 1:
+            v = all_reduce(v, mesh.data_group, mesh.backend)
+        v = v[di * w:(di + 1) * w]
+        out[k] = v.bool() if was_bool else v
+    return out
+
+
+def replicated_batch_gather(cache: Dict[str, torch.Tensor],
+                            idx: torch.Tensor,
+                            mesh=None) -> Dict[str, torch.Tensor]:
+    """This data rank's B / D rows of the global batch `idx` [B] from a
+    'replicated' cache: its contiguous slice of the indices, gathered."""
+    d, di = data_place(mesh)
+    w = idx.shape[0] // d
+    rows = idx[di * w:(di + 1) * w]
+    return {k: cache[k].index_select(0, rows) for k in TRAIN_KEYS}
 
 
 def index_tensor(group: np.ndarray, device) -> torch.Tensor:
@@ -119,18 +195,23 @@ def index_tensor(group: np.ndarray, device) -> torch.Tensor:
     return t.to(device, non_blocking=True)
 
 
-def make_multi_train_step(cfg: TrainConfig, train_step=None):
+def make_multi_train_step(cfg: TrainConfig, train_step=None, mesh=None,
+                          layout: str = "replicated"):
     """multi_step(state, cache, idxs [K, B] on the cache's device,
     generator) -> (state, metrics stacked [K]): K train steps on the
-    cache's rows, each with `generator` seeded by (cfg.seed, its step),
-    none waiting for the card beyond what the step itself waits for."""
-    step = train_step or make_train_step(cfg)
+    cache's rows (each rank's share of each global batch, gathered as
+    `layout` lays the cache out), each with `generator` seeded by
+    (cfg.seed, its step), none waiting for the card beyond what the step
+    itself waits for."""
+    step = train_step or make_train_step(cfg, mesh)
+    gather = (sharded_batch_gather if layout == "sharded"
+              else replicated_batch_gather)
 
     def multi_step(state, cache: Dict[str, torch.Tensor], idxs: torch.Tensor,
                    generator: Optional[torch.Generator] = None):
         per_step = []
         for idx in idxs.unbind(0):
-            batch = {k: cache[k].index_select(0, idx) for k in TRAIN_KEYS}
+            batch = gather(cache, idx, mesh)
             if generator is not None:
                 generator.manual_seed(step_seed(cfg.seed, state.step))
             state, metrics = step(state, batch, generator)
@@ -159,16 +240,21 @@ def epoch_index_groups(n: int, batch_size: int, steps_per_dispatch: int,
 # ---------------------------------------------------------------------------
 
 def upload_eval_cache(dataset, batch_size: int, device="cuda",
-                      layout: str = "auto"
+                      layout: str = "auto", mesh=None
                       ) -> Tuple[Dict[str, torch.Tensor], np.ndarray, int]:
     """images and orig_size of the dataset as [nb, B, ...] on `device`,
-    the last batch padded with zero rows. Returns (cache, image_ids,
+    the last batch padded with zero rows; in the 'sharded' layout this
+    data rank's columns [nb, B / D, ...] only. Returns (cache, image_ids,
     n_real)."""
-    resolve_layout(layout)
+    layout = resolve_layout(layout, mesh, batch_size)
+    d, di = data_place(mesh)
+    cols = (slice(di * batch_size // d, (di + 1) * batch_size // d)
+            if layout == "sharded" else slice(None))
     keys = ("images", "orig_size")
     n = len(dataset)
     nb = -(-n // batch_size)
-    check_fits(nb * batch_size * cache_nbytes(dataset, keys) // max(n, 1),
+    width = batch_size // d if layout == "sharded" else batch_size
+    check_fits(nb * width * cache_nbytes(dataset, keys) // max(n, 1),
                device, "validation-set cache")
     arrays = _dataset_arrays(dataset, keys)
     if hasattr(dataset, "get_batch"):
@@ -180,21 +266,34 @@ def upload_eval_cache(dataset, batch_size: int, device="cuda",
     for k, v in arrays.items():
         if pad:
             v = np.concatenate([v, np.zeros((pad,) + v.shape[1:], v.dtype)])
-        arrays[k] = v.reshape((nb, batch_size) + v.shape[1:])
+        arrays[k] = v.reshape((nb, batch_size) + v.shape[1:])[:, cols]
     return _to_device(arrays, device), np.asarray(ids), n
 
 
 def make_cached_eval(cfg: TrainConfig, max_detections: int = 100,
-                     parity_mode: bool = False):
+                     parity_mode: bool = False, mesh=None,
+                     layout: str = "replicated"):
     """eval_all(params, cache) -> the packed top-k [nb, B, K, 6] of every
-    cached batch, all queued on the card before any copy back."""
-    step = make_eval_topk_step(cfg, max_detections=max_detections,
+    cached batch, all queued on the card before any copy back. Under a
+    data axis of D, each rank runs its B / D columns of every batch (cut
+    from a 'replicated' cache, held by a 'sharded' one), and the data
+    group all-gathers the top-k once."""
+    step = make_eval_topk_step(cfg, mesh, max_detections=max_detections,
                                parity_mode=parity_mode)
+    d, di = data_place(mesh)
 
     def eval_all(params, cache):
-        return torch.stack([step(params, images, orig)["topk"]
-                            for images, orig in zip(cache["images"],
-                                                    cache["orig_size"])])
+        images, orig = cache["images"], cache["orig_size"]
+        if layout != "sharded" and d > 1:
+            w = images.shape[1] // d
+            images = images[:, di * w:(di + 1) * w]
+            orig = orig[:, di * w:(di + 1) * w]
+        topk = torch.stack([step(params, x, o)["topk"]
+                            for x, o in zip(images, orig)])
+        if d > 1:
+            topk = torch.cat(all_gather(topk, mesh.data_group, mesh.backend),
+                             dim=1)
+        return topk
 
     return eval_all
 
@@ -224,19 +323,21 @@ def evaluate_cached(eval_all, params, cache: Dict[str, torch.Tensor],
     the host: the COCO result dicts, or with `return_arrays` the flat
     (image_ids, category_ids, boxes, scores) arrays for
     `CocoEvaluator.evaluate_arrays` (the predictions file is then written
-    from the arrays)."""
+    from the arrays). Every rank of a mesh gets the same result; world
+    rank 0 alone writes the file."""
     topk = eval_all(params, cache).cpu().numpy()
     topk = topk.reshape(-1, *topk.shape[2:])[:n_real]
     det_args = (topk[..., 0], topk[..., 1].astype(np.int32), topk[..., 2:],
                 image_ids[:n_real], label_to_cat_id)
     kw = dict(score_threshold=score_threshold, parity_mode=parity_mode)
+    write = output_file and process_index() == 0
     if not return_arrays:
         results = format_detections(*det_args, **kw)
-        if output_file:
+        if write:
             with open(output_file, "w") as f:
                 json.dump(results, f)
         return results
     arrays = select_above_threshold(*det_args, **kw)
-    if output_file:
+    if write:
         write_predictions(output_file, *arrays)
     return arrays

@@ -1,8 +1,23 @@
 """Training orchestration: dataset subsets, the epoch loop, validation with
 COCO AP, checkpoints, plots (counterpart of dinov2_od_tpu/train/loop.py;
 the reference's dino_detector/train.py main_worker, :514-1351). The engine
-behind the CLI (train/cli.py), in one process on one device: the device
-of the params.
+behind the CLI (train/cli.py), on the device of the params: in one
+process, or as one rank of a started torch.distributed world
+(parallel/multihost.py), where it runs on a mesh of the world's ranks
+(`auto_mesh`: data x tensor-parallel, data x context x tensor-parallel,
+or the legacy ring over the model axis, from cfg.mesh).
+
+Under a mesh, `--batch_size` is the global batch and each data rank
+takes its 1 / D of it: the loader's interleaved slice of each global
+batch (data/loader.py), or the cache's contiguous slice
+(train/device_cache.py). The tensor- and context-parallel peers of a
+data rank load the same rows. Every rank holds its shard of the params
+and the Adam state, and its metrics are the global batch's. Validation
+runs each data rank's rows and all-gathers the packed top-k over the data
+group, so every rank scores the same detections. The run writes one set
+of files: world rank 0 writes the records, the predictions and metrics,
+the plots and (train/checkpoint.py, after a gather of the shards) the
+checkpoints; the other ranks write nothing.
 
 Files written under `output_dir`, per epoch N:
 - `train_epoch_N.json`: the epoch's global steps, each step's loss, its
@@ -18,9 +33,15 @@ Dropout and the augmentation's draws are a function of (seed, step):
 before each step the loop seeds its generator with
 `step_seed(cfg.seed, state.step)`, so a run resumed at a step draws what
 the uninterrupted run drew there (the JAX loop folds `state.step` into
-its key for the same reason). With the preemption checkpoint's batch
-index, a resumed run repeats the uninterrupted one; on the CPU bit for
-bit, on CUDA up to the atomics of the deformable gathers' backward.
+its key for the same reason). Under a mesh every rank seeds alike and
+draws for the global batch, keeping its rows (parallel/sharding.py
+`keep_mask`), so the ranks together draw what one process draws for the
+global batch laid out rank by rank. With the preemption checkpoint's
+batch index, a resumed run repeats the uninterrupted one; on the CPU bit
+for bit, on CUDA up to the atomics of the deformable gathers' backward.
+Under a mesh the ranks agree on the preemption flag at every check
+(train/preemption.py `triggered_anywhere`), so all of them stop at the
+same step.
 
 With `device_cache` the training set lives on the card
 (train/device_cache.py): each dispatch copies one [K, B] index tensor and
@@ -47,10 +68,14 @@ from ..data.loader import DataLoader, device_prefetch, pad_batch
 from ..evaluation.coco_metrics import CocoEvaluator
 from ..evaluation.postprocess import format_detections
 from ..models.detector import cast_frozen_weights
+from ..parallel.collectives import all_gather
+from ..parallel.multihost import process_index
+from ..parallel.sharding import (auto_mesh, check_tp_compatible, data_place,
+                                 shard_params)
 from ..utils.logging import log_images, log_metrics
 from ..utils.memory import format_memory_stats
 from . import checkpoint as ckpt
-from .preemption import PreemptionGuard
+from .preemption import PreemptionGuard, triggered_anywhere
 from .state import (TrainState, create_train_state, lr_schedule_fn,
                     merge_ema, tree_leaves, tree_map)
 from .step import make_eval_topk_step, make_train_step, step_seed
@@ -114,6 +139,7 @@ def evaluate_dataset(
     output_file: Optional[str] = None,
     score_threshold: float = 0.05,
     parity_mode: bool = False,
+    mesh=None,
 ) -> List[dict]:
     """Inference over a dataset -> COCO result dicts (and a JSON file).
 
@@ -122,24 +148,53 @@ def evaluate_dataset(
     batch. A loader thread decodes batch i+1 and a prefetch thread copies
     it to the device while batch i runs; batch i-1's top-k is copied back
     after batch i is issued, so decode, copy in, compute and copy out
-    overlap. A trailing partial batch is padded to `batch_size`."""
+    overlap. A trailing partial batch is padded to `batch_size`.
+
+    Under `mesh` (the step built on it), each data rank decodes and runs
+    its slice of every global batch (data/loader.py), and the packed
+    top-k [B / D, K, 6], the image ids and the real-row count are
+    all-gathered over the data group: every rank formats and returns the
+    same results, and world rank 0 alone writes `output_file`."""
     device = params_device(params)
-    loader = DataLoader(dataset, batch_size, shuffle=False, drop_last=False)
+    d, di = data_place(mesh)
+    loader = DataLoader(dataset, batch_size, shuffle=False, drop_last=False,
+                        process_count=d, process_id=di)
     results: List[dict] = []
 
     def pad(batch):
+        if d > 1:  # the loader padded the global batch
+            batch["_n"] = int(batch.pop("_local_n"))
+            return batch
         n = len(batch["images"])
         batch = pad_batch(batch, batch_size)
         batch["_n"] = n
         return batch
 
-    def readback(out, batch):
-        n = batch["_n"]
-        topk = out["topk"][:n].cpu().numpy()  # the one copy to the host
+    def fmt(topk, ids):
         return format_detections(
             topk[..., 0], topk[..., 1].astype(np.int32), topk[..., 2:],
-            batch["image_id"][:n], label_to_cat_id,
-            score_threshold=score_threshold, parity_mode=parity_mode)
+            ids, label_to_cat_id, score_threshold=score_threshold,
+            parity_mode=parity_mode)
+
+    def readback(out, batch):
+        if d == 1:
+            n = batch["_n"]
+            # The one copy to the host.
+            return fmt(out["topk"][:n].cpu().numpy(), batch["image_id"][:n])
+        # Collectives: every rank of the data group calls these in batch
+        # order. `meta` is the real-row count, then the image ids.
+        topk = out["topk"]
+        meta = torch.as_tensor(
+            np.concatenate([[batch["_n"]], np.asarray(batch["image_id"])]),
+            dtype=torch.int64, device=topk.device)
+        group = (mesh.data_group, mesh.backend)
+        res: List[dict] = []
+        for t, m in zip(all_gather(topk, *group), all_gather(meta, *group)):
+            m = m.cpu().numpy()
+            n = int(m[0])
+            if n:
+                res.extend(fmt(t[:n].cpu().numpy(), m[1:n + 1]))
+        return res
 
     pending: deque = deque()
     for batch in device_prefetch(iter(loader), device, size=2,
@@ -151,7 +206,7 @@ def evaluate_dataset(
             results.extend(readback(*pending.popleft()))
     while pending:
         results.extend(readback(*pending.popleft()))
-    if output_file:
+    if output_file and process_index() == 0:
         with open(output_file, "w") as f:
             json.dump(results, f)
     return results
@@ -166,26 +221,29 @@ def validate(
     output_dir: str,
     parity_mode: bool = False,
     evaluator: Optional[CocoEvaluator] = None,
+    mesh=None,
 ) -> Dict[str, float]:
     """A validation pass: predictions_epoch_N.json and
     metrics_epoch_N.json under `output_dir` (reference train.py:248-286).
-    `eval_topk_step` must be built with the same parity_mode. Pass the
-    run's `evaluator` to parse the GT file once a run."""
+    `eval_topk_step` must be built with the same parity_mode (and mesh).
+    Pass the run's `evaluator` to parse the GT file once a run. Under
+    `mesh` every rank scores the gathered detections; rank 0 writes."""
     os.makedirs(output_dir, exist_ok=True)
     results = evaluate_dataset(
         eval_topk_step, params, dataset, batch_size, dataset.label_to_cat_id,
         output_file=os.path.join(output_dir,
                                  f"predictions_epoch_{epoch}.json"),
-        parity_mode=parity_mode)
+        parity_mode=parity_mode, mesh=mesh)
     evaluator = evaluator or CocoEvaluator(dataset.coco_path)
     return _write_metrics(evaluator.evaluate(results), epoch, output_dir)
 
 
 def _write_metrics(metrics: Dict[str, float], epoch: int,
                    output_dir: str) -> Dict[str, float]:
-    with open(os.path.join(output_dir, f"metrics_epoch_{epoch}.json"),
-              "w") as f:
-        json.dump(metrics, f)
+    if process_index() == 0:
+        with open(os.path.join(output_dir, f"metrics_epoch_{epoch}.json"),
+                  "w") as f:
+            json.dump(metrics, f)
     logger.info("epoch %d validation: %s", epoch, metrics)
     return metrics
 
@@ -283,13 +341,16 @@ def run_training(
     steps_per_dispatch: int = 8,
     device_cache_layout: str = "auto",
 ) -> TrainState:
-    """Train `params` (on their device) for epochs start_epoch ..
-    num_epochs - 1, from batch `start_batch` of the first; validate every
-    `val_frequency` epochs and checkpoint every `checkpoint_every`. With
-    `device_cache`, from the training set on the card, K =
-    `steps_per_dispatch` steps a dispatch. Returns the final state
-    (params updated in place)."""
+    """Train `params` (on their device; the logical tree) for epochs
+    start_epoch .. num_epochs - 1, from batch `start_batch` of the first;
+    validate every `val_frequency` epochs and checkpoint every
+    `checkpoint_every`. With `device_cache`, from the training set on the
+    card, K = `steps_per_dispatch` steps a dispatch. In a started
+    torch.distributed world every rank calls it, on the mesh cfg.mesh
+    lays out; the restored Adam state and EMA are logical trees too.
+    Returns the final state (this rank's shards, updated in place)."""
     os.makedirs(output_dir, exist_ok=True)
+    primary = process_index() == 0
     num_epochs = num_epochs or cfg.num_epochs
     if checkpoint_every is None:
         checkpoint_every = cfg.checkpoint_every_epochs
@@ -298,11 +359,26 @@ def run_training(
         "val_epochs": [], "val_AP": [], "val_AP50": [], "val_AP75": [],
     }
     device = params_device(params)
+    if not cfg.mesh.context_parallel:
+        # Under the legacy ring the model axis carries tokens, not tensor
+        # shards.
+        check_tp_compatible(cfg.detector, cfg.mesh.model_parallel_size)
+    mesh = auto_mesh(cfg.data.batch_size, cfg.mesh.model_parallel_size,
+                     cfg.mesh)
+    if mesh is not None:
+        logger.info("mesh: data %d x context %d x model %d (rank at %d, "
+                    "%d, %d), backend %s", mesh.data_size, mesh.context_size,
+                    mesh.model_size, mesh.data_index, mesh.context_index,
+                    mesh.model_index, mesh.backend)
     if cfg.detector.backbone.dtype == "bfloat16":
         # The forward casts the frozen weights to bf16 anyway; stored so,
         # the per-step casts go and their reads halve. LoRA, the decoder
         # and the norms stay fp32.
         params = cast_frozen_weights(params, cfg.detector)
+    if mesh is not None:
+        params = shard_params(params, mesh)
+        restored_opt_state, restored_ema = ckpt.shard_train_trees(
+            restored_opt_state, restored_ema, mesh)
 
     cfg = _fill_lr_horizon(cfg, len(train_dataset), num_epochs,
                            learning_rate)
@@ -312,21 +388,29 @@ def run_training(
         state.opt_state = restored_opt_state
     if restored_ema is not None and state.ema is not None:
         state.ema = restored_ema
-    train_step = make_train_step(cfg)
-    eval_step = make_eval_topk_step(cfg, parity_mode=parity_mode)
+    train_step = make_train_step(cfg, mesh)
+    eval_step = make_eval_topk_step(cfg, mesh, parity_mode=parity_mode)
     evaluator = None
     val_cache = None
+    data_size, data_index = data_place(mesh)
     if device_cache:
         from . import device_cache as dc
 
-        cache = dc.upload_train_cache(train_dataset, device,
-                                      device_cache_layout)
-        multi_step = dc.make_multi_train_step(cfg, train_step)
-        eval_all = dc.make_cached_eval(cfg, parity_mode=parity_mode)
+        layout = dc.resolve_layout(device_cache_layout, mesh,
+                                   cfg.data.batch_size)
+        cache = dc.upload_train_cache(train_dataset, device, layout, mesh)
+        multi_step = dc.make_multi_train_step(cfg, train_step, mesh, layout)
+        eval_all = dc.make_cached_eval(cfg, parity_mode=parity_mode,
+                                       mesh=mesh, layout=layout)
+        # A sharded cache holds this rank's rows only.
+        log_cached_images = layout == "replicated" or data_size == 1
 
+    # Each data rank loads its slice of every global batch; the tensor-
+    # and context-parallel peers of a data rank load the same rows.
     loader = DataLoader(train_dataset, cfg.data.batch_size, shuffle=True,
                         seed=cfg.seed, drop_last=True,
-                        num_workers=cfg.data.num_workers)
+                        num_workers=cfg.data.num_workers,
+                        process_count=data_size, process_id=data_index)
     steps_per_epoch = len(loader)
     global_step = start_epoch * max(steps_per_epoch, 1) + start_batch
     state.step = global_step
@@ -338,7 +422,7 @@ def run_training(
 
     def check_preempt(epoch: int) -> bool:
         nonlocal preempted
-        if guard is None or not guard.triggered or preempted:
+        if preempted or not triggered_anywhere(guard, mesh):
             return preempted
         preempted = True
         # Epoch - 1 in the metadata makes the restore resume at `epoch`;
@@ -347,7 +431,7 @@ def run_training(
             output_dir, epoch - 1, state.params, state.opt_state,
             float("nan"), {**history, "_preempt_batch_index": steps_done},
             name=f"checkpoint_epoch_{max(epoch - 1, 0)}",
-            step=state.step, ema=state.ema)
+            step=state.step, ema=state.ema, mesh=mesh)
         logger.warning("preemption checkpoint saved: %s (resume with "
                        "--checkpoint to continue epoch %d at batch %d)",
                        path, epoch, steps_done)
@@ -413,9 +497,10 @@ def run_training(
                 if pending is not None:
                     read(*pending)
                 pending = (first, metrics)
-                if guard is not None and guard.triggered:
+                if triggered_anywhere(guard, mesh):
                     break
                 if (log_images_enabled and writer is not None
+                        and log_cached_images
                         and first // log_images_frequency
                         != steps_done // log_images_frequency):
                     idx = idxs[-1]
@@ -441,7 +526,7 @@ def run_training(
                     state, {k: batch[k] for k in TRAIN_KEYS}, generator)
                 global_step += 1
                 steps_done = i + 1
-                if guard is not None and guard.triggered:
+                if triggered_anywhere(guard, mesh):
                     break  # checkpoint and a clean exit below
                 # Device scalars; read once an epoch.
                 losses.append(metrics["loss"])
@@ -488,9 +573,10 @@ def run_training(
                     "non-finite steps skipped", epoch, epoch_loss,
                     (f", mean moe_aux {record['mean_loss_moe_aux']:.4f}"
                      if moe_aux else ""), images_per_sec, n_skipped)
-        with open(os.path.join(output_dir, f"train_epoch_{epoch}.json"),
-                  "w") as f:
-            json.dump(record, f)
+        if primary:
+            with open(os.path.join(output_dir, f"train_epoch_{epoch}.json"),
+                      "w") as f:
+                json.dump(record, f)
         history["epochs"].append(epoch)
         history["train_loss"].append(epoch_loss)
         log_metrics(writer, {"epoch_loss": epoch_loss,
@@ -514,8 +600,8 @@ def run_training(
             if device_cache:
                 if val_cache is None:  # uploaded at the first validation
                     val_cache = dc.upload_eval_cache(
-                        val_dataset, cfg.data.batch_size, device,
-                        device_cache_layout)
+                        val_dataset, cfg.data.batch_size, device, layout,
+                        mesh)
                 metrics = validate_cached(
                     eval_all, eval_params, val_cache, val_dataset, epoch,
                     output_dir, evaluator, parity_mode=parity_mode)
@@ -523,18 +609,19 @@ def run_training(
                 metrics = validate(eval_step, eval_params, val_dataset,
                                    cfg.data.batch_size, epoch, output_dir,
                                    parity_mode=parity_mode,
-                                   evaluator=evaluator)
+                                   evaluator=evaluator, mesh=mesh)
             history["val_epochs"].append(epoch)
             for k in ("AP", "AP50", "AP75"):
                 history[f"val_{k}"].append(metrics[k])
             log_metrics(writer, metrics, epoch, prefix="val/")
-            plot_history(history, output_dir)
+            if primary:
+                plot_history(history, output_dir)
 
         if (epoch + 1) % checkpoint_every == 0 or epoch == num_epochs - 1:
             path = ckpt.save_checkpoint(
                 output_dir, epoch, state.params, state.opt_state,
                 epoch_loss, history, async_save=True, step=state.step,
-                ema=state.ema)
+                ema=state.ema, mesh=mesh)
             logger.info("checkpoint save started: %s", path)
 
     if guard is not None:
@@ -547,6 +634,7 @@ def run_training(
     final_params = state.params
     if state.ema is not None:
         final_params = merge_ema(state.params, state.ema, cfg.detector)
-    ckpt.save_final_params(output_dir, final_params)
-    plot_history(history, output_dir)
+    ckpt.save_final_params(output_dir, final_params, mesh=mesh)
+    if primary:
+        plot_history(history, output_dir)
     return state

@@ -9,6 +9,12 @@ resumes the interrupted epoch at the batch it reached.
 
 The handler only sets a flag: the device sync and the save happen on the
 main thread at a step boundary, never inside the signal handler.
+
+Under a mesh of processes SIGTERM may reach one rank before the others,
+but the checkpoint's gather is a collective that every rank must enter at
+the same step. So the loop reads `triggered_anywhere`: at each check the
+ranks agree on the flag with an all-reduce (max) over the world, and all
+of them stop at the same step.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from __future__ import annotations
 import logging
 import signal
 import threading
+from typing import Optional
 
 logger = logging.getLogger(__name__)
 
@@ -76,3 +83,28 @@ class PreemptionGuard:
     def __exit__(self, *exc):
         self.uninstall()
         return False
+
+
+def triggered_anywhere(guard: Optional[PreemptionGuard], mesh=None) -> bool:
+    """Whether any rank's guard has fired (this process's alone without a
+    mesh). Every rank of the mesh must call it at the same points; a rank
+    that learns of the signal from another latches it too."""
+    if guard is None:
+        return False
+    if mesh is None:
+        return guard.triggered
+    import torch
+
+    from ..parallel.collectives import all_reduce
+    from ..parallel.multihost import process_count
+
+    if process_count() == 1:
+        return guard.triggered
+    flag = torch.tensor([int(guard.triggered)], dtype=torch.int64)
+    if mesh.backend == "nccl":
+        flag = flag.cuda()
+    anywhere = bool(all_reduce(flag, None, mesh.backend,
+                               op=torch.distributed.ReduceOp.MAX).item())
+    if anywhere:
+        guard._event.set()
+    return anywhere

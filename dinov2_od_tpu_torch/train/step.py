@@ -188,13 +188,15 @@ def _normalize_unit_images(images: torch.Tensor,
 
 
 def augment_step_batch(cfg: TrainConfig, batch: Batch,
-                       generator: Optional[torch.Generator]) -> Batch:
+                       generator: Optional[torch.Generator],
+                       mesh=None) -> Batch:
     """The batch with cfg.augment's augmentations drawn from `generator`
     (data/augment.py): images un-normalised to [0, 1], augmented with
-    their boxes and valid bits, and normalised again as fp32."""
+    their boxes and valid bits, and normalised again as fp32. Under
+    `mesh`, this data rank's rows of the global batch's draws."""
     x01 = _unit_interval_images(batch["images"], cfg.data.normalize)
     x01, boxes, valid = augment_batch(generator, x01, batch["boxes"],
-                                      batch["valid"], cfg.augment)
+                                      batch["valid"], cfg.augment, mesh)
     return {**batch, "boxes": boxes, "valid": valid,
             "images": _normalize_unit_images(x01, cfg.data.normalize)}
 
@@ -298,7 +300,7 @@ def make_train_step(cfg: TrainConfig, mesh=None):
     def step(state: TrainState, batch: Batch,
              generator: Optional[torch.Generator] = None):
         if cfg.augment.enabled:
-            batch = augment_step_batch(cfg, batch, generator)
+            batch = augment_step_batch(cfg, batch, generator, mesh)
         params = state.params
         metrics, grads = train_grads(cfg, state, batch, generator, mesh=mesh)
         leaves = trainable_leaves(params, state.opt_state)

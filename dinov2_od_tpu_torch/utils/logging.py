@@ -16,27 +16,33 @@ import numpy as np
 
 
 def setup_logger(
-    save_dir: str, log_file: str = "train.log", level=logging.INFO
+    save_dir: str, log_file: Optional[str] = "train.log", level=logging.INFO,
+    prefix: str = "",
 ) -> logging.Logger:
-    os.makedirs(save_dir, exist_ok=True)
-    timestamp = datetime.datetime.now().strftime("%Y%m%d_%H%M%S")
-    log_path = os.path.join(save_dir, f"{timestamp}_{log_file}")
-
+    """The package's logger: to <save_dir>/<timestamp>_<log_file> and the
+    console, or to the console alone when `log_file` is None (a rank
+    other than 0 of a multi-process run); `prefix` starts each console
+    line."""
     logger = logging.getLogger("dinov2_od_tpu_torch")
     logger.setLevel(level)
     logger.handlers.clear()
 
-    fh = logging.FileHandler(log_path)
-    fh.setFormatter(
-        logging.Formatter("%(asctime)s - %(name)s - %(levelname)s - %(message)s")
-    )
-    logger.addHandler(fh)
+    log_path = None
+    if log_file is not None:
+        os.makedirs(save_dir, exist_ok=True)
+        timestamp = datetime.datetime.now().strftime("%Y%m%d_%H%M%S")
+        log_path = os.path.join(save_dir, f"{timestamp}_{log_file}")
+        fh = logging.FileHandler(log_path)
+        fh.setFormatter(logging.Formatter(
+            "%(asctime)s - %(name)s - %(levelname)s - %(message)s"))
+        logger.addHandler(fh)
 
     ch = logging.StreamHandler()
-    ch.setFormatter(logging.Formatter("%(asctime)s - %(levelname)s - %(message)s"))
+    ch.setFormatter(logging.Formatter(
+        f"{prefix}%(asctime)s - %(levelname)s - %(message)s"))
     logger.addHandler(ch)
 
-    logger.info("Logging initialized: %s", log_path)
+    logger.info("Logging initialized: %s", log_path or "console only")
     return logger
 
 

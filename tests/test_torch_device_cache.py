@@ -13,7 +13,7 @@ train/loop.py and the CLI's --device_cache) on the CPU:
 - the CLI with --device_cache, augmentation and accumulation: the same
   params to the bit as the host loader's run, a mid-epoch preemption
   resumed exactly, cached validation's AP equal to the loader's, and
-  `sharded` refused.
+  `sharded` in one process equal to `replicated` bit for bit.
 """
 
 import json
@@ -177,10 +177,13 @@ def test_train_cache_bytes_layouts_and_memory_check(synth, monkeypatch):
     ex = synth.get_example(3)
     for k in dc.TRAIN_KEYS:
         assert np.array_equal(cache[k][3].numpy(), ex[k]), k
+    # One process: 'auto' is 'replicated', and 'sharded' is its one-shard
+    # case, every row on the one data rank.
     assert dc.resolve_layout("auto") == dc.resolve_layout(
         "replicated") == "replicated"
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        dc.upload_train_cache(synth, "cpu", "sharded")
+    assert dc.resolve_layout("sharded") == "sharded"
+    sharded = dc.upload_train_cache(synth, "cpu", "sharded")
+    assert all(torch.equal(sharded[k], cache[k]) for k in cache)
     with pytest.raises(ValueError):
         dc.resolve_layout("striped")
     # A card with less free memory than the cache: a clear error, no
@@ -285,9 +288,23 @@ def test_cli_device_cache_trains_and_resumes_exactly(cli_data, tmp_path,
 
 
 def test_cli_refuses_the_sharded_layout(cli_data, tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        cli.main(_args(cli_data, str(tmp_path), "--device_cache",
-                       "--device_cache_layout", "sharded"))
+    """The sharded layout, which the CLI refused before it ran on a mesh,
+    is in one process the one-shard case: the same losses, params and
+    detections as the replicated layout's, bit for bit (DP 2 shards are
+    tests/test_torch_mesh_cli_resume.py)."""
+    outs = {}
+    for layout in ("sharded", "replicated"):
+        outs[layout] = str(tmp_path / layout)
+        assert cli.main(_args(cli_data, outs[layout], "--device_cache",
+                              "--steps_per_dispatch", "3", "--num_epochs",
+                              "1", "--val_frequency", "1",
+                              "--device_cache_layout", layout)) == 0
+    a, b = (_json(o, "train_epoch_0.json") for o in outs.values())
+    assert a["losses"] == b["losses"] and len(a["losses"]) == 8
+    for x, y in zip(*(_final(o) for o in outs.values())):
+        assert torch.equal(x, y)
+    assert _json(outs["sharded"], "predictions_epoch_0.json") == _json(
+        outs["replicated"], "predictions_epoch_0.json")
 
 
 def test_pack_dataset_tool_writes_what_the_loader_reads(synth, tmp_path):

@@ -4,9 +4,11 @@ the --lightweight config (ViT-S, decoder width 256) and 56 px: --debug
 training with validation, --only_evaluate in fp32 and int8 from the
 checkpoint it wrote, the MoE backbone trained and restored from its
 checkpoint, every flag of a later slice (each raises
-NotImplementedError naming its ROADMAP.md item), the import flags on a
-missing path, the devices and decode backends, and `serve.main` serving
-a saved checkpoint over HTTP.
+NotImplementedError naming its ROADMAP.md item), the JAX CLI's errors
+for parallelism flags that exclude each other or do not divide the model
+(the same error from both CLIs), the import flags on a missing path, the
+devices and decode backends, and `serve.main` serving a saved checkpoint
+over HTTP. The mesh runs themselves are tests/test_torch_mesh_cli*.py.
 """
 
 import base64
@@ -80,8 +82,6 @@ def test_main_debug_then_only_evaluate(tmp_path, synth):
 
 
 LATER_SLICES = [
-    ["--distributed"], ["--multihost"], ["--model_parallel", "2"],
-    ["--context_parallel"], ["--context_parallel_size", "2"],
     ["--pipeline_parallel"], ["--pipeline_parallel_size", "2"],
     ["--pipeline_microbatches", "4"], ["--fsdp"], ["--download_val_data"],
     ["--compilation_cache", "x"],
@@ -92,6 +92,66 @@ LATER_SLICES = [
 def test_flags_of_later_slices_raise(flags, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(flags + ["--output_dir", str(tmp_path), "--device", "cpu"])
+
+
+EXCLUSIVE = [
+    ["--context_parallel", "--pipeline_parallel"],
+    ["--context_parallel_size", "2", "--context_parallel"],
+    ["--context_parallel_size", "2", "--pipeline_parallel"],
+    ["--pipeline_parallel_size", "2", "--context_parallel"],
+    ["--pipeline_parallel_size", "2", "--context_parallel_size", "2"],
+    ["--fsdp", "--context_parallel"],
+    ["--fsdp", "--pipeline_parallel_size", "2"],
+]
+
+
+@pytest.mark.parametrize("flags", EXCLUSIVE, ids=" ".join)
+def test_exclusive_parallel_flags_stop_both_clis_alike(flags, tmp_path,
+                                                       capsys):
+    """Flags that claim the same mesh axis: the JAX CLI's parser error
+    (exit 2) and message, from the port's CLI too, before anything
+    runs."""
+    argv = flags + ["--output_dir", str(tmp_path), "--device", "cpu"]
+    said = []
+    for main in (cli.main, jcli.main):
+        with pytest.raises(SystemExit) as stop:
+            main(argv)
+        assert stop.value.code == 2
+        said.append(capsys.readouterr().err.strip().splitlines()[-1])
+    assert said[0].split(": error: ")[1] == said[1].split(": error: ")[1]
+
+
+@pytest.mark.parametrize("model_parallel, error", [
+    ("3", "decoder num_heads=4 not divisible by model_parallel_size=3"),
+    ("4", "backbone num_heads=6 not divisible by model_parallel_size=4"),
+])
+def test_model_parallel_that_does_not_divide_raises_as_in_jax(
+        model_parallel, error, tmp_path, synth):
+    """--model_parallel whose degree does not divide the model's heads: the
+    JAX CLI's ValueError from `check_tp_compatible`, word for word, from
+    the port's (at the --lightweight ViT-S: 6 backbone heads, 4 decoder
+    heads)."""
+    images_dir, ann = synth
+    argv = ["--train_images", images_dir, "--train_annotations", ann,
+            "--lightweight", "--image_size", "56", "--batch_size", "2",
+            "--model_parallel", model_parallel, "--device", "cpu"]
+    for main, out in ((cli.main, "port"), (jcli.main, "jax")):
+        with pytest.raises(ValueError, match=error):
+            main(argv + ["--output_dir", str(tmp_path / out)])
+
+
+def test_a_mesh_one_process_cannot_hold_raises(tmp_path, synth):
+    """One process asked for a mesh: the world (1) does not divide into
+    it, and the error names --batch_size, the world and the mesh shape
+    (the JAX CLI would leave devices idle; a rank cannot be)."""
+    images_dir, ann = synth
+    with pytest.raises(ValueError, match=r"a world of 1 processes does not "
+                       r"divide into the mesh data D x context 2 x model 1 "
+                       r".*--batch_size 2"):
+        cli.main(["--train_images", images_dir, "--train_annotations", ann,
+                  "--lightweight", "--image_size", "56", "--batch_size", "2",
+                  "--context_parallel_size", "2", "--device", "cpu",
+                  "--output_dir", str(tmp_path)])
 
 
 @pytest.mark.parametrize("flag", ["--pretrained_backbone",
