@@ -218,6 +218,26 @@ non-zero and prints no result:
              same checkpoint's one-process bf16 evaluation held to (a)'s
              last validation. Each job's wall time and s a step are
              printed, labelled as gloo ranks sharing one card.
+11d. pp     - pipeline parallelism of the backbone through the training
+             CLI, run as phase_mesh_cli runs its jobs (4 ranks a job on
+             cuda:0, gloo; ViT-B/14 bf16 at 224 px, its packed splits,
+             global batch 8, one epoch with validation and a checkpoint):
+             (a) --model_parallel 4 --pipeline_parallel
+             --pipeline_microbatches 4 (GPipe, 4 stages of 3 blocks) and
+             (b) --pipeline_parallel_size 2 --model_parallel 2
+             --pipeline_chunks 2 --pipeline_microbatches 2 (interleaved,
+             2 stages x 2 chunks of 3 blocks, 6 heads a rank) at once,
+             each beside one process's run of the same flags (losses and
+             AP to MESH_*); bubbles skipped, so each rank launches B1 for
+             its own blocks and B2 for its own adapted blocks: (a) 12 B1
+             a step on every stage and 8 B2 on the last only, (b) 12 B1
+             a step on every rank and 4 B2 on stage 1 only, 12 B1 a val
+             batch everywhere, held exactly (PP_WANT); rank 0's files
+             alone; --only_evaluate under (a)'s mesh from its checkpoint
+             beside one process's; that checkpoint through
+             Predictor.from_checkpoint bit-equal to a Predictor over the
+             params the file holds. Wall times and s a step are printed,
+             labelled as gloo ranks sharing one card.
 12. roofline tool - the port's tools/bench_attn_roofline.py at its
              defaults, in-process: its four JSON lines (mxu_only, plus_max,
              plus_exp2, production) in order with the JAX tool's keys, T1
@@ -730,6 +750,34 @@ MESH_FIRST_LOSS_TOL = 5e-3
 MESH_LOSS_TOL = CLI_RESUME_TOL
 MESH_MEAN_LOSS_TOL = CLI_RESUME_MEAN_TOL
 MESH_AP_TOL = CLI_INT8_AP_TOL
+
+# Pipeline parallelism through the training CLI (phase_pp), as
+# phase_mesh_cli runs its jobs (MESH_WORLD `--cli-rank` processes a job on
+# cuda:0 in a gloo group; ViT-B/14 bf16 at 224 px, its packed splits and
+# global batch; LoRA on blocks 10-11). (a) legacy GPipe: 4 stages of 3
+# blocks, 4 microbatches of 2; (b) interleaved PP x TP: 2 stages x 2
+# chunks of 3 blocks (stage 0 blocks 0-2 and 6-8, stage 1 blocks 3-5 and
+# 9-11), 6 heads a rank, 2 microbatches of 4. One epoch each with
+# validation and a checkpoint, both jobs at once beside one process's run
+# of the same flags (MESH_*_TOL; the one process is the same run for
+# both); then `--only_evaluate` under (a)'s mesh from its checkpoint
+# beside one process's. Bubbles are skipped, so each rank launches B1 for
+# its own blocks only and B2 for its own adapted blocks only: per rank,
+# in rank order, the launches a step and a val batch (a val batch runs
+# the eval forward, no backward).
+PP_JOBS = {
+    "a_legacy_gpipe": ["--model_parallel", "4", "--pipeline_parallel",
+                       "--pipeline_microbatches", "4"],
+    "b_pp2_tp2_interleaved": ["--pipeline_parallel_size", "2",
+                              "--model_parallel", "2", "--pipeline_chunks",
+                              "2", "--pipeline_microbatches", "2"],
+}
+PP_WANT = {
+    # (B1 a step, B2 a step, B1 a val batch) for ranks 0-3.
+    "a_legacy_gpipe": ((12, 12, 12, 12), (0, 0, 0, 8), (12, 12, 12, 12)),
+    "b_pp2_tp2_interleaved": ((12, 12, 12, 12), (0, 0, 4, 4),
+                              (12, 12, 12, 12)),
+}
 
 # T1, the attention roofline tool's ablation kernel, bf16 [B, H, S_pad, 64]:
 # the tool's default shape (1370 tokens, ViT-L/518, padded to 1376) and
@@ -5707,6 +5755,179 @@ def phase_mesh_cli(seed: int, kernels: dict):
         shutil.rmtree(work, ignore_errors=True)
 
 
+def _pp_check_files(job: str, out_dir: str, ranks: list) -> None:
+    """One set of files, rank 0's, from a one-epoch run with validation
+    and a checkpoint; each rank logged its place on the mesh."""
+    import os
+
+    names = sorted(os.listdir(out_dir))
+    logs = [n for n in names if n.endswith("_train.log")]
+    want = {"train_epoch_0.json", "metrics_epoch_0.json",
+            "predictions_epoch_0.json", "checkpoint_epoch_0", "final_model"}
+    plots = {"loss_plot.png", "ap_plot.png", "tensorboard"} & set(names)
+    if (len(logs) != 1 or set(names) != want | set(logs) | plots
+            or not all(f"[rank {r}]" in res["log"]
+                       for r, res in enumerate(ranks) if r)
+            or not all("mesh: data 1 x stage" in res["log"]
+                       for res in ranks)):
+        raise AssertionError(f"pp ({job}): the run's files {names}: "
+                             f"expected rank 0's alone")
+
+
+def phase_pp(seed: int, kernels: dict):
+    """Pipeline parallelism of the backbone through the training CLI, one
+    process a rank (PP_JOBS): (a) legacy GPipe over 4 stages and (b)
+    interleaved PP 2 x TP 2, each for an epoch with validation and a
+    checkpoint, beside one process's run of the same flags; the per-rank
+    launches of B1 and B2 held exactly to PP_WANT; only rank 0 writes;
+    `--only_evaluate` under (a)'s mesh from its checkpoint beside one
+    process's; that checkpoint through `Predictor.from_checkpoint` on one
+    process, bit-equal to a Predictor built from the params it holds."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from dinov2_od_tpu_torch.data.packed import PackedDataset
+    from dinov2_od_tpu_torch.inference import Predictor
+    from dinov2_od_tpu_torch.ops import _build
+    from dinov2_od_tpu_torch.train import cli
+    from dinov2_od_tpu_torch.train.checkpoint import STATE_FILE
+    from dinov2_od_tpu_torch.train.state import tree_leaves, tree_map
+
+    steps = MESH_TRAIN_IMAGES // MESH_BATCH
+    val_batches = -(-MESH_VAL_IMAGES // MESH_BATCH)
+    t_phase = time.perf_counter()
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build")
+    os.makedirs(build, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="pp_", dir=build)
+    jobs = {}
+    try:
+        splits = _cli_splits(seed, work, 224, MESH_TRAIN_IMAGES,
+                             MESH_VAL_IMAGES)
+        out = {k: os.path.join(work, k)
+               for k in (*PP_JOBS, "one", "eval", "eval_one")}
+        model = ["--dino_model", "facebook/dinov2-base", "--image_size",
+                 "224", "--backbone_dtype", "bfloat16", "--batch_size",
+                 str(MESH_BATCH)]
+        common = model + [
+            "--packed_train_data", splits["train"], "--packed_val_data",
+            splits["val"], "--num_epochs", "1", "--val_frequency", "1",
+            "--checkpoint_frequency", "1", "--log_frequency", "1",
+            "--num_workers", "2"]
+        log(f"pp: ViT-B/14 bf16 at 224 px, {MESH_TRAIN_IMAGES} train and "
+            f"{MESH_VAL_IMAGES} val packed images, global batch "
+            f"{MESH_BATCH}, 100 GT slots, 1 epoch; {MESH_WORLD} ranks a "
+            f"job on cuda:0 in a gloo group (activations and cotangents "
+            f"between stages staged through the host: correctness, not a "
+            f"pipeline speed); {list(PP_JOBS)} at once")
+        for name, flags in PP_JOBS.items():
+            jobs[name] = _MeshJob(name, work, common + flags + [
+                "--output_dir", out[name]])
+        one, wall_one = _one_process_cli(common + ["--output_dir",
+                                                   out["one"]])
+        runs = {name: job.wait() for name, job in jobs.items()}
+        for name, ranks in runs.items():
+            fwd_step, bwd_step, fwd_val = PP_WANT[name]
+            for r, res in enumerate(ranks):
+                want = {"flash_attn_fwd": (fwd_step[r] * steps
+                                           + fwd_val[r] * val_batches)}
+                if bwd_step[r]:
+                    want["flash_attn_bwd"] = bwd_step[r] * steps
+                want_eval = {"flash_attn_fwd": fwd_val[r] * val_batches}
+                if res["launches"] != want or res["eval"] != want_eval:
+                    raise AssertionError(
+                        f"pp ({name}): rank {r} launches {res['launches']} "
+                        f"(validation {res['eval']}); expected {want} "
+                        f"(validation {want_eval})")
+            _mesh_compare_losses(f"pp {name}", _mesh_losses(out[name], 1),
+                                 _mesh_losses(out["one"], 1), 1)
+            _mesh_compare_metrics(f"pp {name}, validation",
+                                  _ap(out[name], 0), _ap(out["one"], 0),
+                                  _mesh_detections(out, (name, 0),
+                                                   ("one", 0)))
+            _pp_check_files(name, out[name], ranks)
+
+        # --only_evaluate under (a)'s stages from its checkpoint: 12 B1 a
+        # val batch on every rank, beside one process's evaluation.
+        legacy = "a_legacy_gpipe"
+        ckpt = os.path.join(out[legacy], "checkpoint_epoch_0")
+        ev = model + ["--packed_val_data", splits["val"], "--only_evaluate",
+                      "--checkpoint", ckpt]
+        jobs["eval"] = _MeshJob("pp_eval", work, ev + PP_JOBS[legacy] + [
+            "--output_dir", out["eval"]])
+        one_ev, wall_ev_one = _one_process_cli(ev + ["--output_dir",
+                                                     out["eval_one"]])
+        evals = jobs["eval"].wait()
+        want = {"flash_attn_fwd": 12 * val_batches}
+        for r, res in enumerate(evals):
+            if res["launches"] != want or res["eval"] != want:
+                raise AssertionError(f"pp (eval): rank {r} launches "
+                                     f"{res['launches']}; expected {want}")
+        # The checkpoint resumes at epoch 1, which names the files.
+        _mesh_compare_metrics("pp --only_evaluate under (a)'s mesh",
+                              _ap(out["eval"], 1), _ap(out["eval_one"], 1),
+                              _mesh_detections(out, ("eval", 1),
+                                               ("eval_one", 1)))
+
+        # (a)'s checkpoint served from one process: Predictor.from_checkpoint
+        # against a Predictor over the params the file holds.
+        det = cli.build_detector_config(cli.build_arg_parser().parse_args(
+            model))
+        served = Predictor.from_checkpoint(ckpt, detector_cfg=det,
+                                           batch_size=MESH_BATCH)
+        held = torch.load(os.path.join(ckpt, STATE_FILE),
+                          weights_only=True)["params"]
+        direct = Predictor(tree_map(lambda t: t.cuda(), held), det,
+                           batch_size=MESH_BATCH)
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(served.params), tree_leaves(direct.params)))
+        val = PackedDataset(splits["val"]).get_batch(range(MESH_BATCH))
+        images = list(val["images"].astype(np.float32) / 255.0)
+        _build.reset_launch_counts()
+        got = served.detect(images, score_threshold=0.0)
+        torch.cuda.synchronize()
+        served_counts = _launched()
+        ref = direct.detect(images, score_threshold=0.0)
+        log(f"pp: Predictor.from_checkpoint({legacy}'s checkpoint_epoch_0): "
+            f"params equal the file's {same}, {sum(map(len, got))} "
+            f"detections on {MESH_BATCH} val images equal {got == ref}, "
+            f"launches {served_counts}")
+        if not same or got != ref or served_counts != {"flash_attn_fwd": 12}:
+            raise AssertionError("pp: the checkpoint does not serve as the "
+                                 "params it holds")
+        del served, direct
+
+        for kname, key in (("flash_attn_fwd", "flash_attn_fwd"),
+                           ("flash_attn_bwd", "flash_attn_bwd")):
+            k = kernels[kname]
+            for job, ranks in (*runs.items(), ("eval", evals)):
+                per_rank = [res["launches"].get(key, 0) for res in ranks]
+                k["launches"] += sum(per_rank)
+                k.setdefault("launches_pp", {})[job] = per_rank
+        kernels["flash_attn_fwd"]["launches"] += served_counts[
+            "flash_attn_fwd"]
+        log("pp: " + json.dumps({
+            "metric": "wall seconds of each job and host seconds a step "
+                      "(rank 0's epoch record) with the ranks sharing one "
+                      "card over host-staged gloo transfers: not a "
+                      "pipeline speed",
+            "jobs_at_once": list(PP_JOBS),
+            "wall_s": {**{n: j.wall for n, j in jobs.items()}},
+            "s_per_step": {n: MESH_BATCH / _epoch_logs(out[n], (0,))[0][
+                "images_per_sec"] for n in PP_JOBS},
+            "one_process_wall_s": {"train": wall_one, "eval": wall_ev_one},
+            "one_process_launches": {"train": one, "eval": one_ev},
+            "phase_s": time.perf_counter() - t_phase,
+            "card": card_line()}))
+    finally:
+        for job in jobs.values():
+            job.kill()
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def _t1_errors(out, ref):
     """(relative Frobenius error, max abs error over the largest |ref|,
     max abs error) of a bf16 T1 output."""
@@ -6497,6 +6718,7 @@ def main(argv=None) -> int:
     phase_tp(args.seed, kernels)
     phase_cp(args.seed, kernels)
     phase_mesh_cli(args.seed, kernels)
+    phase_pp(args.seed, kernels)
     phase_roofline_tool(kernels)
     phase_bench()
     phase_trace()

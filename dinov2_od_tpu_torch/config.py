@@ -241,8 +241,19 @@ class MeshConfig:
     - `context_parallel`: the legacy mode, where the ring runs over the
       two-axis mesh's model axis (of `model_parallel_size` ranks) and the
       params stay replicated over it (no tensor parallelism).
-    Pipeline parallelism and FSDP are not ported yet (ROADMAP.md): setting
-    any of their fields raises."""
+
+    Pipeline parallelism streams the backbone's depth over stages of ranks
+    (parallel/pipeline.py), again in the JAX package's two modes:
+    - `pipeline_parallel_size` > 0: a dedicated 'stage' axis on a
+      three-axis ('data', 'stage', 'model') mesh, composed with tensor
+      parallelism over 'model' (PP x TP);
+    - `pipeline_parallel`: the legacy mode, where the two-axis mesh's
+      model axis (of `model_parallel_size` ranks) holds the stages and
+      the params stay replicated over it.
+    `pipeline_microbatches` (0: the stage count) and `pipeline_chunks`
+    (1: GPipe; v > 1: the interleaved schedule) shape the schedule.
+    FSDP is not ported yet (ROADMAP.md): `fsdp` raises, and with a
+    pipeline or a ring it raises JAX's ValueError first."""
 
     data_axis: str = "data"
     model_axis: str = "model"
@@ -286,27 +297,47 @@ class MeshConfig:
                 "exclusive with pipeline_parallel, context_parallel, and "
                 "context_parallel_size"
             )
-        unported = {
-            "pipeline parallelism": (self.pipeline_parallel
-                                     or self.pipeline_parallel_size > 0
-                                     or self.pipeline_microbatches > 0
-                                     or self.pipeline_chunks != 1),
-            "FSDP": self.fsdp,
-        }
-        for what, asked in unported.items():
-            if asked:
-                raise NotImplementedError(
-                    f"{what} is not ported to PyTorch yet (ROADMAP.md)")
+        if self.fsdp and (self.context_parallel or self.pipeline_parallel
+                          or self.context_parallel_size > 0
+                          or self.pipeline_parallel_size > 0):
+            # JAX's param_shardings raises this when it shards.
+            raise ValueError(
+                "fsdp does not compose with pipeline/context parallelism; "
+                "use FSDP with plain DP or DP x TP"
+            )
+        if self.fsdp:
+            raise NotImplementedError(
+                "FSDP is not ported to PyTorch yet (ROADMAP.md Queue A "
+                "item 7)")
         if self.model_parallel_size < 1:
             raise ValueError("model_parallel_size must be >= 1")
         if self.context_parallel_size < 0:
             raise ValueError("context_parallel_size must be >= 0")
+        if self.pipeline_parallel_size < 0:
+            raise ValueError("pipeline_parallel_size must be >= 0")
 
     @property
     def tensor_parallel_size(self) -> int:
-        """The Megatron degree: the model axis's size, except in legacy
-        context parallelism, where that axis carries tokens."""
-        return 1 if self.context_parallel else self.model_parallel_size
+        """The Megatron degree: the model axis's size, except in the legacy
+        modes, where that axis carries tokens or stages."""
+        if self.context_parallel or self.pipeline_parallel:
+            return 1
+        return self.model_parallel_size
+
+    @property
+    def pipe_axis(self) -> Optional[str]:
+        """The axis the pipeline runs over: 'stage' on the three-axis
+        mesh, the model axis in legacy mode; None without a pipeline."""
+        if self.pipeline_parallel:
+            return self.model_axis
+        return self.stage_axis if self.pipeline_parallel_size > 0 else None
+
+    @property
+    def stage_size(self) -> int:
+        """The pipeline's stage count: 1 without pipeline parallelism."""
+        if self.pipeline_parallel:
+            return self.model_parallel_size
+        return max(self.pipeline_parallel_size, 1)
 
     @property
     def context_size(self) -> int:

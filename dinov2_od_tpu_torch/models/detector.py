@@ -45,6 +45,9 @@ def detector_apply(
     mesh=None,
     seq_axis: Optional[str] = None,
     use_remat: bool = False,
+    pipe_axis: Optional[str] = None,
+    pipe_microbatches: int = 0,
+    pipe_chunks: int = 1,
 ) -> Dict[str, Any]:
     """Full forward pass on pixel_values [B, H, W, 3] (NHWC).
 
@@ -55,7 +58,11 @@ def detector_apply(
     attn_impl="ring" and `seq_axis` the backbone's tokens are split over
     the mesh's context ring (models/vit.py); the decoder then runs whole
     on every rank of the ring, on the gathered features, and the outputs
-    are replicated over the ring too. `use_remat`
+    are replicated over the ring too. With `pipe_axis` (the mesh's stage
+    axis) the backbone's depth streams over the stages in
+    `pipe_microbatches` microbatches and `pipe_chunks` chunks a stage
+    (models/vit.py); every stage then runs the decoder whole on the
+    pipeline's output. `use_remat`
     recomputes each adapted backbone block in the backward. Returns
     {"pred_logits": [B, Q, C], "pred_boxes": [B, Q, 4]}, plus
     "aux_outputs" in train mode when the decoder's aux_loss is set, and
@@ -64,6 +71,8 @@ def detector_apply(
     features = backbone_apply(
         params["backbone"], cfg.backbone, pixel_values, attn_impl=attn_impl,
         mesh=mesh, seq_axis=seq_axis, use_remat=use_remat,
+        pipe_axis=pipe_axis, pipe_microbatches=pipe_microbatches,
+        pipe_chunks=pipe_chunks,
     )
     moe_aux = None
     if cfg.backbone.ffn_type == "moe":

@@ -56,6 +56,16 @@ HWIO `[p, p, 3, D]` kernel used as a `(py, px, c)`-ordered patch GEMM.
   the router's load-balance loss summed in fp32 over the MoE blocks and
   divided by their number. MoE under a mesh or the ring raises: expert
   parallelism is ROADMAP.md Queue A item 7.
+
+- Pipeline parallelism (`pipe_axis`, the mesh's stage axis): the whole
+  depth streams through one block body with LoRA active over the mesh's
+  stages (parallel/pipeline.py), GPipe or interleaved, in
+  `pipe_microbatches` microbatches; the blocks below the last
+  `lora_last_n_blocks` take no gradient (JAX's stop_gradient on those
+  rows of the stack) and run without autograd. Under PP x TP each
+  stage's blocks keep their Megatron collectives over the model group.
+  The int8 prefix and the MoE FFN under a pipeline raise JAX's
+  ValueErrors.
 """
 
 from __future__ import annotations
@@ -75,6 +85,7 @@ from ..parallel.collectives import (
     reduce_from_model,
     shard_tokens,
 )
+from ..parallel.pipeline import pipeline_blocks
 from ..parallel.sharding import context_size, model_size
 from .layers import (
     compute_dtype,
@@ -99,11 +110,24 @@ Params = Dict[str, Any]
 
 
 def check_backbone_supported(cfg: BackboneConfig, mesh=None,
-                             attn_impl: str = "auto") -> None:
-    """Raise for an FFN type the port does not know, and for the MoE FFN
-    under a mesh or ring attention."""
+                             attn_impl: str = "auto",
+                             pipe_axis: Optional[str] = None) -> None:
+    """Raise for an FFN type the port does not know; for the MoE FFN or
+    the int8 prefix under a pipeline (JAX's ValueErrors, which its
+    backbone raises); and for the MoE FFN under another mesh or ring
+    attention."""
     if cfg.ffn_type not in ("mlp", "swiglu", "moe"):
         raise ValueError(f"unknown ffn_type {cfg.ffn_type!r}")
+    if pipe_axis is not None:
+        if cfg.ffn_type == "moe":
+            raise ValueError(
+                "ffn_type='moe' is not supported under pipeline "
+                "parallelism; shard experts over the model axis (EP) "
+                "instead")
+        if cfg.prefix_int8:
+            raise ValueError(
+                "prefix_int8 is not supported under pipeline parallelism "
+                "(the depth stack is not split at the LoRA boundary there)")
     if cfg.ffn_type == "moe" and (mesh is not None or attn_impl == "ring"):
         raise NotImplementedError(
             "ffn_type='moe' under a mesh or ring attention (expert "
@@ -344,6 +368,9 @@ def backbone_apply(
     mesh=None,
     seq_axis: Optional[str] = None,
     use_remat: bool = False,
+    pipe_axis: Optional[str] = None,
+    pipe_microbatches: int = 0,
+    pipe_chunks: int = 1,
 ) -> torch.Tensor:
     """Run the backbone.
 
@@ -356,6 +383,10 @@ def backbone_apply(
         whose context ring splits the tokens; None runs whole.
       use_remat: under autograd, keep only each adapted block's input and
         recompute the block (its ring included) in the backward.
+      pipe_axis: the mesh's stage axis (`Mesh.stage_axis`) to stream the
+        depth over in `pipe_microbatches` microbatches (0: the stage
+        count) and `pipe_chunks` chunks a stage; None runs the blocks in
+        order here.
 
     Returns:
       [B, seq, out_dim] features; seq = patches (+1 CLS unless
@@ -363,10 +394,14 @@ def backbone_apply(
       projection to target_dim. Under ffn_type 'moe', (features,
       moe_aux): the MoE blocks' mean load-balance loss, fp32.
     """
-    check_backbone_supported(cfg, mesh, attn_impl)
+    check_backbone_supported(cfg, mesh, attn_impl, pipe_axis)
     ring = attn_impl == "ring"
     if ring and (mesh is None or seq_axis is None):
         raise ValueError("attn_impl='ring' requires mesh and seq_axis")
+    if pipe_axis is not None and (mesh is None
+                                  or mesh.stage_axis != pipe_axis):
+        raise ValueError(f"pipe_axis {pipe_axis!r} names no pipeline axis "
+                         f"of the mesh")
     dtype = compute_dtype(cfg.dtype)
     x = pixel_values.to(dtype)
 
@@ -412,7 +447,17 @@ def backbone_apply(
     k = (moe_boundary(cfg) if moe
          else max(0, cfg.depth - cfg.lora_last_n_blocks))
     moe_aux = None
-    if moe or 0 < k < cfg.depth:
+    if pipe_axis is not None:
+        def block_fn(h, bp):
+            # Remat where the block runs under autograd: the adapted
+            # blocks (the pipeline runs the frozen ones without it).
+            fn = adapted if torch.is_grad_enabled() else _block_apply
+            return fn(h, bp, cfg, attn_impl, True, **blk)
+
+        x = pipeline_blocks(x, params["blocks"], block_fn, mesh,
+                            pipe_microbatches, skip_bubbles=True,
+                            num_chunks=pipe_chunks, frozen_blocks=k)
+    elif moe or 0 < k < cfg.depth:
         if k > 0:
             with torch.no_grad():
                 prefix = index_params(params["blocks"], slice(0, k))

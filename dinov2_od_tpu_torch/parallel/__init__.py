@@ -1,6 +1,6 @@
-"""The multi-process start-up, and data, context (ring) and Megatron
-tensor parallelism over torch.distributed process groups (counterpart of
-dinov2_od_tpu/parallel/)."""
+"""The multi-process start-up, and data, context (ring), pipeline and
+Megatron tensor parallelism over torch.distributed process groups
+(counterpart of dinov2_od_tpu/parallel/)."""
 
 from .collectives import (
     all_reduce,

@@ -9,16 +9,23 @@
 - `ring_shift`: a tensor sent to the next rank of the context ring and
   received from the previous one (`jax.lax.ppermute` with
   perm = [(j, j + 1 mod n)]); ring attention rotates K and V with it.
+- `stage_exchange`: a tensor sent to another stage of the pipeline and
+  one received from another (`jax.lax.ppermute` over the stage axis,
+  each transfer posted only where the schedule needs it); `stage_sum`:
+  the sum over the stage group (the pipeline's `psum` of the last
+  stage's outputs).
 - `shard_tokens` / `gather_tokens`: the backbone's tokens split over the
   context ring and all-gathered back. The gather's backward keeps this
   rank's rows of the cotangent: every rank of the ring runs the decoder
   on the same gathered tokens, so each holds the whole cotangent.
 - `reduce_gradients`: after the backward, the context group's sum of the
   gradients of the leaves its ranks each saw a share of the tokens of
-  (parallel/sharding.py `context_partial`), the model group's sum of the
-  partial gradients of replicated leaves (`partial_grad`), then the data
-  group's sum of every gradient (the loss is each rank's share of a sum
-  over the global batch, over the global box count).
+  (parallel/sharding.py `backbone_partial`), the stage group's sum of
+  the gradients each stage holds its share of (the same leaves), the
+  model group's sum of the partial gradients of replicated leaves
+  (`partial_grad`), then the data group's sum of every gradient (the
+  loss is each rank's share of a sum over the global batch, over the
+  global box count).
 
 The mesh's backend decides the transport. NCCL takes CUDA tensors as they
 are. Gloo reduces host buffers, so a CUDA tensor (ranks that share one
@@ -149,6 +156,44 @@ def ring_shift(t: torch.Tensor, mesh, offset: int = 1) -> torch.Tensor:
     return recv.to(t.device, t.dtype) if staged else recv
 
 
+def stage_exchange(send, to: int, like, frm: int, mesh):
+    """Send `send` to world rank `to` and receive a tensor shaped as `like`
+    from world rank `frm` over the stage group; either may be None, and
+    that transfer is then not posted. Both are posted before either is
+    waited on, as in `ring_shift`. Returns the received tensor on like's
+    device, in its dtype, or None. In a pipeline of one stage the
+    transfer is to itself: a copy."""
+    if mesh.stage_size == 1:
+        return None if like is None else send.detach().clone()
+    ref = send if send is not None else like
+    if ref is None:
+        return None
+    staged = _staged(ref, mesh.backend)
+    ops, recv = [], None
+    if send is not None:
+        buf = (send.detach().to("cpu", _wire(send)) if staged
+               else send.detach()).contiguous()
+        ops.append(dist.P2POp(dist.isend, buf, to, mesh.stage_group))
+    if like is not None:
+        recv = torch.empty(like.shape,
+                           dtype=_wire(like) if staged else like.dtype,
+                           device="cpu" if staged else like.device)
+        ops.append(dist.P2POp(dist.irecv, recv, frm, mesh.stage_group))
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    if recv is None:
+        return None
+    return recv.to(like.device, like.dtype) if staged else recv
+
+
+def stage_sum(t: torch.Tensor, mesh) -> torch.Tensor:
+    """`t` summed over the stage group (as it is in a pipeline of one
+    stage)."""
+    if mesh.stage_size == 1:
+        return t
+    return all_reduce(t, mesh.stage_group, mesh.backend)
+
+
 class _ShardTokens(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh):
@@ -197,15 +242,20 @@ def gather_tokens(x: torch.Tensor, mesh) -> torch.Tensor:
 
 def reduce_gradients(grads: List[torch.Tensor], paths: list, mesh) -> None:
     """In place: the context group's sum of the gradients of the leaves
-    whose tokens it split (`sharding.context_partial`), the model group's
-    sum of the partial gradients of replicated leaves
-    (`sharding.partial_grad`, looked up at call time), then the data
-    group's sum of every gradient. `paths` are the leaves' paths in the
-    param tree, one per gradient."""
+    whose tokens it split (`sharding.backbone_partial`), the stage group's
+    sum of the gradients each stage holds its share of (the same leaves),
+    the model group's sum of the partial
+    gradients of replicated leaves (`sharding.partial_grad`, looked up at
+    call time), then the data group's sum of every gradient. `paths` are
+    the leaves' paths in the param tree, one per gradient."""
     if mesh.context_size > 1:
         all_reduce_coalesced_(
-            [g for g, p in zip(grads, paths) if sharding.context_partial(p)],
+            [g for g, p in zip(grads, paths) if sharding.backbone_partial(p)],
             mesh.context_group, mesh.backend)
+    if mesh.stage_size > 1:
+        all_reduce_coalesced_(
+            [g for g, p in zip(grads, paths) if sharding.backbone_partial(p)],
+            mesh.stage_group, mesh.backend)
     if mesh.model_size > 1:
         all_reduce_coalesced_(
             [g for g, p in zip(grads, paths) if sharding.partial_grad(p)],

@@ -3,12 +3,15 @@ dinov2_od_tpu/parallel/sharding.py).
 
 A ('data', 'model') mesh of processes, laid out as the JAX package lays
 out its devices: rank r sits at data index r // tp and model index
-r % tp. With `MeshConfig.context_parallel_size` > 0 the mesh has three
-axes, ('data', 'context', 'model'), rank r at (r // (cp tp),
-(r // tp) % cp, r % tp). The 'data' axis splits the batch (DP); the
-'context' axis splits the backbone's tokens over a ring (CP,
-ops/ring_attention.py); the 'model' axis holds Megatron tensor-parallel
-shards (TP), with the JAX package's rules by leaf name:
+r % tp. With `MeshConfig.context_parallel_size` = cp > 0 the mesh has
+three axes, ('data', 'context', 'model'), rank r at (r // (cp tp),
+(r // tp) % cp, r % tp); with `pipeline_parallel_size` = pp > 0 it has
+('data', 'stage', 'model') in the same order. The 'data' axis splits the
+batch (DP); the 'context' axis splits the backbone's tokens over a ring
+(CP, ops/ring_attention.py); the 'stage' axis streams the backbone's
+depth through a pipeline (PP, parallel/pipeline.py); the 'model' axis
+holds Megatron tensor-parallel shards (TP), with the JAX package's rules
+by leaf name:
 
 - column-parallel (output dim sharded): the q/k/v/fc1 kernels, their bias
   and lora_B, and the deformable value projection (`value_kernel`,
@@ -31,7 +34,12 @@ backbone's fc1 is twice as wide as its fc2 is deep.
 Legacy context parallelism (`MeshConfig.context_parallel`) runs the ring
 over the two-axis mesh's model axis: the mesh then has no tensor shards
 (`model_size` 1) and a ring of `model_parallel_size` ranks. On either
-layout params stay replicated over the ring, as in JAX.
+layout params stay replicated over the ring, as in JAX. Legacy pipeline
+parallelism (`MeshConfig.pipeline_parallel`) makes that axis the stages
+the same way. Params and Adam's moments stay replicated over the stages
+too (JAX's `param_shardings`): every rank holds the whole block stack and
+runs its own chunks of it, so a checkpoint needs no gather over the
+stages.
 
 Where GSPMD places the collectives in JAX, the port's modules call them by
 hand (parallel/collectives.py): each tensor-parallel module takes and
@@ -40,8 +48,11 @@ model group once, and reduces its input's gradient there once. Leaves
 that stay replicated but feed only this rank's heads or columns
 (`partial_grad`) get partial gradients, which the train step sums over
 the model group; under context parallelism every leaf the backbone's
-sharded tokens reach (`context_partial`) gets this rank's tokens' share,
-which it sums over the context group.
+sharded tokens reach (`backbone_partial`) gets this rank's tokens' share,
+which it sums over the context group; under pipeline parallelism each
+stage holds the gradient of its own blocks' rows (and stage 0 that of the
+embeddings before the pipeline), summed over the stage group
+(`backbone_partial` too).
 
 The caller starts torch.distributed (`init_process_group` with the
 backend, address, world size and rank) before `create_mesh`.
@@ -79,9 +90,10 @@ class Mesh:
     axes. `backend` is the process groups' backend: "nccl" for one card a
     rank, "gloo" for ranks that share a card or run on the CPU
     (parallel/collectives.py stages CUDA tensors through the host for
-    it). `model_size` is the tensor-parallel degree and `context_size`
-    the ring's (1 without context parallelism; `context_group` is then
-    None)."""
+    it). `model_size` is the tensor-parallel degree, `context_size` the
+    ring's and `stage_size` the pipeline's (1 without context or pipeline
+    parallelism; their group is then None). `stage_ranks` are the world
+    ranks of this rank's line of stages, in stage order."""
 
     data_size: int
     model_size: int
@@ -94,6 +106,23 @@ class Mesh:
     context_size: int = 1
     context_index: int = 0
     context_group: Any = None
+    stage_size: int = 1
+    stage_index: int = 0
+    stage_group: Any = None
+    stage_ranks: Tuple[int, ...] = ()
+
+    @property
+    def stage_axis(self) -> Optional[str]:
+        """The name of the axis the pipeline runs over: 'stage' on the
+        three-axis mesh, the model axis in legacy mode; None without
+        pipeline parallelism."""
+        return self.cfg.pipe_axis
+
+    def stage_rank(self, offset: int) -> int:
+        """The world rank of the stage `offset` places on, around the
+        line of stages."""
+        return self.stage_ranks[(self.stage_index + offset)
+                                % self.stage_size]
 
     @property
     def seq_axis(self) -> Optional[str]:
@@ -126,20 +155,23 @@ def create_mesh(model_parallel_size: int = 1,
                 cfg: MeshConfig = MeshConfig()) -> Mesh:
     """This process's mesh over the started torch.distributed world, as
     the JAX package shapes its devices: [world / tp, tp] (data, model), or
-    [world / (cp tp), cp, tp] (data, context, model) when
-    cfg.context_parallel_size = cp > 0; one process group per line of
-    each axis. Under cfg.context_parallel the model axis of the two-axis
-    grid is the ring. Every rank must call it, in the same order as any
+    [world / (n tp), n, tp] (data, context or stage, model) when
+    cfg.context_parallel_size or cfg.pipeline_parallel_size = n > 0; one
+    process group per line of each axis. Under cfg.context_parallel or
+    cfg.pipeline_parallel the model axis of the two-axis grid is the ring
+    or the stages. Every rank must call it, in the same order as any
     other group creation."""
     world, rank = dist.get_world_size(), dist.get_rank()
     size = model_parallel_size
-    cp = cfg.context_parallel_size
-    inner = size * max(cp, 1)
+    cp, pp = cfg.context_parallel_size, cfg.pipeline_parallel_size
+    mid = max(cp, pp, 1)  # MeshConfig allows at most one of them
+    inner = size * mid
     if size < 1 or world % inner:
-        what = (f"context_parallel_size={cp} x " if cp else "")
+        what = (f"context_parallel_size={cp} x " if cp else
+                f"pipeline_parallel_size={pp} x " if pp else "")
         raise ValueError(f"{world} processes not divisible by {what}"
                          f"model_parallel_size={size}")
-    grid = np.arange(world).reshape(world // inner, max(cp, 1), size)
+    grid = np.arange(world).reshape(world // inner, mid, size)
 
     def groups(lines):
         return {tuple(line): dist.new_group(list(line)) for line in lines}
@@ -147,33 +179,45 @@ def create_mesh(model_parallel_size: int = 1,
     d, c, m = (int(i[0]) for i in np.nonzero(grid == rank))
     data = groups(grid[:, ci, mi].tolist() for ci in range(grid.shape[1])
                   for mi in range(size))
-    ctx = (groups(grid[di, :, mi].tolist() for di in range(grid.shape[0])
-                  for mi in range(size)) if cp > 1 else {})
+    mids = (groups(grid[di, :, mi].tolist() for di in range(grid.shape[0])
+                   for mi in range(size)) if mid > 1 else {})
     model = groups(grid[di, ci].tolist() for di in range(grid.shape[0])
                    for ci in range(grid.shape[1]))
     data_group = data[tuple(grid[:, c, m].tolist())]
     model_group = model[tuple(grid[d, c].tolist())]
+    mid_group = mids.get(tuple(grid[d, :, m].tolist()))
     common = dict(data_size=grid.shape[0], data_index=d,
                   data_group=data_group, backend=dist.get_backend(), cfg=cfg)
+    legacy = dict(model_size=1, model_index=0, model_group=None)
     if cfg.context_parallel:
         # Legacy: the model axis carries tokens, and no tensor shards.
-        return Mesh(model_size=1, model_index=0, model_group=None,
-                    context_size=size, context_index=m,
+        return Mesh(context_size=size, context_index=m,
                     context_group=model_group if size > 1 else None,
+                    **legacy, **common)
+    if cfg.pipeline_parallel:
+        # Legacy: the model axis carries the stages.
+        return Mesh(stage_size=size, stage_index=m,
+                    stage_group=model_group if size > 1 else None,
+                    stage_ranks=tuple(grid[d, c].tolist()),
+                    **legacy, **common)
+    tp = dict(model_size=size, model_index=m, model_group=model_group)
+    if pp:
+        return Mesh(stage_size=pp, stage_index=c, stage_group=mid_group,
+                    stage_ranks=tuple(grid[d, :, m].tolist()), **tp,
                     **common)
-    return Mesh(model_size=size, model_index=m, model_group=model_group,
-                context_size=max(cp, 1), context_index=c,
-                context_group=(ctx[tuple(grid[d, :, m].tolist())]
-                               if cp > 1 else None),
-                **common)
+    return Mesh(context_size=max(cp, 1), context_index=c,
+                context_group=mid_group, **tp, **common)
 
 
 def mesh_shape(data, model_parallel_size: int, cfg: MeshConfig) -> str:
     """A mesh as the error messages name it: "data D x context C x model
-    M" (the context axis only when cfg.context_parallel_size > 0); `data`
-    may be a placeholder."""
+    M" (the middle axis only when cfg.context_parallel_size or
+    cfg.pipeline_parallel_size > 0: "stage S" for the latter); `data` may
+    be a placeholder."""
     mid = (f" x context {cfg.context_parallel_size}"
-           if cfg.context_parallel_size > 0 else "")
+           if cfg.context_parallel_size > 0 else
+           f" x stage {cfg.pipeline_parallel_size}"
+           if cfg.pipeline_parallel_size > 0 else "")
     return f"data {data}{mid} x model {model_parallel_size}"
 
 
@@ -185,19 +229,21 @@ def auto_mesh(batch_size: int, model_parallel_size: int = 1,
     picks the largest data axis that divides the batch and leaves the
     other devices idle; a rank is a process that cannot sit idle, so here
     the data axis is the world over model_parallel_size x
-    max(context_parallel_size, 1) (or over the legacy ring's
-    model_parallel_size), and a world or a batch that does not divide
-    raises."""
+    max(context_parallel_size, 1) x max(pipeline_parallel_size, 1) (or
+    over the legacy ring's or stages' model_parallel_size), and a world
+    or a batch that does not divide raises."""
     from .multihost import process_count, started
 
     world = process_count()
-    inner = model_parallel_size * max(cfg.context_parallel_size, 1)
+    inner = (model_parallel_size * max(cfg.context_parallel_size, 1)
+             * max(cfg.pipeline_parallel_size, 1))
     if model_parallel_size < 1 or world % inner:
         raise ValueError(
             f"a world of {world} processes does not divide into the mesh "
             f"{mesh_shape('D', model_parallel_size, cfg)} (--model_parallel "
             f"{model_parallel_size}, --context_parallel_size "
-            f"{cfg.context_parallel_size}; --batch_size {batch_size})")
+            f"{cfg.context_parallel_size}, --pipeline_parallel_size "
+            f"{cfg.pipeline_parallel_size}; --batch_size {batch_size})")
     data = world // inner
     if batch_size % data:
         raise ValueError(
@@ -240,12 +286,17 @@ def partial_grad(path: Tuple[str, ...]) -> bool:
     return parent == "deform" and name in _DEFORM_HEAD_SLICED
 
 
-def context_partial(path: Tuple[str, ...]) -> bool:
-    """Under context parallelism, a leaf whose gradient each rank of the
-    ring holds only its tokens' share of: every backbone leaf used before
-    the tokens are gathered (the embeddings and the blocks). The final
-    LayerNorm, the projection and the decoder run whole on every rank of
-    the ring, on the gathered tokens, so their gradients are whole."""
+def backbone_partial(path: Tuple[str, ...]) -> bool:
+    """A leaf whose gradient each rank of a context ring or of a pipeline's
+    stages holds only its share of: every backbone leaf used before the
+    tokens are gathered or the pipeline's output is summed (the
+    embeddings and the blocks). Under context parallelism each rank of
+    the ring holds its tokens' share of these; under pipeline parallelism
+    each stage its own blocks' rows of the stack, and stage 0 alone (which
+    injects the microbatches) the embeddings'. The final LayerNorm, the
+    projection and the decoder run whole on every rank of the ring or the
+    stages, on the gathered tokens or the summed output, so their
+    gradients are whole."""
     return path[0] == "backbone" and path[1] not in ("ln_f", "projection")
 
 

@@ -10,9 +10,13 @@ flags that exclude each other stop it the same way. It trains on one
 device (`--device cuda`, the default, or `cpu`) in one process, or as one
 rank of a mesh of processes, one process a rank, under the JAX flags and
 semantics: `--model_parallel N` (DP x TP), `--context_parallel_size C`
-(DP x CP x TP) and `--context_parallel` (the legacy ring over the model
-axis). The ranks join through `--coordinator_address/--num_processes/
---process_id`, or with `--multihost` alone from a launcher's environment
+(DP x CP x TP), `--context_parallel` (the legacy ring over the model
+axis), `--pipeline_parallel_size P` (DP x PP x TP) and
+`--pipeline_parallel` (the legacy stages over the model axis), the
+pipeline's schedule set by `--pipeline_microbatches` and
+`--pipeline_chunks`. The ranks join through
+`--coordinator_address/--num_processes/--process_id`, or with
+`--multihost` alone from a launcher's environment
 (`torchrun`; parallel/multihost.py); `--batch_size` is the global batch.
 Training, validation, checkpoints, resume and `--only_evaluate` all run
 on the mesh, and the run writes one set of files (world rank 0; the
@@ -413,9 +417,6 @@ def build_detector_config(args) -> C.DetectorConfig:
 
 # (the flag asked for, the ROADMAP.md item that ports it)
 UNPORTED = (
-    (lambda a: (a.pipeline_parallel or a.pipeline_parallel_size > 0
-                or a.pipeline_microbatches > 0 or a.pipeline_chunks != 1),
-     "--pipeline_*", "Queue A item 7"),
     (lambda a: a.fsdp, "--fsdp", "Queue A item 7"),
     (lambda a: (a.download_train_data or a.download_val_data
                 or a.download_test_data), "--download_*",
@@ -485,7 +486,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     from .loop import (create_coco_mini, create_debug_subset,
                        evaluate_dataset, run_training, validate)
     from .state import create_train_state
-    from .step import make_eval_topk_step
+    from .step import check_pipeline, make_eval_topk_step
 
     if args.device not in ("cuda", "cpu"):
         raise ValueError(f"--device must be 'cuda' or 'cpu', not "
@@ -524,6 +525,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         model_parallel_size=args.model_parallel,
         context_parallel=args.context_parallel,
         context_parallel_size=args.context_parallel_size,
+        pipeline_parallel=args.pipeline_parallel,
+        pipeline_parallel_size=args.pipeline_parallel_size,
+        pipeline_microbatches=args.pipeline_microbatches,
+        pipeline_chunks=args.pipeline_chunks,
     )
     cfg = C.TrainConfig(
         detector=det_cfg,
@@ -615,14 +620,18 @@ def main(argv: Optional[List[str]] = None) -> int:
     # only_evaluate (reference train.py:750-890)
     # ------------------------------------------------------------------
     if args.only_evaluate:
-        if not cfg.mesh.context_parallel:
-            # The legacy ring's model axis carries tokens, not shards.
+        if not (cfg.mesh.context_parallel or cfg.mesh.pipeline_parallel):
+            # The legacy ring's or stages' model axis carries tokens or
+            # stages, not shards.
             check_tp_compatible(det_cfg, args.model_parallel)
+        check_pipeline(cfg)
         if args.quantize == "int8":
-            if args.model_parallel > 1:
+            if cfg.mesh.tensor_parallel_size > 1:
                 # As the JAX CLI: the fused quantize + GEMM (B6) off under
                 # tensor parallelism; the int8 linears take the unfused
-                # path on their shards.
+                # path on their shards. The legacy modes' model axis holds
+                # no shards, and B6 runs there (JAX turns it off for any
+                # --model_parallel > 1).
                 from ..ops.int8_gemm import set_fused_enabled
 
                 set_fused_enabled(False)

@@ -5,19 +5,20 @@ behind the CLI (train/cli.py), on the device of the params: in one
 process, or as one rank of a started torch.distributed world
 (parallel/multihost.py), where it runs on a mesh of the world's ranks
 (`auto_mesh`: data x tensor-parallel, data x context x tensor-parallel,
-or the legacy ring over the model axis, from cfg.mesh).
+data x stage x tensor-parallel, or the legacy ring or stages over the
+model axis, from cfg.mesh).
 
 Under a mesh, `--batch_size` is the global batch and each data rank
 takes its 1 / D of it: the loader's interleaved slice of each global
 batch (data/loader.py), or the cache's contiguous slice
-(train/device_cache.py). The tensor- and context-parallel peers of a
-data rank load the same rows. Every rank holds its shard of the params
-and the Adam state, and its metrics are the global batch's. Validation
-runs each data rank's rows and all-gathers the packed top-k over the data
-group, so every rank scores the same detections. The run writes one set
-of files: world rank 0 writes the records, the predictions and metrics,
-the plots and (train/checkpoint.py, after a gather of the shards) the
-checkpoints; the other ranks write nothing.
+(train/device_cache.py). The tensor-, context- and pipeline-parallel
+peers of a data rank load the same rows. Every rank holds its shard of
+the params and the Adam state, and its metrics are the global batch's.
+Validation runs each data rank's rows and all-gathers the packed top-k
+over the data group, so every rank scores the same detections. The run
+writes one set of files: world rank 0 writes the records, the
+predictions and metrics, the plots and (train/checkpoint.py, after a
+gather of the shards) the checkpoints; the other ranks write nothing.
 
 Files written under `output_dir`, per epoch N:
 - `train_epoch_N.json`: the epoch's global steps, each step's loss, its
@@ -78,7 +79,8 @@ from . import checkpoint as ckpt
 from .preemption import PreemptionGuard, triggered_anywhere
 from .state import (TrainState, create_train_state, lr_schedule_fn,
                     merge_ema, tree_leaves, tree_map)
-from .step import make_eval_topk_step, make_train_step, step_seed
+from .step import (check_pipeline, make_eval_topk_step, make_train_step,
+                   step_seed)
 
 logger = logging.getLogger("dinov2_od_tpu_torch")
 
@@ -359,13 +361,19 @@ def run_training(
         "val_epochs": [], "val_AP": [], "val_AP50": [], "val_AP75": [],
     }
     device = params_device(params)
-    if not cfg.mesh.context_parallel:
-        # Under the legacy ring the model axis carries tokens, not tensor
-        # shards.
+    if not (cfg.mesh.context_parallel or cfg.mesh.pipeline_parallel):
+        # Under the legacy ring or stages the model axis carries tokens
+        # or stages, not tensor shards.
         check_tp_compatible(cfg.detector, cfg.mesh.model_parallel_size)
+    check_pipeline(cfg)
     mesh = auto_mesh(cfg.data.batch_size, cfg.mesh.model_parallel_size,
                      cfg.mesh)
-    if mesh is not None:
+    if mesh is not None and mesh.stage_size > 1:
+        logger.info("mesh: data %d x stage %d x model %d (rank at %d, "
+                    "%d, %d), backend %s", mesh.data_size, mesh.stage_size,
+                    mesh.model_size, mesh.data_index, mesh.stage_index,
+                    mesh.model_index, mesh.backend)
+    elif mesh is not None:
         logger.info("mesh: data %d x context %d x model %d (rank at %d, "
                     "%d, %d), backend %s", mesh.data_size, mesh.context_size,
                     mesh.model_size, mesh.data_index, mesh.context_index,
@@ -438,194 +446,201 @@ def run_training(
         return True
 
     if guard is not None:
+        # Uninstalled however the epochs end: a step that raises must
+        # not leave the handler in the caller's process.
         guard.install()
-    for epoch in range(start_epoch, num_epochs):
-        steps_done = start_batch if epoch == start_epoch else 0
-        if check_preempt(epoch):
-            break
-        epoch_skip = steps_done
-        losses, skips, steps, moe_aux = [], [], [], []
-        t_epoch = time.perf_counter()
+    try:
+        for epoch in range(start_epoch, num_epochs):
+            steps_done = start_batch if epoch == start_epoch else 0
+            if check_preempt(epoch):
+                break
+            epoch_skip = steps_done
+            losses, skips, steps, moe_aux = [], [], [], []
+            t_epoch = time.perf_counter()
 
-        def log_step(scalars, i):
-            logger.info(
-                "epoch %d batch %d/%d loss %.4f (ce %.4f bbox %.4f "
-                "giou %.4f)%s%s", epoch, i, steps_per_epoch,
-                scalars["loss"], scalars["loss_ce"],
-                scalars["loss_bbox"], scalars["loss_giou"],
-                (f" moe_aux {scalars['loss_moe_aux']:.4f}"
-                 if "loss_moe_aux" in scalars else ""),
-                " nonfinite_skip" if scalars.get("nonfinite_skip")
-                else "")
-            if lr_sched is not None:
-                scalars["lr"] = float(lr_sched(int(state.opt_state.count)))
-            log_metrics(writer, scalars, global_step, prefix="train/")
-            if memory_monitor:
-                logger.info("memory:\n%s", format_memory_stats())
+            def log_step(scalars, i):
+                logger.info(
+                    "epoch %d batch %d/%d loss %.4f (ce %.4f bbox %.4f "
+                    "giou %.4f)%s%s", epoch, i, steps_per_epoch,
+                    scalars["loss"], scalars["loss_ce"],
+                    scalars["loss_bbox"], scalars["loss_giou"],
+                    (f" moe_aux {scalars['loss_moe_aux']:.4f}"
+                     if "loss_moe_aux" in scalars else ""),
+                    " nonfinite_skip" if scalars.get("nonfinite_skip")
+                    else "")
+                if lr_sched is not None:
+                    scalars["lr"] = float(lr_sched(int(state.opt_state.count)))
+                log_metrics(writer, scalars, global_step, prefix="train/")
+                if memory_monitor:
+                    logger.info("memory:\n%s", format_memory_stats())
 
-        def logged(metrics) -> dict:
-            return {k: v for k, v in metrics.items()
-                    if k.startswith("loss") or k in ("grad_norm",
-                                                     "nonfinite_skip")}
+            def logged(metrics) -> dict:
+                return {k: v for k, v in metrics.items()
+                        if k.startswith("loss") or k in ("grad_norm",
+                                                         "nonfinite_skip")}
 
-        if device_cache:
-            groups = dc.epoch_index_groups(
-                len(train_dataset), cfg.data.batch_size, steps_per_dispatch,
-                cfg.seed, epoch, skip=epoch_skip)
-            pending = None  # the last dispatch's (first batch, metrics)
+            if device_cache:
+                groups = dc.epoch_index_groups(
+                    len(train_dataset), cfg.data.batch_size,
+                    steps_per_dispatch, cfg.seed, epoch, skip=epoch_skip)
+                pending = None  # the last dispatch's (first batch, metrics)
 
-            def read(first, metrics):
-                # One copy of the stacked [K] metrics to the host.
-                host = {k: v.cpu() for k, v in logged(metrics).items()}
-                losses.append(host["loss"])
-                if "nonfinite_skip" in host:
-                    skips.append(host["nonfinite_skip"])
-                if "loss_moe_aux" in host:
-                    moe_aux.append(host["loss_moe_aux"])
-                k = len(host["loss"])
-                if (first // log_frequency != (first + k) // log_frequency
-                        or first == epoch_skip):
-                    log_step({n: float(v[-1]) for n, v in host.items()},
-                             first + k - 1)
+                def read(first, metrics):
+                    # One copy of the stacked [K] metrics to the host.
+                    host = {k: v.cpu() for k, v in logged(metrics).items()}
+                    losses.append(host["loss"])
+                    if "nonfinite_skip" in host:
+                        skips.append(host["nonfinite_skip"])
+                    if "loss_moe_aux" in host:
+                        moe_aux.append(host["loss_moe_aux"])
+                    k = len(host["loss"])
+                    if (first // log_frequency != (first + k) // log_frequency
+                            or first == epoch_skip):
+                        log_step({n: float(v[-1]) for n, v in host.items()},
+                                 first + k - 1)
 
-            for group in groups:
-                idxs = dc.index_tensor(group, device)
-                steps.extend(range(state.step, state.step + len(group)))
-                state, metrics = multi_step(state, cache, idxs, generator)
-                global_step += len(group)
-                first, steps_done = steps_done, steps_done + len(group)
+                for group in groups:
+                    idxs = dc.index_tensor(group, device)
+                    steps.extend(range(state.step, state.step + len(group)))
+                    state, metrics = multi_step(state, cache, idxs, generator)
+                    global_step += len(group)
+                    first, steps_done = steps_done, steps_done + len(group)
+                    if pending is not None:
+                        read(*pending)
+                    pending = (first, metrics)
+                    if triggered_anywhere(guard, mesh):
+                        break
+                    if (log_images_enabled and writer is not None
+                            and log_cached_images
+                            and first // log_images_frequency
+                            != steps_done // log_images_frequency):
+                        idx = idxs[-1]
+                        log_images(writer, cache["images"][idx].float().cpu()
+                                   .numpy(), global_step, tag="train/images",
+                                   gt_boxes=cache["boxes"][idx].cpu().numpy(),
+                                   gt_valid=cache["valid"][idx].cpu().numpy())
                 if pending is not None:
                     read(*pending)
-                pending = (first, metrics)
-                if triggered_anywhere(guard, mesh):
-                    break
-                if (log_images_enabled and writer is not None
-                        and log_cached_images
-                        and first // log_images_frequency
-                        != steps_done // log_images_frequency):
-                    idx = idxs[-1]
-                    log_images(writer, cache["images"][idx].float().cpu()
-                               .numpy(), global_step, tag="train/images",
-                               gt_boxes=cache["boxes"][idx].cpu().numpy(),
-                               gt_valid=cache["valid"][idx].cpu().numpy())
-            if pending is not None:
-                read(*pending)
-        else:
-            loader.set_epoch(epoch)
-            batches = device_prefetch(iter(loader), device, size=2,
-                                      device_keys=TRAIN_KEYS)
-            for i, batch in enumerate(batches):
-                if i < epoch_skip:
-                    # Exact mid-epoch resume: skip the steps the
-                    # interrupted run completed (the loader's order is
-                    # deterministic).
-                    continue
-                generator.manual_seed(step_seed(cfg.seed, state.step))
-                steps.append(state.step)
-                state, metrics = train_step(
-                    state, {k: batch[k] for k in TRAIN_KEYS}, generator)
-                global_step += 1
-                steps_done = i + 1
-                if triggered_anywhere(guard, mesh):
-                    break  # checkpoint and a clean exit below
-                # Device scalars; read once an epoch.
-                losses.append(metrics["loss"])
-                if "nonfinite_skip" in metrics:
-                    skips.append(metrics["nonfinite_skip"])
-                if "loss_moe_aux" in metrics:
-                    moe_aux.append(metrics["loss_moe_aux"])
-                if i % log_frequency == 0:
-                    log_step({k: float(v)
-                              for k, v in logged(metrics).items()}, i)
-                if (log_images_enabled and writer is not None
-                        and global_step % log_images_frequency == 0):
-                    log_images(writer, batch["images"].float().cpu().numpy(),
-                               global_step, tag="train/images",
-                               gt_boxes=batch["boxes"].cpu().numpy(),
-                               gt_valid=batch["valid"].cpu().numpy())
-            batches.close()
-
-        if check_preempt(epoch):
-            break
-
-        # One copy to the host for the whole epoch (the cache's dispatches
-        # were read already).
-        def host_list(xs):
-            return (torch.cat([x.reshape(-1) for x in xs]).float().cpu()
-                    .tolist() if xs else [])
-
-        loss_list = host_list(losses)
-        n_skipped = (int(torch.cat([x.reshape(-1) for x in skips]).sum())
-                     if skips else 0)
-        epoch_loss = float(np.mean(loss_list)) if loss_list else float("nan")
-        images_per_sec = (len(loss_list) * cfg.data.batch_size
-                          / max(time.perf_counter() - t_epoch, 1e-9))
-        record = {"epoch": epoch, "steps": steps[:len(loss_list)],
-                  "losses": loss_list, "mean_loss": epoch_loss,
-                  "images_per_sec": images_per_sec,
-                  "nonfinite_skips": n_skipped}
-        if moe_aux:
-            # The MoE router's load-balance loss of each step, unweighted.
-            record["loss_moe_aux"] = host_list(moe_aux)
-            record["mean_loss_moe_aux"] = float(
-                np.mean(record["loss_moe_aux"]))
-        logger.info("epoch %d done: mean loss %.4f%s, %.1f images/sec, %d "
-                    "non-finite steps skipped", epoch, epoch_loss,
-                    (f", mean moe_aux {record['mean_loss_moe_aux']:.4f}"
-                     if moe_aux else ""), images_per_sec, n_skipped)
-        if primary:
-            with open(os.path.join(output_dir, f"train_epoch_{epoch}.json"),
-                      "w") as f:
-                json.dump(record, f)
-        history["epochs"].append(epoch)
-        history["train_loss"].append(epoch_loss)
-        log_metrics(writer, {"epoch_loss": epoch_loss,
-                             "images_per_sec": images_per_sec,
-                             "nonfinite_skips": n_skipped},
-                    epoch, prefix="epoch/")
-
-        if val_dataset is not None and (epoch + 1) % val_frequency == 0:
-            eval_params = state.params
-            if state.ema is not None:
-                # Validate the EMA weights (what serving would use).
-                eval_params = merge_ema(state.params, state.ema,
-                                        cfg.detector)
-            # Detached, as a restored checkpoint's are: `torch.matmul`
-            # folds a 3-D input into one GEMM only for a weight that does
-            # not require grad, and the validation should give the saved
-            # model's detections to the bit.
-            eval_params = tree_map(torch.Tensor.detach, eval_params)
-            if evaluator is None:
-                evaluator = CocoEvaluator(val_dataset.coco_path)
-            if device_cache:
-                if val_cache is None:  # uploaded at the first validation
-                    val_cache = dc.upload_eval_cache(
-                        val_dataset, cfg.data.batch_size, device, layout,
-                        mesh)
-                metrics = validate_cached(
-                    eval_all, eval_params, val_cache, val_dataset, epoch,
-                    output_dir, evaluator, parity_mode=parity_mode)
             else:
-                metrics = validate(eval_step, eval_params, val_dataset,
-                                   cfg.data.batch_size, epoch, output_dir,
-                                   parity_mode=parity_mode,
-                                   evaluator=evaluator, mesh=mesh)
-            history["val_epochs"].append(epoch)
-            for k in ("AP", "AP50", "AP75"):
-                history[f"val_{k}"].append(metrics[k])
-            log_metrics(writer, metrics, epoch, prefix="val/")
+                loader.set_epoch(epoch)
+                batches = device_prefetch(iter(loader), device, size=2,
+                                          device_keys=TRAIN_KEYS)
+                for i, batch in enumerate(batches):
+                    if i < epoch_skip:
+                        # Exact mid-epoch resume: skip the steps the
+                        # interrupted run completed (the loader's order is
+                        # deterministic).
+                        continue
+                    generator.manual_seed(step_seed(cfg.seed, state.step))
+                    steps.append(state.step)
+                    state, metrics = train_step(
+                        state, {k: batch[k] for k in TRAIN_KEYS}, generator)
+                    global_step += 1
+                    steps_done = i + 1
+                    if triggered_anywhere(guard, mesh):
+                        break  # checkpoint and a clean exit below
+                    # Device scalars; read once an epoch.
+                    losses.append(metrics["loss"])
+                    if "nonfinite_skip" in metrics:
+                        skips.append(metrics["nonfinite_skip"])
+                    if "loss_moe_aux" in metrics:
+                        moe_aux.append(metrics["loss_moe_aux"])
+                    if i % log_frequency == 0:
+                        log_step({k: float(v)
+                                  for k, v in logged(metrics).items()}, i)
+                    if (log_images_enabled and writer is not None
+                            and global_step % log_images_frequency == 0):
+                        log_images(writer,
+                                   batch["images"].float().cpu().numpy(),
+                                   global_step, tag="train/images",
+                                   gt_boxes=batch["boxes"].cpu().numpy(),
+                                   gt_valid=batch["valid"].cpu().numpy())
+                batches.close()
+
+            if check_preempt(epoch):
+                break
+
+            # One copy to the host for the whole epoch (the cache's dispatches
+            # were read already).
+            def host_list(xs):
+                return (torch.cat([x.reshape(-1) for x in xs]).float().cpu()
+                        .tolist() if xs else [])
+
+            loss_list = host_list(losses)
+            n_skipped = (int(torch.cat([x.reshape(-1) for x in skips]).sum())
+                         if skips else 0)
+            epoch_loss = (float(np.mean(loss_list)) if loss_list
+                          else float("nan"))
+            images_per_sec = (len(loss_list) * cfg.data.batch_size
+                              / max(time.perf_counter() - t_epoch, 1e-9))
+            record = {"epoch": epoch, "steps": steps[:len(loss_list)],
+                      "losses": loss_list, "mean_loss": epoch_loss,
+                      "images_per_sec": images_per_sec,
+                      "nonfinite_skips": n_skipped}
+            if moe_aux:
+                # The MoE router's load-balance loss of each step, unweighted.
+                record["loss_moe_aux"] = host_list(moe_aux)
+                record["mean_loss_moe_aux"] = float(
+                    np.mean(record["loss_moe_aux"]))
+            logger.info("epoch %d done: mean loss %.4f%s, %.1f images/sec, %d "
+                        "non-finite steps skipped", epoch, epoch_loss,
+                        (f", mean moe_aux {record['mean_loss_moe_aux']:.4f}"
+                         if moe_aux else ""), images_per_sec, n_skipped)
             if primary:
-                plot_history(history, output_dir)
+                with open(os.path.join(output_dir,
+                                       f"train_epoch_{epoch}.json"),
+                          "w") as f:
+                    json.dump(record, f)
+            history["epochs"].append(epoch)
+            history["train_loss"].append(epoch_loss)
+            log_metrics(writer, {"epoch_loss": epoch_loss,
+                                 "images_per_sec": images_per_sec,
+                                 "nonfinite_skips": n_skipped},
+                        epoch, prefix="epoch/")
 
-        if (epoch + 1) % checkpoint_every == 0 or epoch == num_epochs - 1:
-            path = ckpt.save_checkpoint(
-                output_dir, epoch, state.params, state.opt_state,
-                epoch_loss, history, async_save=True, step=state.step,
-                ema=state.ema, mesh=mesh)
-            logger.info("checkpoint save started: %s", path)
+            if val_dataset is not None and (epoch + 1) % val_frequency == 0:
+                eval_params = state.params
+                if state.ema is not None:
+                    # Validate the EMA weights (what serving would use).
+                    eval_params = merge_ema(state.params, state.ema,
+                                            cfg.detector)
+                # Detached, as a restored checkpoint's are: `torch.matmul`
+                # folds a 3-D input into one GEMM only for a weight that does
+                # not require grad, and the validation should give the saved
+                # model's detections to the bit.
+                eval_params = tree_map(torch.Tensor.detach, eval_params)
+                if evaluator is None:
+                    evaluator = CocoEvaluator(val_dataset.coco_path)
+                if device_cache:
+                    if val_cache is None:  # uploaded at the first validation
+                        val_cache = dc.upload_eval_cache(
+                            val_dataset, cfg.data.batch_size, device, layout,
+                            mesh)
+                    metrics = validate_cached(
+                        eval_all, eval_params, val_cache, val_dataset, epoch,
+                        output_dir, evaluator, parity_mode=parity_mode)
+                else:
+                    metrics = validate(eval_step, eval_params, val_dataset,
+                                       cfg.data.batch_size, epoch, output_dir,
+                                       parity_mode=parity_mode,
+                                       evaluator=evaluator, mesh=mesh)
+                history["val_epochs"].append(epoch)
+                for k in ("AP", "AP50", "AP75"):
+                    history[f"val_{k}"].append(metrics[k])
+                log_metrics(writer, metrics, epoch, prefix="val/")
+                if primary:
+                    plot_history(history, output_dir)
 
-    if guard is not None:
-        guard.uninstall()
+            if ((epoch + 1) % checkpoint_every == 0
+                    or epoch == num_epochs - 1):
+                path = ckpt.save_checkpoint(
+                    output_dir, epoch, state.params, state.opt_state,
+                    epoch_loss, history, async_save=True, step=state.step,
+                    ema=state.ema, mesh=mesh)
+                logger.info("checkpoint save started: %s", path)
+    finally:
+        if guard is not None:
+            guard.uninstall()
     ckpt.wait_for_saves()
     if preempted:
         # The preemption checkpoint is the resume point, not a final

@@ -23,7 +23,12 @@ the decoder, the matcher and the loss whole on the gathered features, so
 the backbone leaves' gradients are summed over the ring and the decoder's
 are not (parallel/collectives.py `reduce_gradients`). The decoder's
 dropout masks are drawn alike on every rank of the ring, from generators
-seeded alike.
+seeded alike. Under pipeline parallelism (either mode) the backbone's
+depth runs over the mesh's stages (`_cp_kwargs`), each stage gets the
+whole pipeline output and runs the decoder, the matcher and the loss on
+it; the block leaves' gradients (each stage's rows) and the embeddings'
+(stage 0's) are summed over the stage group, the decoder's and the final
+norm's are whole on every stage and are not.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from ..models.detector import detector_apply
 from ..models.vit import check_backbone_supported
 from ..ops.losses import set_criterion
 from ..parallel.collectives import all_reduce_coalesced_, reduce_gradients
+from ..parallel.pipeline import check_schedule
 from ..parallel.sharding import check_tp_compatible, leaf_paths
 from .state import (
     AdamTable,
@@ -89,17 +95,43 @@ def prep_images(images: torch.Tensor, normalize: bool) -> torch.Tensor:
 
 
 def _cp_kwargs(cfg: TrainConfig, mesh) -> dict:
-    """detector_apply's kwargs for context parallelism (the JAX step's
-    `_cp_kwargs`): ring attention over the mesh's ring in either mode,
-    composed with Megatron TP over the model axis on the three-axis mesh;
-    {} without a ring."""
-    if mesh is None or cfg.mesh.context_size == 1:
+    """detector_apply's kwargs for context or pipeline parallelism (the
+    JAX step's `_cp_kwargs`): ring attention over the mesh's ring, or the
+    backbone's depth over its stages, in either mode of each, composed
+    with Megatron TP over the model axis on the three-axis mesh; {}
+    without a ring or a pipeline."""
+    if mesh is None:
+        return {}
+    if cfg.mesh.pipe_axis is not None:
+        if mesh.stage_size != cfg.mesh.stage_size:
+            raise ValueError(f"cfg.mesh asks for {cfg.mesh.stage_size} "
+                             f"pipeline stages; the mesh has "
+                             f"{mesh.stage_size}")
+        return {"pipe_axis": mesh.stage_axis,
+                "pipe_microbatches": cfg.mesh.pipeline_microbatches,
+                "pipe_chunks": cfg.mesh.pipeline_chunks}
+    if cfg.mesh.context_size == 1:
         return {}
     if mesh.context_size != cfg.mesh.context_size:
         raise ValueError(f"cfg.mesh asks for a ring of "
                          f"{cfg.mesh.context_size}; the mesh has "
                          f"{mesh.context_size}")
     return {"attn_impl": "ring", "seq_axis": mesh.seq_axis}
+
+
+def check_pipeline(cfg: TrainConfig) -> None:
+    """Under pipeline parallelism, what the JAX package refuses when it
+    traces the backbone, with its ValueErrors, before a mesh is built:
+    the MoE FFN, the int8 prefix, and a depth, chunk count or microbatch
+    count the schedule cannot take (`parallel.pipeline.check_schedule`).
+    Nothing without a pipeline."""
+    mc = cfg.mesh
+    if mc.pipe_axis is None:
+        return
+    bb = cfg.detector.backbone
+    check_backbone_supported(bb, pipe_axis=mc.pipe_axis)
+    check_schedule(bb.depth, mc.stage_size, mc.pipeline_chunks,
+                   mc.pipeline_microbatches)
 
 
 def train_loss(cfg: TrainConfig, params, batch: Batch,
@@ -240,6 +272,7 @@ def make_train_step(cfg: TrainConfig, mesh=None):
         raise ValueError(f"cfg.mesh's tensor-parallel size {tp} needs a "
                          f"mesh with a model axis of that size")
     _cp_kwargs(cfg, mesh)
+    check_pipeline(cfg)
     check_tp_compatible(cfg.detector, tp)
     check_backbone_supported(cfg.detector.backbone, mesh)
     det_cfg = cfg.detector

@@ -537,8 +537,8 @@ def test_shard_rules_for_swiglu_and_int8():
 
 def test_mesh_config_matches_jax():
     """MeshConfig accepts the context-parallel modes and refuses what
-    JAX's refuses, with its messages; pipeline parallelism and FSDP still
-    raise as unported."""
+    JAX's refuses, with its messages; it accepts pipeline parallelism
+    (ported since), and FSDP still raises as unported."""
     for kw, match in ((dict(context_parallel=True, context_parallel_size=2),
                        "not both"),
                       (dict(context_parallel_size=2,
@@ -551,6 +551,7 @@ def test_mesh_config_matches_jax():
     three = pcfg.MeshConfig(model_parallel_size=2, context_parallel_size=2)
     assert (legacy.tensor_parallel_size, legacy.context_size) == (1, 4)
     assert (three.tensor_parallel_size, three.context_size) == (2, 2)
-    for kw in (dict(fsdp=True), dict(pipeline_parallel_size=2)):
-        with pytest.raises(NotImplementedError):
-            pcfg.MeshConfig(**kw)
+    with pytest.raises(NotImplementedError):
+        pcfg.MeshConfig(fsdp=True)
+    staged = pcfg.MeshConfig(pipeline_parallel_size=2)
+    assert (staged.tensor_parallel_size, staged.stage_size) == (1, 2)

@@ -2,11 +2,12 @@
 (dinov2_od_tpu_torch/train/cli.py `main`, serve.py `main`) on the CPU at
 the --lightweight config (ViT-S, decoder width 256) and 56 px: --debug
 training with validation, --only_evaluate in fp32 and int8 from the
-checkpoint it wrote, the MoE backbone trained and restored from its
+checkpoint, the MoE backbone trained and restored from its
 checkpoint, every flag of a later slice (each raises
 NotImplementedError naming its ROADMAP.md item), the JAX CLI's errors
-for parallelism flags that exclude each other or do not divide the model
-(the same error from both CLIs), the import flags on a missing path, the
+for parallelism flags that exclude each other or do not divide the model,
+and for pipeline flags the model cannot take (the same error from both
+CLIs), the import flags on a missing path, the
 devices and decode backends, and `serve.main` serving a saved checkpoint
 over HTTP. The mesh runs themselves are tests/test_torch_mesh_cli*.py.
 """
@@ -15,6 +16,7 @@ import base64
 import io
 import json
 import os
+import signal
 import threading
 import urllib.request
 
@@ -82,9 +84,7 @@ def test_main_debug_then_only_evaluate(tmp_path, synth):
 
 
 LATER_SLICES = [
-    ["--pipeline_parallel"], ["--pipeline_parallel_size", "2"],
-    ["--pipeline_microbatches", "4"], ["--fsdp"], ["--download_val_data"],
-    ["--compilation_cache", "x"],
+    ["--fsdp"], ["--download_val_data"], ["--compilation_cache", "x"],
 ]
 
 
@@ -138,6 +138,48 @@ def test_model_parallel_that_does_not_divide_raises_as_in_jax(
     for main, out in ((cli.main, "port"), (jcli.main, "jax")):
         with pytest.raises(ValueError, match=error):
             main(argv + ["--output_dir", str(tmp_path / out)])
+
+
+@pytest.mark.parametrize("flags, error", [
+    (["--pipeline_parallel", "--model_parallel", "5"],
+     "depth 12 not divisible by stages x chunks (5 x 1)"),
+    (["--pipeline_parallel", "--model_parallel", "4", "--pipeline_chunks",
+      "3", "--pipeline_microbatches", "6"],
+     "interleaved schedule needs microbatches (6) divisible by stages (4)"),
+    (["--pipeline_parallel", "--model_parallel", "2",
+      "--backbone_prefix_int8", "true"],
+     "prefix_int8 is not supported under pipeline parallelism (the depth "
+     "stack is not split at the LoRA boundary there)"),
+], ids=["depth", "microbatches", "prefix_int8"])
+def test_pipeline_flags_the_model_cannot_take_stop_both_clis_alike(
+        flags, error, tmp_path, synth, monkeypatch):
+    """Pipeline flags the --lightweight ViT-S (depth 12) cannot take: the
+    JAX CLI's ValueError, which its backbone raises as the step traces,
+    word for word from the port's CLI, which raises it before it builds a
+    mesh (both end a `python -m` run with exit code 1). TensorBoard is
+    left out of both runs (its import is most of their time)."""
+    import dinov2_od_tpu.utils.logging as jlogging
+
+    from dinov2_od_tpu_torch.utils import logging as plogging
+
+    for mod in (jlogging, plogging):
+        monkeypatch.setattr(mod, "setup_tensorboard", lambda *a, **k: None)
+    images_dir, ann = synth
+    argv = ["--train_images", images_dir, "--train_annotations", ann,
+            "--lightweight", "--image_size", "56", "--batch_size", "8",
+            "--num_epochs", "1", "--device", "cpu"] + flags
+    said = []
+    sigterm = signal.getsignal(signal.SIGTERM)
+    try:
+        for main, out in ((cli.main, "port"), (jcli.main, "jax")):
+            with pytest.raises(ValueError) as stop:
+                main(argv + ["--output_dir", str(tmp_path / out)])
+            said.append(str(stop.value))
+    finally:
+        # JAX's loop raises with its SIGTERM guard installed; the tests
+        # that run after this one in the process expect the default.
+        signal.signal(signal.SIGTERM, sigterm)
+    assert said[0] == said[1] == error
 
 
 def test_a_mesh_one_process_cannot_hold_raises(tmp_path, synth):

@@ -222,3 +222,24 @@ def test_preempted_resume_is_bit_identical(tmp_path):
     with open(os.path.join(out_b, "train_epoch_0.json")) as f:
         resumed = json.load(f)
     assert resumed["steps"] == [2, 3] and resumed["losses"] == full[2:]
+
+
+def test_a_step_that_raises_leaves_no_sigterm_handler(tmp_path,
+                                                      monkeypatch):
+    """The loop's preemption guard is uninstalled however the epochs end:
+    a train step that raises propagates, and the process's SIGTERM
+    handler is the one it had before the run."""
+    from dinov2_od_tpu_torch.train import loop
+
+    def broken_step(cfg, mesh=None):
+        def step(state, batch, generator=None):
+            raise RuntimeError("step failed")
+        return step
+
+    monkeypatch.setattr(loop, "make_train_step", broken_step)
+    images_dir, ann = write_coco_dataset(str(tmp_path / "d"), num_images=4,
+                                         image_size=56, seed=1)
+    before = signal.getsignal(signal.SIGTERM)
+    with pytest.raises(RuntimeError, match="step failed"):
+        cli.main(_lightweight_args(images_dir, ann, str(tmp_path / "o")))
+    assert signal.getsignal(signal.SIGTERM) is before
