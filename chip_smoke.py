@@ -238,6 +238,25 @@ non-zero and prints no result:
              Predictor.from_checkpoint bit-equal to a Predictor over the
              params the file holds. Wall times and s a step are printed,
              labelled as gloo ranks sharing one card.
+11e. fsdp   - FSDP (ZeRO-3 over the data axis) through the training CLI,
+             run as phase_pp runs its jobs (4 ranks a job on cuda:0, gloo;
+             bf16 at 224 px, its packed splits, global batch 8, one epoch
+             with validation and a checkpoint): (a) --fsdp over 4 data
+             ranks at ViT-L/14 and (b) --fsdp --model_parallel 2 at
+             ViT-B/14 at once, each beside one process's run of the same
+             model (losses and AP to MESH_*); FSDP changes no launch
+             count: (a) 24 B1 + 2 B2 a step and 24 B1 a val batch a rank,
+             (b) 12 B1 + 2 B2 and 12 B1, held exactly (FSDP_WANT); every
+             rank's param and Adam-moment elements equal to JAX's per-
+             device counts (FSDP_ELEMENTS); rank 0's files alone, every
+             rank's mesh logged with "fsdp"; --only_evaluate --quantize
+             int8 --fsdp under (a)'s mesh from its checkpoint, 24 B1 and
+             24 B6 a val batch a rank (B6 on the gathered fc2 kernels),
+             beside one process's; that checkpoint through
+             Predictor.from_checkpoint bit-equal to a Predictor over the
+             params the file holds. Each rank's peak allocated memory is
+             printed beside one process's (informational: the ranks share
+             the card).
 12. roofline tool - the port's tools/bench_attn_roofline.py at its
              defaults, in-process: its four JSON lines (mxu_only, plus_max,
              plus_exp2, production) in order with the JAX tool's keys, T1
@@ -778,6 +797,30 @@ PP_WANT = {
     "b_pp2_tp2_interleaved": ((12, 12, 12, 12), (0, 0, 4, 4),
                               (12, 12, 12, 12)),
 }
+
+# FSDP (ZeRO-3 over the data axis) through the training CLI (phase_fsdp),
+# as phase_pp runs its jobs (MESH_WORLD `--cli-rank` processes a job on
+# cuda:0 in a gloo group; bf16 at 224 px, its packed splits and global
+# batch, one epoch with validation and a checkpoint; LoRA on the last 2
+# blocks). (a) FSDP over 4 data ranks at ViT-L/14: every leaf of at least
+# 65,536 elements cut on a free linear dim, the 2-D fc1 bias [24, 4096] on
+# its depth axis; (b) FSDP 2 x TP 2 at ViT-B/14 (6 heads a rank): the LoRA
+# factors cut on their rank dim, the deformable offsets kernel, a
+# partial-grad leaf, cut too. FSDP changes no launch count: each data
+# rank runs the whole model on its batch / data rows. Per rank: (B1 a
+# step, B2 a step, B1 a val batch); under `--only_evaluate --quantize
+# int8 --fsdp`, B1 and B6 (each block's fc2) a val batch, one a block.
+# FSDP_ELEMENTS: each rank's (param, Adam-moment) elements, JAX's
+# per-device counts for these configs (tests/test_torch_fsdp.py holds the
+# port's rule to JAX's and pins these numbers).
+FSDP_JOBS = {
+    "a_fsdp4_vit_l": ["--dino_model", "facebook/dinov2-large", "--fsdp"],
+    "b_fsdp2_tp2_vit_b": ["--dino_model", "facebook/dinov2-base", "--fsdp",
+                          "--model_parallel", "2"],
+}
+FSDP_WANT = {"a_fsdp4_vit_l": (24, 2, 24), "b_fsdp2_tp2_vit_b": (12, 2, 12)}
+FSDP_ELEMENTS = {"a_fsdp4_vit_l": (81_153_461, 5_140_661),
+                 "b_fsdp2_tp2_vit_b": (25_938_869, 4_271_669)}
 
 # T1, the attention roofline tool's ablation kernel, bf16 [B, H, S_pad, 64]:
 # the tool's default shape (1370 tokens, ViT-L/518, padded to 1376) and
@@ -5386,14 +5429,17 @@ def _cli_rank(counts_file: str, args: list) -> int:
     """One rank of phase_mesh_cli: `python -m dinov2_od_tpu_torch.train
     ARGS` (the module run as __main__, as `python -m` runs it), its launch
     counts from a run that starts at 0 written to `counts_file` as
-    {"rc", "launches", "eval"}: "eval" the launches inside the loop's
-    validation passes (`loop.validate`, `loop.validate_cached`), counted
-    around them."""
+    {"rc", "launches", "eval", "elements", "max_memory"}: "eval" the
+    launches inside the loop's validation passes (`loop.validate`,
+    `loop.validate_cached`), counted around them; "elements" those of the
+    loop's train state's param and Adam-moment trees (this rank's
+    shards); "max_memory" the process's peak of allocated card memory."""
     import runpy
 
     import torch
 
     from dinov2_od_tpu_torch.train import loop
+    from dinov2_od_tpu_torch.train.state import tree_leaves
 
     if not torch.cuda.is_available():
         print("chip_smoke --cli-rank: no CUDA device", file=sys.stderr)
@@ -5412,6 +5458,20 @@ def _cli_rank(counts_file: str, args: list) -> int:
 
     loop.validate = counted(loop.validate)
     loop.validate_cached = counted(loop.validate_cached)
+    # The elements of the train state's param and Adam-moment shards, as
+    # the loop creates it (phase_fsdp holds them to JAX's counts).
+    elements: dict = {}
+    create_train_state = loop.create_train_state
+
+    def counted_state(params, *a, **k):
+        state = create_train_state(params, *a, **k)
+        for key, tree in (("params", state.params),
+                          ("moments", state.opt_state.mu)):
+            elements.setdefault(key, sum(t.numel() for t in
+                                         tree_leaves(tree)))
+        return state
+
+    loop.create_train_state = counted_state
     from dinov2_od_tpu_torch.ops import _build
 
     _build.reset_launch_counts()
@@ -5425,7 +5485,9 @@ def _cli_rank(counts_file: str, args: list) -> int:
     torch.cuda.synchronize()
     with open(counts_file, "w") as f:
         json.dump({"rc": rc, "launches": _launched(),
-                   "eval": {k: v for k, v in evals.items() if v}}, f)
+                   "eval": {k: v for k, v in evals.items() if v},
+                   "elements": elements,
+                   "max_memory": torch.cuda.max_memory_allocated()}, f)
     return rc
 
 
@@ -5920,6 +5982,221 @@ def phase_pp(seed: int, kernels: dict):
                 "images_per_sec"] for n in PP_JOBS},
             "one_process_wall_s": {"train": wall_one, "eval": wall_ev_one},
             "one_process_launches": {"train": one, "eval": one_ev},
+            "phase_s": time.perf_counter() - t_phase,
+            "card": card_line()}))
+    finally:
+        for job in jobs.values():
+            job.kill()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _fsdp_check_files(job: str, out_dir: str, ranks: list,
+                      mesh_line: str) -> None:
+    """One set of files, rank 0's, from a one-epoch run with validation
+    and a checkpoint; each rank logged its place on the mesh, with
+    "fsdp"."""
+    import os
+
+    names = sorted(os.listdir(out_dir))
+    logs = [n for n in names if n.endswith("_train.log")]
+    want = {"train_epoch_0.json", "metrics_epoch_0.json",
+            "predictions_epoch_0.json", "checkpoint_epoch_0", "final_model"}
+    plots = {"loss_plot.png", "ap_plot.png", "tensorboard"} & set(names)
+    if (len(logs) != 1 or set(names) != want | set(logs) | plots
+            or not all(f"[rank {r}]" in res["log"]
+                       for r, res in enumerate(ranks) if r)
+            or not all(mesh_line in res["log"] for res in ranks)):
+        raise AssertionError(f"fsdp ({job}): the run's files {names}: "
+                             f"expected rank 0's alone, and every rank's "
+                             f"log to hold {mesh_line!r}")
+
+
+def phase_fsdp(seed: int, kernels: dict):
+    """FSDP (ZeRO-3 over the data axis) through the training CLI, one
+    process a rank (FSDP_JOBS): (a) FSDP over 4 data ranks at ViT-L/14
+    and (b) FSDP 2 x TP 2 at ViT-B/14, each for an epoch with validation
+    and a checkpoint, beside one process's run of the same model; the
+    per-rank launches of B1 and B2 held exactly to FSDP_WANT and the
+    per-rank param and Adam-moment elements to FSDP_ELEMENTS; only rank 0
+    writes; `--only_evaluate --quantize int8 --fsdp` under (a)'s mesh from
+    its checkpoint (B6 on the gathered fc2 kernels) beside one process's;
+    that checkpoint through `Predictor.from_checkpoint` on one process,
+    bit-equal to a Predictor built from the params it holds. Each rank's
+    peak of allocated memory is printed beside the one process's."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from dinov2_od_tpu_torch.data.packed import PackedDataset
+    from dinov2_od_tpu_torch.inference import Predictor
+    from dinov2_od_tpu_torch.ops import _build
+    from dinov2_od_tpu_torch.train import cli
+    from dinov2_od_tpu_torch.train.checkpoint import STATE_FILE
+    from dinov2_od_tpu_torch.train.state import tree_leaves, tree_map
+
+    steps = MESH_TRAIN_IMAGES // MESH_BATCH
+    val_batches = -(-MESH_VAL_IMAGES // MESH_BATCH)
+    t_phase = time.perf_counter()
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build")
+    os.makedirs(build, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="fsdp_", dir=build)
+    jobs = {}
+    try:
+        splits = _cli_splits(seed, work, 224, MESH_TRAIN_IMAGES,
+                             MESH_VAL_IMAGES)
+        out = {k: os.path.join(work, k) for k in (
+            *FSDP_JOBS, *(f"{n}_one" for n in FSDP_JOBS), "eval",
+            "eval_one")}
+        base = ["--image_size", "224", "--backbone_dtype", "bfloat16",
+                "--batch_size", str(MESH_BATCH)]
+        common = base + [
+            "--packed_train_data", splits["train"], "--packed_val_data",
+            splits["val"], "--num_epochs", "1", "--val_frequency", "1",
+            "--checkpoint_frequency", "1", "--log_frequency", "1",
+            "--num_workers", "2"]
+        log(f"fsdp: bf16 at 224 px, {MESH_TRAIN_IMAGES} train and "
+            f"{MESH_VAL_IMAGES} val packed images, global batch "
+            f"{MESH_BATCH}, 100 GT slots, 1 epoch; {MESH_WORLD} ranks a "
+            f"job on cuda:0 in a gloo group (each leaf's gather and its "
+            f"gradient's reduce-scatter staged through the host: "
+            f"correctness, not a ZeRO-3 speed); {list(FSDP_JOBS)} at once")
+        for name, flags in FSDP_JOBS.items():
+            jobs[name] = _MeshJob(name, work, common + flags + [
+                "--output_dir", out[name]])
+        one = {}
+        for name, flags in FSDP_JOBS.items():
+            torch.cuda.reset_peak_memory_stats()
+            launches, wall = _one_process_cli(common + flags[:2] + [
+                "--output_dir", out[f"{name}_one"]])
+            one[name] = {"launches": launches, "wall_s": wall,
+                         "max_memory_allocated": torch.cuda
+                         .max_memory_allocated()}
+            torch.cuda.empty_cache()
+        runs = {name: job.wait() for name, job in jobs.items()}
+        for name, ranks in runs.items():
+            fwd_step, bwd_step, fwd_val = FSDP_WANT[name]
+            want = {"flash_attn_fwd": fwd_step * steps + fwd_val * val_batches,
+                    "flash_attn_bwd": bwd_step * steps}
+            want_eval = {"flash_attn_fwd": fwd_val * val_batches}
+            params, moments = FSDP_ELEMENTS[name]
+            elements = {"params": params, "moments": moments}
+            for r, res in enumerate(ranks):
+                if res["launches"] != want or res["eval"] != want_eval:
+                    raise AssertionError(
+                        f"fsdp ({name}): rank {r} launches "
+                        f"{res['launches']} (validation {res['eval']}); "
+                        f"expected {want} (validation {want_eval})")
+                if res["elements"] != elements:
+                    raise AssertionError(
+                        f"fsdp ({name}): rank {r} holds {res['elements']} "
+                        f"elements of params and Adam moments; JAX's rule "
+                        f"gives each device {elements}")
+            log(f"fsdp ({name}): every rank holds {params} param and "
+                f"{moments} Adam-moment elements (JAX's per-device "
+                f"counts); peak allocated bytes a rank "
+                f"{[res['max_memory'] for res in ranks]}, one process "
+                f"{one[name]['max_memory_allocated']} (informational: the "
+                f"ranks share the card)")
+            _mesh_compare_losses(f"fsdp {name}", _mesh_losses(out[name], 1),
+                                 _mesh_losses(out[f"{name}_one"], 1), 1)
+            _mesh_compare_metrics(f"fsdp {name}, validation",
+                                  _ap(out[name], 0),
+                                  _ap(out[f"{name}_one"], 0),
+                                  _mesh_detections(out, (name, 0),
+                                                   (f"{name}_one", 0)))
+            model = 2 if "--model_parallel" in FSDP_JOBS[name] else 1
+            _fsdp_check_files(name, out[name], ranks,
+                              f"mesh: data {MESH_WORLD // model} x context "
+                              f"1 x model {model}, fsdp")
+
+        # int8 under (a)'s mesh from its checkpoint: quantized whole, cut,
+        # and each block's fc2 through B6 on its gathered kernel_q.
+        first = "a_fsdp4_vit_l"
+        depth = FSDP_WANT[first][2]
+        ckpt = os.path.join(out[first], "checkpoint_epoch_0")
+        ev = base + FSDP_JOBS[first][:2] + [
+            "--packed_val_data", splits["val"], "--only_evaluate",
+            "--quantize", "int8", "--checkpoint", ckpt]
+        jobs["eval"] = _MeshJob("fsdp_eval", work, ev + [
+            "--fsdp", "--output_dir", out["eval"]])
+        one_ev, wall_ev_one = _one_process_cli(ev + ["--output_dir",
+                                                     out["eval_one"]])
+        evals = jobs["eval"].wait()
+        want = {"flash_attn_fwd": depth * val_batches,
+                "int8_gemm": depth * val_batches}
+        for r, res in enumerate(evals):
+            if res["launches"] != want or res["eval"] != want:
+                raise AssertionError(f"fsdp (int8 eval): rank {r} launches "
+                                     f"{res['launches']}; expected {want}")
+        if one_ev != want:
+            raise AssertionError(f"fsdp (int8 eval): one process launched "
+                                 f"{one_ev}; expected {want}")
+        # The checkpoint resumes at epoch 1, which names the files.
+        _mesh_compare_metrics("fsdp --only_evaluate --quantize int8 under "
+                              "(a)'s mesh", _ap(out["eval"], 1),
+                              _ap(out["eval_one"], 1),
+                              _mesh_detections(out, ("eval", 1),
+                                               ("eval_one", 1)))
+
+        # (a)'s checkpoint served from one process.
+        det = cli.build_detector_config(cli.build_arg_parser().parse_args(
+            base + FSDP_JOBS[first][:2]))
+        served = Predictor.from_checkpoint(ckpt, detector_cfg=det,
+                                           batch_size=MESH_BATCH)
+        held = torch.load(os.path.join(ckpt, STATE_FILE),
+                          weights_only=True)["params"]
+        direct = Predictor(tree_map(lambda t: t.cuda(), held), det,
+                           batch_size=MESH_BATCH)
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(served.params), tree_leaves(direct.params)))
+        val = PackedDataset(splits["val"]).get_batch(range(MESH_BATCH))
+        images = list(val["images"].astype(np.float32) / 255.0)
+        _build.reset_launch_counts()
+        got = served.detect(images, score_threshold=0.0)
+        torch.cuda.synchronize()
+        served_counts = _launched()
+        ref = direct.detect(images, score_threshold=0.0)
+        log(f"fsdp: Predictor.from_checkpoint({first}'s checkpoint_epoch_0):"
+            f" params equal the file's {same}, {sum(map(len, got))} "
+            f"detections on {MESH_BATCH} val images equal {got == ref}, "
+            f"launches {served_counts}")
+        if (not same or got != ref
+                or served_counts != {"flash_attn_fwd": depth}):
+            raise AssertionError("fsdp: the checkpoint does not serve as "
+                                 "the params it holds")
+        del served, direct
+        torch.cuda.empty_cache()
+
+        for kname in ("flash_attn_fwd", "flash_attn_bwd", "int8_gemm"):
+            k = kernels[kname]
+            for job, ranks in (*runs.items(), ("eval", evals)):
+                per_rank = [res["launches"].get(kname, 0) for res in ranks]
+                k["launches"] += sum(per_rank)
+                k.setdefault("launches_fsdp", {})[job] = per_rank
+        kernels["flash_attn_fwd"]["launches"] += served_counts[
+            "flash_attn_fwd"]
+        log("fsdp: " + json.dumps({
+            "metric": "wall seconds of each job and host seconds a step "
+                      "(rank 0's epoch record) with the ranks sharing one "
+                      "card over host-staged gloo gathers: not a ZeRO-3 "
+                      "speed",
+            "jobs_at_once": list(FSDP_JOBS),
+            "wall_s": {n: j.wall for n, j in jobs.items()},
+            "s_per_step": {n: MESH_BATCH / _epoch_logs(out[n], (0,))[0][
+                "images_per_sec"] for n in FSDP_JOBS},
+            "max_memory_allocated": {
+                n: {"ranks": [res["max_memory"] for res in runs[n]],
+                    "one_process": one[n]["max_memory_allocated"]}
+                for n in FSDP_JOBS},
+            "one_process_wall_s": {
+                **{n: one[n]["wall_s"] for n in FSDP_JOBS},
+                "int8_eval": wall_ev_one},
+            "one_process_launches": {
+                **{n: one[n]["launches"] for n in FSDP_JOBS},
+                "int8_eval": one_ev},
             "phase_s": time.perf_counter() - t_phase,
             "card": card_line()}))
     finally:
@@ -6719,6 +6996,7 @@ def main(argv=None) -> int:
     phase_cp(args.seed, kernels)
     phase_mesh_cli(args.seed, kernels)
     phase_pp(args.seed, kernels)
+    phase_fsdp(args.seed, kernels)
     phase_roofline_tool(kernels)
     phase_bench()
     phase_trace()

@@ -252,8 +252,9 @@ class MeshConfig:
       the params stay replicated over it.
     `pipeline_microbatches` (0: the stage count) and `pipeline_chunks`
     (1: GPipe; v > 1: the interleaved schedule) shape the schedule.
-    FSDP is not ported yet (ROADMAP.md): `fsdp` raises, and with a
-    pipeline or a ring it raises JAX's ValueError first."""
+    `fsdp` shards params, Adam's moments and the EMA ZeRO-3 style over the
+    'data' axis, alone (DP) or with TP over 'model' (parallel/sharding.py
+    `fsdp_dim`); beside a pipeline or a ring it raises JAX's ValueError."""
 
     data_axis: str = "data"
     model_axis: str = "model"
@@ -305,10 +306,6 @@ class MeshConfig:
                 "fsdp does not compose with pipeline/context parallelism; "
                 "use FSDP with plain DP or DP x TP"
             )
-        if self.fsdp:
-            raise NotImplementedError(
-                "FSDP is not ported to PyTorch yet (ROADMAP.md Queue A "
-                "item 7)")
         if self.model_parallel_size < 1:
             raise ValueError("model_parallel_size must be >= 1")
         if self.context_parallel_size < 0:

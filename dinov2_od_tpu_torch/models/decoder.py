@@ -15,7 +15,10 @@ attention q/k/v column-parallel and out row-parallel (the rank's
 `num_heads / tp` heads), the deformable value projection column-parallel
 and output row-parallel, the FFN and the box MLP column then row. Dropout
 masks over a split activation are drawn whole and sliced (`keep_mask`),
-so a tensor-parallel step drops what a single process would.
+so a tensor-parallel step drops what a single process would. Under FSDP
+each leaf cut over the data axis is gathered where it is used: the
+object queries first, each layer's leaves at the layer (its depth-cut
+leaves whole, once), the heads once before their first call.
 """
 
 from __future__ import annotations
@@ -32,7 +35,11 @@ from ..ops.deformable import (
     factor_spatial_shape,
     init_deformable_params,
 )
-from ..parallel.collectives import copy_to_model
+from ..parallel.collectives import (
+    copy_to_model,
+    fsdp_gather_stack,
+    fsdp_gather_tree,
+)
 from ..parallel.sharding import model_size
 from .layers import (
     compute_dtype,
@@ -177,22 +184,30 @@ def decoder_apply(
     b, s, d = memory.shape
     memory = memory.to(compute_dtype(cfg.dtype))
     spatial_shape = factor_spatial_shape(s)
-    tgt = params["query_embed"][None].to(memory.dtype).expand(
+
+    def whole(name, tree=None, stacked=False):
+        # FSDP: the leaves at decoder/name gathered over the data axis.
+        return fsdp_gather_tree(params[name] if tree is None else tree,
+                                ("decoder", name), mesh, stacked)
+
+    tgt = whole("query_embed")[None].to(memory.dtype).expand(
         b, cfg.num_queries, d
     )
     collect = cfg.aux_loss and not deterministic
     inter = []
+    layers = fsdp_gather_stack(params["layers"], ("decoder", "layers"), mesh)
     for i in range(cfg.num_layers):
-        tgt = _layer_apply(tgt, memory, index_params(params["layers"], i), cfg,
-                           spatial_shape, generator, deterministic, mesh)
+        lp = whole("layers", index_params(layers, i), stacked=True)
+        tgt = _layer_apply(tgt, memory, lp, cfg, spatial_shape, generator,
+                           deterministic, mesh)
         if collect and i < cfg.num_layers - 1:
             inter.append(tgt)
+    class_embed, bbox_mlp = whole("class_embed"), whole("bbox_mlp")
 
     def heads(x):
-        logits = linear(x, params["class_embed"])
-        h = torch.relu(linear(copy_to_model(x, mesh),
-                              params["bbox_mlp"]["fc1"]))
-        boxes = torch.sigmoid(row_linear(h, params["bbox_mlp"]["fc2"], mesh))
+        logits = linear(x, class_embed)
+        h = torch.relu(linear(copy_to_model(x, mesh), bbox_mlp["fc1"]))
+        boxes = torch.sigmoid(row_linear(h, bbox_mlp["fc2"], mesh))
         return {"pred_logits": logits.float(), "pred_boxes": boxes.float()}
 
     out = heads(tgt)

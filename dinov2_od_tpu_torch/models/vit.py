@@ -57,6 +57,16 @@ HWIO `[p, p, 3, D]` kernel used as a `(py, px, c)`-ordered patch GEMM.
   divided by their number. MoE under a mesh or the ring raises: expert
   parallelism is ROADMAP.md Queue A item 7.
 
+- FSDP (ZeRO-3 over the data axis, parallel/sharding.py `fsdp_dim`): each
+  leaf cut over the data axis is gathered where it is used, not the whole
+  tree at the start: the embeddings before the patch GEMM, each block's
+  leaves at the block (inside its checkpointed function under remat, so
+  its backward gathers again), the final norm and projection at the end.
+  Leaves cut on the depth axis (2-D stacked ones, as ViT-L's fc1 bias)
+  are gathered whole, once a call. The int8 prefix quantizes each
+  gathered block, never a shard (its scales are an absmax over K, which
+  FSDP cuts); the qkv concatenation, the fold and B6 see whole leaves.
+
 - Pipeline parallelism (`pipe_axis`, the mesh's stage axis): the whole
   depth streams through one block body with LoRA active over the mesh's
   stages (parallel/pipeline.py), GPipe or interleaved, in
@@ -81,12 +91,14 @@ from ..ops.attention import multi_head_attention
 from ..ops.moe import moe_ffn
 from ..parallel.collectives import (
     copy_to_model,
+    fsdp_gather_stack,
+    fsdp_gather_tree,
     gather_tokens,
     reduce_from_model,
     shard_tokens,
 )
 from ..parallel.pipeline import pipeline_blocks
-from ..parallel.sharding import context_size, model_size
+from ..parallel.sharding import context_size, fsdp, model_size
 from .layers import (
     compute_dtype,
     index_params,
@@ -405,19 +417,22 @@ def backbone_apply(
     dtype = compute_dtype(cfg.dtype)
     x = pixel_values.to(dtype)
 
+    def whole(name):
+        # FSDP: the leaves at backbone/name gathered over the data axis.
+        return fsdp_gather_tree(params[name], ("backbone", name), mesh)
+
     b, hh, ww, c = x.shape
     p = cfg.patch_size
     gh, gw = hh // p, ww // p
     x = x.reshape(b, gh, p, gw, p, c).permute(0, 1, 3, 2, 4, 5)
     x = x.reshape(b, gh * gw, p * p * c)
-    kernel = params["patch_embed"]["kernel"].to(dtype).reshape(
-        p * p * c, cfg.hidden_dim
-    )
-    x = x @ kernel + params["patch_embed"]["bias"].to(dtype)
+    patch = whole("patch_embed")
+    kernel = patch["kernel"].to(dtype).reshape(p * p * c, cfg.hidden_dim)
+    x = x @ kernel + patch["bias"].to(dtype)
 
-    cls = params["cls_token"].to(dtype).expand(b, 1, cfg.hidden_dim)
+    cls = whole("cls_token").to(dtype).expand(b, 1, cfg.hidden_dim)
     x = torch.cat([cls, x], dim=1)
-    x = x + params["pos_embed"].to(dtype)
+    x = x + whole("pos_embed").to(dtype)
 
     seq = x.shape[1]
     valid_len = None
@@ -438,7 +453,18 @@ def backbone_apply(
             return fn
         return lambda *a, **kw: checkpoint(fn, *a, **kw, use_reentrant=False)
 
-    adapted = adapted_fn(_block_apply)
+    # FSDP: the stack's depth-cut leaves whole once; every other cut leaf
+    # gathered at its block (`gathered`), under remat inside the
+    # checkpointed function.
+    stack = ("backbone", "blocks")
+    blocks = (fsdp_gather_stack(params["blocks"], stack, mesh)
+              if "blocks" in params else None)
+
+    def gathered(fn):
+        return lambda h, bp, *a, **kw: fn(
+            h, fsdp_gather_tree(bp, stack, mesh, stacked=True), *a, **kw)
+
+    adapted = adapted_fn(gathered(_block_apply))
     moe = cfg.ffn_type == "moe"
     # The prefix below the last `lora_last_n_blocks` blocks runs without
     # autograd and without its LoRA factors (zero by construction there).
@@ -454,21 +480,26 @@ def backbone_apply(
             fn = adapted if torch.is_grad_enabled() else _block_apply
             return fn(h, bp, cfg, attn_impl, True, **blk)
 
-        x = pipeline_blocks(x, params["blocks"], block_fn, mesh,
+        x = pipeline_blocks(x, blocks, block_fn, mesh,
                             pipe_microbatches, skip_bubbles=True,
                             num_chunks=pipe_chunks, frozen_blocks=k)
     elif moe or 0 < k < cfg.depth:
         if k > 0:
             with torch.no_grad():
-                prefix = index_params(params["blocks"], slice(0, k))
-                if cfg.prefix_int8:
+                prefix = index_params(blocks, slice(0, k))
+                quantize = cfg.prefix_int8
+                if quantize and not fsdp(mesh):
                     # The prefix is pure inference, so the W8A8 scheme
                     # applies in training too: its six linears quantize
-                    # here, from the stacked (possibly bf16) kernels.
-                    prefix = quantize_blocks(prefix, mesh)
+                    # here, from the stacked (possibly bf16) kernels; under
+                    # FSDP a block at a time, once gathered.
+                    prefix, quantize = quantize_blocks(prefix, mesh), False
                 for i in range(k):
-                    x = _block_apply(x, index_params(prefix, i), cfg,
-                                     attn_impl, False, **blk)
+                    bp = fsdp_gather_tree(index_params(prefix, i), stack,
+                                          mesh, stacked=True)
+                    if quantize:
+                        bp = quantize_blocks(bp, mesh)
+                    x = _block_apply(x, bp, cfg, attn_impl, False, **blk)
         if moe:
             moe_block = adapted_fn(_block_apply_moe)
             moe_aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -479,18 +510,18 @@ def backbone_apply(
             moe_aux = moe_aux / (cfg.depth - k)
         else:
             for i in range(k, cfg.depth):
-                x = adapted(x, index_params(params["blocks"], i), cfg,
-                            attn_impl, True, **blk)
+                x = adapted(x, index_params(blocks, i), cfg, attn_impl,
+                            True, **blk)
     else:
         for i in range(cfg.depth):
-            x = adapted(x, index_params(params["blocks"], i), cfg,
-                        attn_impl, cfg.lora_last_n_blocks > 0, **blk)
+            x = adapted(x, index_params(blocks, i), cfg, attn_impl,
+                        cfg.lora_last_n_blocks > 0, **blk)
 
     if ring:
         x = gather_tokens(x, mesh)[:, :seq]
-    x = layer_norm(x, params["ln_f"])
+    x = layer_norm(x, whole("ln_f"))
     if "projection" in params:
-        x = linear(x, params["projection"])
+        x = linear(x, whole("projection"))
     if cfg.drop_cls_token:
         x = x[:, 1:]
     return x if moe_aux is None else (x, moe_aux)

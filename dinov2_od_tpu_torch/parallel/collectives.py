@@ -18,6 +18,12 @@
   context ring and all-gathered back. The gather's backward keeps this
   rank's rows of the cotangent: every rank of the ring runs the decoder
   on the same gathered tokens, so each holds the whole cotangent.
+- `fsdp_gather_tree` / `fsdp_gather_stack`: under FSDP, each leaf that
+  `shard_params` cut over the data axis all-gathered over the data group
+  where the model uses it (ZeRO-3's gather on use, parallel/sharding.py
+  `Mesh.fsdp_layout`); the gather's backward reduce-scatters (sums) the
+  cotangent over the same group, so this rank gets its shard of the
+  data-summed gradient.
 - `reduce_gradients`: after the backward, the context group's sum of the
   gradients of the leaves its ranks each saw a share of the tokens of
   (parallel/sharding.py `backbone_partial`), the stage group's sum of
@@ -25,7 +31,10 @@
   model group's sum of the partial gradients of replicated leaves
   (`partial_grad`), then the data group's sum of every gradient (the
   loss is each rank's share of a sum over the global batch, over the
-  global box count).
+  global box count) but those of leaves cut over the data axis, which
+  the gather's reduce-scatter summed already. The model group's and the
+  data group's sums commute: the ranks of a model group hold the same
+  data shard.
 
 The mesh's backend decides the transport. NCCL takes CUDA tensors as they
 are. Gloo reduces host buffers, so a CUDA tensor (ranks that share one
@@ -94,7 +103,85 @@ def all_gather(t: torch.Tensor, group, backend: str) -> List[torch.Tensor]:
     return [x.to(t.device, t.dtype) for x in out]
 
 
+def reduce_scatter(t: torch.Tensor, dim: int, group, backend: str
+                   ) -> torch.Tensor:
+    """t summed over `group` and cut along `dim` into the group's size of
+    contiguous parts: this member's part, in t's dtype and device."""
+    n = dist.get_world_size(group)
+    x = t.detach().movedim(dim, 0)
+    staged = _staged(t, backend)
+    src = (x.to("cpu", _wire(t)) if staged else x).contiguous()
+    out = src.new_empty((src.shape[0] // n,) + src.shape[1:])
+    rs = (getattr(dist, "reduce_scatter_single", None)
+          or dist.reduce_scatter_tensor)
+    rs(out, src, group=group)
+    return out.to(t.device, t.dtype).movedim(0, dim).contiguous()
+
+
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, shard, dim, mesh):
+        ctx.dim, ctx.mesh = dim, mesh
+        return torch.cat(all_gather(shard.detach(), mesh.data_group,
+                                    mesh.backend), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        m = ctx.mesh
+        return reduce_scatter(g, ctx.dim, m.data_group, m.backend), None, None
+
+
+def _fsdp_leaf(t: torch.Tensor, path, mesh, stacked: bool) -> torch.Tensor:
+    layout = sharding.fsdp_layout_of(path, mesh)
+    if layout is None:
+        return t
+    shape, dim = layout
+    if stacked and dim == -len(shape):
+        return t  # a depth cut: `fsdp_gather_stack` gathered it whole
+    if t.shape[dim] * mesh.data_size != shape[dim]:
+        raise ValueError(f"{'/'.join(path)}: {tuple(t.shape)} is no data "
+                         f"shard of {shape} on dim {dim}")
+    if path[-1] == "kernel_q":
+        # Gathered as its transpose, so the whole kernel stays K-major.
+        return _FsdpGather.apply(t.mT, -3 - dim, mesh).mT
+    return _FsdpGather.apply(t, dim, mesh)
+
+
+def fsdp_gather_tree(tree, path: tuple, mesh, stacked: bool = False):
+    """`tree` (the subtree, or the leaf, at `path` of a tree that
+    `shard_params` cut) with every leaf cut over the data axis gathered
+    whole; under autograd its gradient is reduce-scattered back over the
+    data group. `stacked`: `tree` is one layer of a stacked subtree
+    (`index_params`), whose depth-cut leaves `fsdp_gather_stack` gathered
+    before the slice. `tree` itself without FSDP."""
+    if not sharding.fsdp(mesh):
+        return tree
+    if isinstance(tree, dict):
+        return {k: fsdp_gather_tree(v, path + (k,), mesh, stacked)
+                for k, v in tree.items()}
+    return None if tree is None else _fsdp_leaf(tree, path, mesh, stacked)
+
+
+def fsdp_gather_stack(stack, path: tuple, mesh):
+    """A stacked subtree (`[depth, ...]` leaves) at `path` with the leaves
+    whose FSDP cut is the depth axis (2-D stacked leaves: JAX's rule
+    takes their dim -2) gathered whole, once: no layer's slice holds a
+    shard of them. The other leaves as they are, for
+    `fsdp_gather_tree(..., stacked=True)` a layer at a time."""
+    if not sharding.fsdp(mesh):
+        return stack
+
+    def depth_cut(p, t):
+        layout = sharding.fsdp_layout_of(path + p, mesh)
+        if layout is None or layout[1] != -len(layout[0]):
+            return t
+        return _fsdp_leaf(t, path + p, mesh, stacked=False)
+
+    return sharding.map_with_path(depth_cut, stack)
+
+
 class _CopyToModel(torch.autograd.Function):
+
     @staticmethod
     def forward(ctx, x, mesh):
         ctx.mesh = mesh
@@ -246,8 +333,10 @@ def reduce_gradients(grads: List[torch.Tensor], paths: list, mesh) -> None:
     sum of the gradients each stage holds its share of (the same leaves),
     the model group's sum of the partial
     gradients of replicated leaves (`sharding.partial_grad`, looked up at
-    call time), then the data group's sum of every gradient. `paths` are
-    the leaves' paths in the param tree, one per gradient."""
+    call time), then the data group's sum of every gradient but those of
+    leaves cut over the data axis (FSDP: the gather's backward summed
+    them). `paths` are the leaves' paths in the param tree, one per
+    gradient."""
     if mesh.context_size > 1:
         all_reduce_coalesced_(
             [g for g, p in zip(grads, paths) if sharding.backbone_partial(p)],
@@ -261,4 +350,7 @@ def reduce_gradients(grads: List[torch.Tensor], paths: list, mesh) -> None:
             [g for g, p in zip(grads, paths) if sharding.partial_grad(p)],
             mesh.model_group, mesh.backend)
     if mesh.data_size > 1:
-        all_reduce_coalesced_(grads, mesh.data_group, mesh.backend)
+        all_reduce_coalesced_(
+            [g for g, p in zip(grads, paths)
+             if sharding.fsdp_layout_of(p, mesh) is None],
+            mesh.data_group, mesh.backend)

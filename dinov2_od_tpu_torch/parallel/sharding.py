@@ -41,6 +41,22 @@ too (JAX's `param_shardings`): every rank holds the whole block stack and
 runs its own chunks of it, so a checkpoint needs no gather over the
 stages.
 
+FSDP (`MeshConfig.fsdp`, ZeRO-3) shards params, Adam's moments and the
+EMA over the same 'data' axis that splits the batch, with JAX's rule
+(`fsdp_dim`): a leaf of at least `FSDP_MIN_ELEMS` elements takes one
+data cut on one of its last two dims (a 2-D stacked leaf's depth axis
+included), the largest one that its Megatron rule leaves free (the
+Megatron dim counts as taken at model size 1 too) and that divides by the
+data size, the lower dim on a tie; a leaf with no such dim stays whole.
+`shard_params` cuts the model shard first and this rank's data slice of
+it next, and records each cut leaf's logical shape and dim on the mesh
+(`Mesh.fsdp_layout`), which the forward, the gradient sums, the norm and
+`gather_params` read by path. The forward gathers each leaf over the data
+group where it is used (parallel/collectives.py `fsdp_gather_tree`), and
+the gather's backward reduce-scatters its gradient, so the math stays
+DP's. FSDP beside a ring or a pipeline raises JAX's ValueError
+(config.py `MeshConfig`).
+
 Where GSPMD places the collectives in JAX, the port's modules call them by
 hand (parallel/collectives.py): each tensor-parallel module takes and
 returns replicated activations, sums its row-parallel output over the
@@ -61,6 +77,7 @@ backend, address, world size and rank) before `create_mesh`.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -93,7 +110,10 @@ class Mesh:
     it). `model_size` is the tensor-parallel degree, `context_size` the
     ring's and `stage_size` the pipeline's (1 without context or pipeline
     parallelism; their group is then None). `stage_ranks` are the world
-    ranks of this rank's line of stages, in stage order."""
+    ranks of this rank's line of stages, in stage order. `fsdp_layout`
+    maps the path of each leaf that `shard_params` cut over the data
+    axis (FSDP) to (its logical shape, the dim cut, counted from the
+    right)."""
 
     data_size: int
     model_size: int
@@ -110,6 +130,8 @@ class Mesh:
     stage_index: int = 0
     stage_group: Any = None
     stage_ranks: Tuple[int, ...] = ()
+    fsdp_layout: Dict[Tuple[str, ...], Tuple[Tuple[int, ...], int]] = (
+        dataclasses.field(default_factory=dict, compare=False, hash=False))
 
     @property
     def stage_axis(self) -> Optional[str]:
@@ -272,6 +294,44 @@ def shard_dim(path: Tuple[str, ...]) -> Optional[int]:
     return None
 
 
+# Leaves of fewer elements stay whole under FSDP (the JAX package's
+# _FSDP_MIN_ELEMS): gathering a LayerNorm vector costs more in collective
+# latency than its shard saves in memory.
+FSDP_MIN_ELEMS = 65536
+
+
+def fsdp_dim(path: Tuple[str, ...], shape, data_size: int) -> Optional[int]:
+    """The dim (from the right) that FSDP cuts over a data axis of
+    `data_size` in the logical leaf of `shape` at `path`; None when it
+    stays whole. JAX's `_add_fsdp_axis` on top of its Megatron spec: a
+    leaf of at least FSDP_MIN_ELEMS elements, one of its last two dims
+    (of a 2-D stacked leaf, the depth axis too) that the Megatron rule
+    leaves free (its dim is taken at model size 1 too) and that divides
+    by `data_size`; the largest such dim, the lower one on a tie."""
+    nd = len(shape)
+    if data_size <= 1 or nd == 0 or math.prod(shape) < FSDP_MIN_ELEMS:
+        return None
+    taken = shard_dim(path)
+    free = [d for d in range(max(0, nd - 2), nd)
+            if (taken is None or d != nd + taken) and shape[d] > 0
+            and shape[d] % data_size == 0]
+    if not free:
+        return None
+    return max(free, key=lambda d: shape[d]) - nd  # max keeps the first
+
+
+def fsdp_layout_of(path: Tuple[str, ...], mesh: Optional[Mesh]
+                   ) -> Optional[Tuple[Tuple[int, ...], int]]:
+    """(logical shape, dim from the right) of the leaf at `path` if
+    `shard_params` cut it over `mesh`'s data axis; else None."""
+    return None if mesh is None else mesh.fsdp_layout.get(path)
+
+
+def fsdp(mesh: Optional[Mesh]) -> bool:
+    """Whether any leaf is cut over `mesh`'s data axis."""
+    return mesh is not None and bool(mesh.fsdp_layout)
+
+
 def partial_grad(path: Tuple[str, ...]) -> bool:
     """A replicated leaf whose gradient each rank holds only its share of:
     the LoRA factor on the replicated side of a split linear (its product
@@ -358,26 +418,53 @@ def _halves(path: Tuple[str, ...], swiglu: bool) -> bool:
             and path[-2] == "fc1" and shard_dim(path) == -1)
 
 
+def _fsdp_register(path: Tuple[str, ...], shape, mesh: Mesh
+                   ) -> Optional[int]:
+    """FSDP's dim for the logical leaf at `path` on `mesh` (None without
+    FSDP), recorded in `mesh.fsdp_layout`; a path cut before with another
+    shape raises."""
+    if not mesh.cfg.fsdp:
+        return None
+    d = fsdp_dim(path, tuple(shape), mesh.data_size)
+    if d is None:
+        return None
+    seen = mesh.fsdp_layout.setdefault(path, (tuple(shape), d))
+    if seen != (tuple(shape), d):
+        raise ValueError(f"{'/'.join(path)}: cut over the data axis as "
+                         f"{seen[0]} before, now {tuple(shape)}")
+    return d
+
+
 def shard_params(params: Params, mesh: Mesh) -> Params:
     """This rank's shard of a full param tree (or of a tree shaped as it:
     Adam's moments, the EMA, whose frozen leaves are 0-dim placeholders
     that stay as they are): each sharded leaf sliced (and copied,
     contiguous, an int8 kernel_q K-major) at the rank's model index,
-    SwiGLU's fc1 leaves half by half; replicated leaves as they are."""
+    SwiGLU's fc1 leaves half by half, then under FSDP at its data index
+    on the dim `fsdp_dim` gives (recorded in `mesh.fsdp_layout`);
+    replicated leaves as they are."""
     from ..models.quantize import k_major
 
     swiglu = _swiglu(params)
 
     def shard(path, leaf):
+        if leaf.dim() == 0:
+            return leaf  # the EMA's frozen placeholder
+        out = leaf
         d = shard_dim(path)
-        if d is None or mesh.model_size == 1 or leaf.dim() == 0:
-            return leaf  # replicated, or the EMA's frozen placeholder
-        if _halves(path, swiglu):
-            two = leaf.unflatten(-1, (2, leaf.shape[-1] // 2))
-            out = two[..., local_slice(two.shape[-1], mesh)].flatten(-2)
-        else:
-            out = leaf[(slice(None),) * (leaf.dim() + d)
-                       + (local_slice(leaf.shape[d], mesh),)]
+        if d is not None and mesh.model_size > 1:
+            if _halves(path, swiglu):
+                two = leaf.unflatten(-1, (2, leaf.shape[-1] // 2))
+                out = two[..., local_slice(two.shape[-1], mesh)].flatten(-2)
+            else:
+                out = leaf[(slice(None),) * (leaf.dim() + d)
+                           + (local_slice(leaf.shape[d], mesh),)]
+        f = _fsdp_register(path, leaf.shape, mesh)
+        if f is not None:
+            w = out.shape[f] // mesh.data_size
+            out = out.narrow(f, mesh.data_index * w, w)
+        if out is leaf:
+            return leaf  # replicated
         return k_major(out) if path[-1] == "kernel_q" else out.clone(
             memory_format=torch.contiguous_format)
 
@@ -386,24 +473,31 @@ def shard_params(params: Params, mesh: Mesh) -> Params:
 
 def gather_params(shards: Params, mesh: Mesh) -> Params:
     """The full tree back from every rank's shard (the inverse of
-    `shard_params`), on every rank of the model group: sharded leaves
-    all-gathered and concatenated (SwiGLU's fc1 half by half),
-    replicated ones this rank's. For tests and comparisons."""
+    `shard_params`), on every rank: leaves cut over the data axis
+    all-gathered over the data group, sharded ones over the model group
+    and concatenated (SwiGLU's fc1 half by half), replicated ones this
+    rank's. For checkpoints, tests and comparisons."""
     from ..models.quantize import k_major
     from .collectives import all_gather
 
     swiglu = _swiglu(shards)
 
     def gather(path, leaf):
-        d = shard_dim(path)
-        if d is None or mesh.model_size == 1 or leaf.dim() == 0:
-            return leaf
-        parts = all_gather(leaf.detach(), mesh.model_group, mesh.backend)
-        if _halves(path, swiglu):
-            out = torch.cat([t.unflatten(-1, (2, t.shape[-1] // 2))
-                             for t in parts], dim=-1).flatten(-2)
-        else:
-            out = torch.cat(parts, dim=d)
+        f = fsdp_layout_of(path, mesh)
+        d = shard_dim(path) if mesh.model_size > 1 else None
+        if leaf.dim() == 0 or (f is None and d is None):
+            return leaf  # replicated, or the EMA's frozen placeholder
+        out = leaf.detach()
+        if f is not None:
+            out = torch.cat(all_gather(out, mesh.data_group, mesh.backend),
+                            dim=f[1])
+        if d is not None:
+            parts = all_gather(out, mesh.model_group, mesh.backend)
+            if _halves(path, swiglu):
+                out = torch.cat([t.unflatten(-1, (2, t.shape[-1] // 2))
+                                 for t in parts], dim=-1).flatten(-2)
+            else:
+                out = torch.cat(parts, dim=d)
         return k_major(out) if path[-1] == "kernel_q" else out
 
     return map_with_path(gather, shards)

@@ -11,7 +11,8 @@ device (`--device cuda`, the default, or `cpu`) in one process, or as one
 rank of a mesh of processes, one process a rank, under the JAX flags and
 semantics: `--model_parallel N` (DP x TP), `--context_parallel_size C`
 (DP x CP x TP), `--context_parallel` (the legacy ring over the model
-axis), `--pipeline_parallel_size P` (DP x PP x TP) and
+axis), `--fsdp` (ZeRO-3 over the data axis, alone or with
+`--model_parallel`), `--pipeline_parallel_size P` (DP x PP x TP) and
 `--pipeline_parallel` (the legacy stages over the model axis), the
 pipeline's schedule set by `--pipeline_microbatches` and
 `--pipeline_chunks`. The ranks join through
@@ -417,7 +418,6 @@ def build_detector_config(args) -> C.DetectorConfig:
 
 # (the flag asked for, the ROADMAP.md item that ports it)
 UNPORTED = (
-    (lambda a: a.fsdp, "--fsdp", "Queue A item 7"),
     (lambda a: (a.download_train_data or a.download_val_data
                 or a.download_test_data), "--download_*",
      "Queue A (tools/download.py needs the network; no port item)"),
@@ -529,6 +529,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         pipeline_parallel_size=args.pipeline_parallel_size,
         pipeline_microbatches=args.pipeline_microbatches,
         pipeline_chunks=args.pipeline_chunks,
+        fsdp=args.fsdp,
     )
     cfg = C.TrainConfig(
         detector=det_cfg,
@@ -640,6 +641,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             logger.info("evaluating with the int8-quantized backbone (W8A8)")
         mesh = auto_mesh(args.batch_size, args.model_parallel, cfg.mesh)
         if mesh is not None:
+            # After the quantization, as the JAX CLI: under FSDP B6 reads
+            # kernel_q and w_scale gathered whole.
             params = shard_params(params, mesh)
         eval_step = make_eval_topk_step(cfg, mesh,
                                         parity_mode=args.parity_mode)

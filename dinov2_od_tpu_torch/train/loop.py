@@ -368,22 +368,24 @@ def run_training(
     check_pipeline(cfg)
     mesh = auto_mesh(cfg.data.batch_size, cfg.mesh.model_parallel_size,
                      cfg.mesh)
+    fsdp = ", fsdp" if cfg.mesh.fsdp else ""
     if mesh is not None and mesh.stage_size > 1:
         logger.info("mesh: data %d x stage %d x model %d (rank at %d, "
                     "%d, %d), backend %s", mesh.data_size, mesh.stage_size,
                     mesh.model_size, mesh.data_index, mesh.stage_index,
                     mesh.model_index, mesh.backend)
     elif mesh is not None:
-        logger.info("mesh: data %d x context %d x model %d (rank at %d, "
+        logger.info("mesh: data %d x context %d x model %d%s (rank at %d, "
                     "%d, %d), backend %s", mesh.data_size, mesh.context_size,
-                    mesh.model_size, mesh.data_index, mesh.context_index,
-                    mesh.model_index, mesh.backend)
+                    mesh.model_size, fsdp, mesh.data_index,
+                    mesh.context_index, mesh.model_index, mesh.backend)
     if cfg.detector.backbone.dtype == "bfloat16":
         # The forward casts the frozen weights to bf16 anyway; stored so,
         # the per-step casts go and their reads halve. LoRA, the decoder
         # and the norms stay fp32.
         params = cast_frozen_weights(params, cfg.detector)
     if mesh is not None:
+        # Cast, then cut (the model shard, and under FSDP the data slice).
         params = shard_params(params, mesh)
         restored_opt_state, restored_ema = ckpt.shard_train_trees(
             restored_opt_state, restored_ema, mesh)

@@ -25,10 +25,12 @@ Trees are the param dict; gradients, Adam moments and the EMA hold None
 (moments, gradients) or a scalar placeholder (EMA) at frozen leaves, which
 carry no `requires_grad` and no optimizer state.
 
-Under tensor parallelism every rank holds its shard of each tree
-(parallel/sharding.py): Adam, weight decay and the EMA are elementwise
-and run on the shards as they are; only the clip's global norm reads the
-logical tree (`global_norm` with the mesh).
+Under tensor parallelism and FSDP every rank holds its shard of each tree
+(parallel/sharding.py): Adam, weight decay, the EMA, the accumulation and
+the LoRA row masks are elementwise and run on the shards as they are
+(FSDP never cuts a 3-D leaf's depth axis, and the masks' `[depth, 1, 1]`
+multipliers touch only the 3-D LoRA leaves); only the clip's global norm
+reads the logical tree (`global_norm` with the mesh).
 """
 
 from __future__ import annotations
@@ -42,7 +44,8 @@ import torch
 from ..config import DetectorConfig, OptimConfig
 from ..models.detector import lora_block_multiplier, trainable_mask
 from ..parallel.collectives import all_reduce
-from ..parallel.sharding import leaf_paths, model_size, shard_dim
+from ..parallel.sharding import (fsdp, fsdp_layout_of, leaf_paths,
+                                 model_size, shard_dim)
 
 Params = Dict[str, Any]
 
@@ -152,17 +155,29 @@ def mask_gradients(grads: Params, params: Params,
 
 def global_norm(tree: Params, mesh=None) -> torch.Tensor:
     """sqrt of the sum of squares of every non-None leaf, fp32. Under a
-    mesh, of the logical tree: each sharded leaf's squares summed over the
-    model group, each replicated leaf counted once."""
+    mesh, of the logical tree: each leaf's squares summed over every group
+    that shards it (the model group, the data group under FSDP, or both),
+    each replicated leaf counted once."""
     leaves = [g.float() for g in tree_leaves(tree)]
     norms = torch.stack(torch._foreach_norm(leaves))
-    if model_size(mesh) == 1:
+    tp = model_size(mesh) > 1
+    if not (tp or fsdp(mesh)):
         return torch.linalg.vector_norm(norms)
-    sharded = torch.tensor([shard_dim(p) is not None
-                            for p in leaf_paths(tree)], device=norms.device)
+    paths = leaf_paths(tree)
+    cut = [fsdp_layout_of(p, mesh) is not None for p in paths]
+    m = torch.tensor([tp and shard_dim(p) is not None for p in paths],
+                     device=norms.device)
+    d = torch.tensor(cut, device=norms.device)
     sq = norms.square()
-    shards = all_reduce(sq[sharded].sum(), mesh.model_group, mesh.backend)
-    return (shards + sq[~sharded].sum()).sqrt()
+    rep, model_only = sq[~m & ~d].sum(), sq[m & ~d].sum()
+    data_only, both = sq[~m & d].sum(), sq[m & d].sum()
+    if tp:
+        model_only, both = all_reduce(torch.stack([model_only, both]),
+                                      mesh.model_group, mesh.backend)
+    if any(cut):
+        data_only, both = all_reduce(torch.stack([data_only, both]),
+                                     mesh.data_group, mesh.backend)
+    return (model_only + rep + data_only + both).sqrt()
 
 
 def _bias_correction(decay: float, count: int) -> float:

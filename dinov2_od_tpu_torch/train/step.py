@@ -16,7 +16,10 @@ batch slice and its param shard, as GSPMD runs the JAX step: the forward
 places its tensor-parallel collectives itself, each rank matches its own
 (model-replicated) predictions, the partial gradients of replicated
 leaves are summed over the model group and every gradient over the data
-group, and the optimizer updates the shards. Under context parallelism
+group, and the optimizer updates the shards. Under FSDP the forward
+gathers each leaf cut over the data axis where it is used, its gradient
+comes back reduce-scattered (summed over the data group already), and
+the non-finite guard's flag is the whole mesh's (`mesh_all`). Under context parallelism
 (either of `MeshConfig`'s modes) the backbone's attention is the ring
 (`_cp_kwargs`): each rank of the ring runs the backbone on its tokens and
 the decoder, the matcher and the loss whole on the gathered features, so
@@ -37,6 +40,7 @@ import functools
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..config import TrainConfig
 from ..data.augment import augment_batch
@@ -45,9 +49,13 @@ from ..evaluation.postprocess import select_topk_detections
 from ..models.detector import detector_apply
 from ..models.vit import check_backbone_supported
 from ..ops.losses import set_criterion
-from ..parallel.collectives import all_reduce_coalesced_, reduce_gradients
+from ..parallel.collectives import (
+    all_reduce,
+    all_reduce_coalesced_,
+    reduce_gradients,
+)
 from ..parallel.pipeline import check_schedule
-from ..parallel.sharding import check_tp_compatible, leaf_paths
+from ..parallel.sharding import check_tp_compatible, fsdp, leaf_paths
 from .state import (
     AdamTable,
     TrainState,
@@ -233,6 +241,23 @@ def augment_step_batch(cfg: TrainConfig, batch: Batch,
             "images": _normalize_unit_images(x01, cfg.data.normalize)}
 
 
+def mesh_all(flag: torch.Tensor, mesh) -> torch.Tensor:
+    """A 0-dim bool true only where it is true on every rank of the mesh:
+    its min over the data group, then over the model group. Where ranks
+    hold different shards of the gradients (tensor parallelism, FSDP),
+    one rank's shard can hold a NaN its peers do not see; the guard's
+    flag must still be one for the whole mesh, or the ranks' params part.
+    The flag as it is where every rank holds the same gradients."""
+    if mesh is None or not (mesh.model_size > 1 or fsdp(mesh)):
+        return flag
+    f = flag.to(torch.int32)
+    for size, group in ((mesh.data_size, mesh.data_group),
+                        (mesh.model_size, mesh.model_group)):
+        if size > 1:
+            f = all_reduce(f, group, mesh.backend, dist.ReduceOp.MIN)
+    return f > 0
+
+
 def _select_(dst: list, src: list, keep_new: torch.Tensor) -> None:
     """dst[i] = src[i] where `keep_new` (a 0-dim bool), in place."""
     for d, n in zip(dst, src):
@@ -290,8 +315,9 @@ def make_train_step(cfg: TrainConfig, mesh=None):
         params, opt = state.params, state.opt_state
         leaves = trainable_leaves(params, opt)
         device = leaves[0].device
-        finite = torch.stack([torch.isfinite(g).all()
-                              for g in tree_leaves(grads)]).all()
+        finite = mesh_all(torch.stack([torch.isfinite(g).all()
+                                       for g in tree_leaves(grads)]).all(),
+                          mesh)
         metrics["nonfinite_skip"] = (~finite).float()
         if not torch.is_tensor(opt.count):
             table["bound"] = opt.count

@@ -537,8 +537,8 @@ def test_shard_rules_for_swiglu_and_int8():
 
 def test_mesh_config_matches_jax():
     """MeshConfig accepts the context-parallel modes and refuses what
-    JAX's refuses, with its messages; it accepts pipeline parallelism
-    (ported since), and FSDP still raises as unported."""
+    JAX's refuses, with its messages; it accepts pipeline parallelism and
+    FSDP (ported since), and FSDP beside a ring raises JAX's ValueError."""
     for kw, match in ((dict(context_parallel=True, context_parallel_size=2),
                        "not both"),
                       (dict(context_parallel_size=2,
@@ -551,7 +551,9 @@ def test_mesh_config_matches_jax():
     three = pcfg.MeshConfig(model_parallel_size=2, context_parallel_size=2)
     assert (legacy.tensor_parallel_size, legacy.context_size) == (1, 4)
     assert (three.tensor_parallel_size, three.context_size) == (2, 2)
-    with pytest.raises(NotImplementedError):
-        pcfg.MeshConfig(fsdp=True)
+    assert pcfg.MeshConfig(fsdp=True).fsdp
+    for kw in (dict(context_parallel=True), dict(context_parallel_size=2)):
+        with pytest.raises(ValueError, match="fsdp does not compose"):
+            pcfg.MeshConfig(fsdp=True, **kw)
     staged = pcfg.MeshConfig(pipeline_parallel_size=2)
     assert (staged.tensor_parallel_size, staged.stage_size) == (1, 2)

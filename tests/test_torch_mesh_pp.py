@@ -438,8 +438,8 @@ def test_pp_refuses_prefix_int8_and_moe_as_jax_does(what):
 
 def test_fsdp_with_a_pipeline_raises_jaxs_error():
     """FSDP beside a pipeline (either mode): JAX's ValueError, which its
-    `param_shardings` raises, from the port's MeshConfig; FSDP alone is
-    still not ported."""
+    `param_shardings` raises, from the port's MeshConfig; FSDP alone and
+    beside TP builds (ported since)."""
     params = jax.eval_shape(lambda k: jax_init(k, _jdet(TINY)),
                             jax.random.key(0))
     for fields in (dict(model_parallel_size=2, pipeline_parallel=True),
@@ -451,8 +451,8 @@ def test_fsdp_with_a_pipeline_raises_jaxs_error():
         with pytest.raises(ValueError) as got:
             pcfg.MeshConfig(fsdp=True, **fields)
         assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        pcfg.MeshConfig(fsdp=True)
+    assert pcfg.MeshConfig(fsdp=True).fsdp
+    assert pcfg.MeshConfig(fsdp=True, model_parallel_size=2).fsdp
 
 
 @pytest.mark.parametrize("fields, message", [

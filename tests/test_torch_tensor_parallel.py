@@ -426,7 +426,8 @@ def test_dropout_under_tp_drops_what_one_process_drops(run):
 @pytest.mark.parametrize("tp", [2, 3, 4, 8])
 def test_check_tp_compatible_matches_jax(tp):
     """The port accepts and refuses what JAX's check does, the SwiGLU FFN
-    (ViT-g) and a context axis included; FSDP still raises as unported."""
+    (ViT-g) and a context axis included; FSDP beside TP builds (ported
+    since), and beside a ring raises JAX's ValueError."""
     for backbone in (MESHES["2x2"][2], MESHES["1x4"][2]):
         jc, pc = _cfgs(backbone)
         try:
@@ -452,5 +453,8 @@ def test_check_tp_compatible_matches_jax(tp):
             psh.check_tp_compatible(pgiant, tp)
     assert jcfg.MeshConfig(context_parallel_size=2).context_parallel_size == 2
     assert pcfg.MeshConfig(context_parallel_size=2).context_size == 2
-    with pytest.raises(NotImplementedError):
-        pcfg.MeshConfig(fsdp=True)
+    both = pcfg.MeshConfig(fsdp=True, model_parallel_size=tp)
+    assert both.fsdp and both.tensor_parallel_size == tp
+    with pytest.raises(ValueError, match="fsdp does not compose"):
+        pcfg.MeshConfig(fsdp=True, context_parallel_size=2,
+                        model_parallel_size=tp)

@@ -83,15 +83,38 @@ def test_main_debug_then_only_evaluate(tmp_path, synth):
                      "--output_dir", str(tmp_path / "none")]) == 1
 
 
-LATER_SLICES = [
-    ["--fsdp"], ["--download_val_data"], ["--compilation_cache", "x"],
-]
+LATER_SLICES = [["--download_val_data"], ["--compilation_cache", "x"]]
 
 
 @pytest.mark.parametrize("flags", LATER_SLICES, ids=lambda f: f[0])
 def test_flags_of_later_slices_raise(flags, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(flags + ["--output_dir", str(tmp_path), "--device", "cpu"])
+
+
+@pytest.mark.parametrize("flags, fields", [
+    (["--fsdp"], dict(fsdp=True)),
+    (["--fsdp", "--model_parallel", "2"],
+     dict(fsdp=True, model_parallel_size=2)),
+], ids=["fsdp", "fsdp_tp"])
+def test_fsdp_flag_builds_the_fsdp_mesh_config(flags, fields, tmp_path,
+                                               monkeypatch):
+    """`--fsdp` (ported since; it was a flag of a later slice) builds
+    `MeshConfig(fsdp=True)`, with `--model_parallel` too: the CLI's mesh
+    config is recorded where main builds it, and the run stops there."""
+    built, mesh_config = [], cli.C.MeshConfig
+
+    class Stop(Exception):
+        pass
+
+    def record(**kw):
+        built.append(mesh_config(**kw))
+        raise Stop
+
+    monkeypatch.setattr(cli.C, "MeshConfig", record)
+    with pytest.raises(Stop):
+        cli.main(flags + ["--output_dir", str(tmp_path), "--device", "cpu"])
+    assert built == [mesh_config(**fields)]
 
 
 EXCLUSIVE = [
