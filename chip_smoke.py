@@ -257,6 +257,23 @@ non-zero and prints no result:
              params the file holds. Each rank's peak allocated memory is
              printed beside one process's (informational: the ranks share
              the card).
+11f. moe ep - the MoE FFN under a mesh through the training CLI, run as
+             phase_fsdp runs its jobs, at bench.py's BENCH_FFN=moe model
+             (ViT-B/14 bf16 at 224 px, 8 experts, top-2, capacity factor
+             1.25 in the 2 adapted blocks), its routers scaled x10 so that
+             capacity drops tokens: (a) DP 2 x EP 2, (b) FSDP 2 x EP 2 and
+             (c) DP 1 x CP 2 x EP 2 at once beside one process's run;
+             per-rank launches (MOE_EP_WANT) and param and Adam-moment
+             elements (MOE_EP_ELEMENTS) exact; losses and loss_moe_aux to
+             MESH_*, (c)'s first step to MOE_EP_RING_FIRST_LOSS_TOL;
+             --only_evaluate --quantize int8 from (a)'s checkpoint on DP 4
+             (B6 on) and under (a)'s mesh (B6 0); Predictor.from_checkpoint
+             bit-equal. Beside them, 4 ranks of DP 1 x CP 2 x EP 2 run
+             ops/moe.py moe_ffn on the ring against the whole rows, with
+             drops in the later shard, and its control without the earlier
+             shard's counts (MOE_RING_*). `chip_smoke.py --moe-ring-fault`
+             runs (c) with that fault instead, which must break (c)'s
+             first-step limit.
 12. roofline tool - the port's tools/bench_attn_roofline.py at its
              defaults, in-process: its four JSON lines (mxu_only, plus_max,
              plus_exp2, production) in order with the JAX tool's keys, T1
@@ -308,6 +325,7 @@ import subprocess
 import sys
 import threading
 import time
+from typing import Optional
 
 import numpy as np
 
@@ -821,6 +839,73 @@ FSDP_JOBS = {
 FSDP_WANT = {"a_fsdp4_vit_l": (24, 2, 24), "b_fsdp2_tp2_vit_b": (12, 2, 12)}
 FSDP_ELEMENTS = {"a_fsdp4_vit_l": (81_153_461, 5_140_661),
                  "b_fsdp2_tp2_vit_b": (25_938_869, 4_271_669)}
+
+# The MoE FFN under a mesh through the training CLI (phase_moe_ep), as
+# phase_fsdp runs its jobs (MESH_WORLD `--cli-rank` processes a job on
+# cuda:0 in a gloo group; its packed splits and global batch, one epoch
+# with validation and a checkpoint) at bench.py's BENCH_FFN=moe model
+# (ViT-B/14 224 px bf16, 8 experts, top-2, capacity factor 1.25 in the 2
+# adapted blocks): (a) DP 2 x EP 2 and (b) FSDP 2 x EP 2, 4 experts and
+# 6 heads a rank (the flat pair); (c) DP 1 x CP 2 x EP 2, the ring of 2
+# padding the 257 tokens to 258 (the pad row claims no expert slot). All
+# three at once beside one process's run of the MoE flags. Per rank: (B1
+# a step, B2 a step, B3 a step, B1 a val batch, B3 a val batch): (a) and
+# (b) as FSDP_WANT's ViT-B; (c) as phase_mesh_cli's DP 2 x CP 2 (each
+# ring step launches B1 twice a block, once more a ring step for the
+# adapted blocks' backward, every launch B3's route). MOE_EP_ELEMENTS:
+# each rank's (param, Adam-moment) elements of (a) and (b), JAX's
+# per-device counts (tests/test_torch_moe_ep.py pins them); (c) holds
+# (a)'s. Then `--only_evaluate --quantize int8` from (a)'s checkpoint on
+# a DP 4 mesh (B6 on: the 10 dense prefix blocks' fc2, a val batch; the
+# MoE blocks have no fc2) and under (a)'s mesh (B6 off, as in JAX).
+MOE_EP_JOBS = {
+    "a_dp2_ep2": ["--model_parallel", "2"],
+    "b_fsdp2_ep2": ["--fsdp", "--model_parallel", "2"],
+    "c_cp2_ep2": ["--context_parallel_size", "2", "--model_parallel", "2"],
+}
+MOE_EP_WANT = {"a_dp2_ep2": (12, 2, 0, 12, 0),
+               "b_fsdp2_ep2": (12, 2, 0, 12, 0),
+               "c_cp2_ep2": (28, 4, 32, 24, 24)}
+MOE_EP_ELEMENTS = {"a_dp2_ep2": (84_563_381, 46_061_237),
+                   "b_fsdp2_ep2": (42_510_773, 23_207_477),
+                   "c_cp2_ep2": (84_563_381, 46_061_237)}
+MOE_EP_INT8_FC2 = 10
+# The ring's real routing on the card (phase_moe_ep, `_moe_ring_rank`):
+# MESH_WORLD ranks of DP 1 x CP 2 x EP 2, as job (c), each running
+# ops/moe.py `moe_ffn` (its `route` fed by `ring_counts`) on its shard of
+# MESH_BATCH rows of 257 tokens padded to 258 (d 768, the ViT-B MLP's
+# 3072 hidden, bf16, 8 experts, top-2, 81 slots), beside `moe_ffn` on the
+# whole rows in the same process. The router picks x's first 8 features
+# as the logits (a 0/1 kernel: exact in any product order, so both sides
+# see the same logits), drawn N(0, 1) plus MOE_RING_SKEW, a router that
+# prefers some experts as a trained one does: the first shard fills them
+# and tokens of the second are dropped (the seed's draw drops 188 of the
+# first shard's 2064 choices and 370 of the second's 2048). Held: the same
+# slots and gates exactly, the pad row no slot and a zero output, the
+# output within MOE_RING_OUT_TOL of the whole rows' largest |out| (two
+# bf16 roundings: each model rank's partial sum over its 4 experts and
+# their sum), the aux within MOE_ROUTING_TOL. The control routes with
+# `ring_counts` replaced by the shard's own counts (no earlier shard's
+# claims, the row's total its own): its slots move and its output parts
+# from the whole rows' by more than the limit.
+MOE_RING_SKEW = (1.0, 0.75, 0.5, 0.25, 0.0, 0.0, 0.0, 0.0)
+MOE_RING_OUT_TOL = 1e-2
+# The CLI jobs' routers (phase_moe_ep and its dropped-prefix control):
+# the seed's init times MOE_EP_ROUTER_SCALE (std 0.02 x 10: logits of
+# std about 5.5 on unit-variance LayerNorm'd tokens, against 0.55), so
+# that routing is skewed and capacity drops tokens, as a trained router's
+# does; near-flat logits drop few (N(0, 1) logits at these shapes dropped
+# none), and then the ring's prefix counts change little. The one
+# process's first routing logs its drops (on the H100 it kept 1509 of
+# 4112 choices, 394 of the row's later half's 2064) and must drop some in
+# the later half.
+MOE_EP_ROUTER_SCALE = 10.0
+# (c)'s first step against one process's, relative: at the x10 routers
+# it read 1.106e-4, and the dropped-prefix control (`python3
+# chip_smoke.py --moe-ring-fault`, every rank's `ring_counts` replaced as
+# above) 4.028e-3, inside MESH_FIRST_LOSS_TOL (H100 80GB HBM3, 700 W).
+# This limit parts the two by 9x and 4x.
+MOE_EP_RING_FIRST_LOSS_TOL = 1e-3
 
 # T1, the attention roofline tool's ablation kernel, bf16 [B, H, S_pad, 64]:
 # the tool's default shape (1370 tokens, ViT-L/518, padded to 1376) and
@@ -3374,22 +3459,23 @@ def _moe_routing_check(seed: int) -> None:
 
 @contextlib.contextmanager
 def _routing_recorded(into: list):
-    """Each moe_routing call of the model appends the experts every token
-    reaches, [B, N, E] bool (a dropped assignment reaches none)."""
+    """Each routing (ops/moe.py `route`) of the model appends the experts
+    every token reaches, [B, N, E] bool (a dropped assignment reaches
+    none)."""
     from dinov2_od_tpu_torch.ops import moe
 
-    real = moe.moe_routing
+    real = moe.route
 
-    def recorded(logits, top_k, capacity):
-        combine, aux = real(logits, top_k, capacity)
+    def recorded(*args, **kwargs):
+        combine, probs, top1 = real(*args, **kwargs)
         into.append(combine.sum(-1) > 0)
-        return combine, aux
+        return combine, probs, top1
 
-    moe.moe_routing = recorded
+    moe.route = recorded
     try:
         yield
     finally:
-        moe.moe_routing = real
+        moe.route = real
 
 
 def _moe_forward_check(seed: int, kernels: dict) -> None:
@@ -5434,6 +5520,7 @@ def _cli_rank(counts_file: str, args: list) -> int:
     `loop.validate_cached`), counted around them; "elements" those of the
     loop's train state's param and Adam-moment trees (this rank's
     shards); "max_memory" the process's peak of allocated card memory."""
+    import os
     import runpy
 
     import torch
@@ -5472,14 +5559,20 @@ def _cli_rank(counts_file: str, args: list) -> int:
         return state
 
     loop.create_train_state = counted_state
-    from dinov2_od_tpu_torch.ops import _build
+    from dinov2_od_tpu_torch.ops import _build, moe
 
+    # phase_moe_ep's skewed routers and its dropped-prefix control.
+    skew = (_skewed_routers() if os.environ.get("CHIP_SMOKE_MOE_SKEW")
+            else contextlib.nullcontext())
+    if os.environ.get("CHIP_SMOKE_MOE_RING_FAULT"):
+        moe.ring_counts = _without_prefix
     _build.reset_launch_counts()
     sys.argv = ["dinov2_od_tpu_torch.train", *args]
     rc = 0
     try:
-        runpy.run_module("dinov2_od_tpu_torch.train", run_name="__main__",
-                         alter_sys=True)
+        with skew:
+            runpy.run_module("dinov2_od_tpu_torch.train",
+                             run_name="__main__", alter_sys=True)
     except SystemExit as stop:
         rc = stop.code if isinstance(stop.code, int) else 1
     torch.cuda.synchronize()
@@ -5493,9 +5586,11 @@ def _cli_rank(counts_file: str, args: list) -> int:
 
 class _MeshJob:
     """MESH_WORLD ranks of the CLI on `args`, each a `--cli-rank` process
-    on a free port, writing its output to work/name.rank{r}.log."""
+    on a free port (`env` added to its environment), writing its output
+    to work/name.rank{r}.log."""
 
-    def __init__(self, name: str, work: str, args: list):
+    def __init__(self, name: str, work: str, args: list,
+                 env: Optional[dict] = None):
         import os
         import socket
 
@@ -5503,7 +5598,7 @@ class _MeshJob:
         with socket.socket() as sock:
             sock.bind(("127.0.0.1", 0))
             port = sock.getsockname()[1]
-        env = {**os.environ, "OMP_NUM_THREADS": "1"}
+        env = {**os.environ, "OMP_NUM_THREADS": "1", **(env or {})}
         self.procs, self.logs = [], []
         self.t0 = time.perf_counter()
         for r in range(MESH_WORLD):
@@ -5817,9 +5912,11 @@ def phase_mesh_cli(seed: int, kernels: dict):
         shutil.rmtree(work, ignore_errors=True)
 
 
-def _pp_check_files(job: str, out_dir: str, ranks: list) -> None:
+def _check_rank_files(phase: str, job: str, out_dir: str, ranks: list,
+                      mesh_line: str) -> None:
     """One set of files, rank 0's, from a one-epoch run with validation
-    and a checkpoint; each rank logged its place on the mesh."""
+    and a checkpoint; each rank logged its place on the mesh (its log
+    holds `mesh_line`)."""
     import os
 
     names = sorted(os.listdir(out_dir))
@@ -5830,10 +5927,122 @@ def _pp_check_files(job: str, out_dir: str, ranks: list) -> None:
     if (len(logs) != 1 or set(names) != want | set(logs) | plots
             or not all(f"[rank {r}]" in res["log"]
                        for r, res in enumerate(ranks) if r)
-            or not all("mesh: data 1 x stage" in res["log"]
-                       for res in ranks)):
-        raise AssertionError(f"pp ({job}): the run's files {names}: "
-                             f"expected rank 0's alone")
+            or not all(mesh_line in res["log"] for res in ranks)):
+        raise AssertionError(f"{phase} ({job}): the run's files {names}: "
+                             f"expected rank 0's alone, and every rank's "
+                             f"log to hold {mesh_line!r}")
+
+
+def _epoch_jobs(phase: str, work: str, out: dict, common: list,
+                flags: dict, ones: dict, refs: dict, want, mesh_lines: dict,
+                jobs: dict, elements: Optional[dict] = None,
+                env: Optional[dict] = None):
+    """The one-epoch CLI jobs of a mesh phase (phase_pp, phase_fsdp,
+    phase_moe_ep): each job of `flags` (name: its flags after `common`)
+    started at once as MESH_WORLD `--cli-rank` processes writing to
+    out[name] and entered in `jobs` (the caller kills them), while this
+    process runs the one-process runs of `ones` (name: flags after
+    `common`) in order, keeping each one's launches, wall seconds and
+    peak of allocated memory. Then each job's ranks are held: launches
+    and validation's launches exactly to want(name, rank) -> (launches,
+    eval), each rank's param and Adam-moment elements to elements[name]
+    (param, moments) where given, the per-step losses and the validation
+    AP to its one-process run out[refs[name]] (MESH_*_TOL), rank 0 alone
+    writing files and every rank's log holding mesh_lines[name]. `env`
+    goes to every rank's environment.
+    Returns ({name: its ranks' records}, {one-process name: record})."""
+    import torch
+
+    for name, f in flags.items():
+        jobs[name] = _MeshJob(name, work, common + f + [
+            "--output_dir", out[name]], env)
+    one = {}
+    for name, f in ones.items():
+        torch.cuda.reset_peak_memory_stats()
+        launches, wall = _one_process_cli(common + f + [
+            "--output_dir", out[name]])
+        one[name] = {"launches": launches, "wall_s": wall,
+                     "max_memory_allocated": torch.cuda
+                     .max_memory_allocated()}
+        torch.cuda.empty_cache()
+    runs = {name: jobs[name].wait() for name in flags}
+    for name, ranks in runs.items():
+        for r, res in enumerate(ranks):
+            launches, evals = want(name, r)
+            if res["launches"] != launches or res["eval"] != evals:
+                raise AssertionError(
+                    f"{phase} ({name}): rank {r} launches "
+                    f"{res['launches']} (validation {res['eval']}); "
+                    f"expected {launches} (validation {evals})")
+            if elements is not None:
+                params, moments = elements[name]
+                held = {"params": params, "moments": moments}
+                if res["elements"] != held:
+                    raise AssertionError(
+                        f"{phase} ({name}): rank {r} holds "
+                        f"{res['elements']} elements of params and Adam "
+                        f"moments; JAX's rule gives each device {held}")
+        if elements is not None:
+            log(f"{phase} ({name}): every rank holds {elements[name][0]} "
+                f"param and {elements[name][1]} Adam-moment elements "
+                f"(JAX's per-device counts); peak allocated bytes a rank "
+                f"{[res['max_memory'] for res in ranks]}, one process "
+                f"{one[refs[name]]['max_memory_allocated']} "
+                f"(informational: the ranks share the card)")
+        ref = refs[name]
+        _mesh_compare_losses(f"{phase} {name}", _mesh_losses(out[name], 1),
+                             _mesh_losses(out[ref], 1), 1)
+        _mesh_compare_metrics(f"{phase} {name}, validation",
+                              _ap(out[name], 0), _ap(out[ref], 0),
+                              _mesh_detections(out, (name, 0), (ref, 0)))
+        _check_rank_files(phase, name, out[name], ranks, mesh_lines[name])
+    return runs, one
+
+
+def _served_checkpoint(phase: str, ckpt: str, model_flags: list,
+                       val_split: str, want: dict) -> dict:
+    """A mesh run's checkpoint served from one process:
+    Predictor.from_checkpoint against a Predictor over the params the
+    file holds, bit-equal params and detections on the first MESH_BATCH
+    images of the packed `val_split`, launches exactly `want`. Returns
+    the launches."""
+    import os
+
+    import torch
+
+    from dinov2_od_tpu_torch.data.packed import PackedDataset
+    from dinov2_od_tpu_torch.inference import Predictor
+    from dinov2_od_tpu_torch.ops import _build
+    from dinov2_od_tpu_torch.train import cli
+    from dinov2_od_tpu_torch.train.checkpoint import STATE_FILE
+    from dinov2_od_tpu_torch.train.state import tree_leaves, tree_map
+
+    det = cli.build_detector_config(cli.build_arg_parser().parse_args(
+        model_flags))
+    served = Predictor.from_checkpoint(ckpt, detector_cfg=det,
+                                       batch_size=MESH_BATCH)
+    held = torch.load(os.path.join(ckpt, STATE_FILE),
+                      weights_only=True)["params"]
+    direct = Predictor(tree_map(lambda t: t.cuda(), held), det,
+                       batch_size=MESH_BATCH)
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(served.params), tree_leaves(direct.params)))
+    val = PackedDataset(val_split).get_batch(range(MESH_BATCH))
+    images = list(val["images"].astype(np.float32) / 255.0)
+    _build.reset_launch_counts()
+    got = served.detect(images, score_threshold=0.0)
+    torch.cuda.synchronize()
+    counts = _launched()
+    ref = direct.detect(images, score_threshold=0.0)
+    log(f"{phase}: Predictor.from_checkpoint({ckpt}): params equal the "
+        f"file's {same}, {sum(map(len, got))} detections on {MESH_BATCH} "
+        f"val images equal {got == ref}, launches {counts}")
+    if not same or got != ref or counts != want:
+        raise AssertionError(f"{phase}: the checkpoint does not serve as "
+                             f"the params it holds")
+    del served, direct
+    torch.cuda.empty_cache()
+    return counts
 
 
 def phase_pp(seed: int, kernels: dict):
@@ -5848,15 +6057,6 @@ def phase_pp(seed: int, kernels: dict):
     import os
     import shutil
     import tempfile
-
-    import torch
-
-    from dinov2_od_tpu_torch.data.packed import PackedDataset
-    from dinov2_od_tpu_torch.inference import Predictor
-    from dinov2_od_tpu_torch.ops import _build
-    from dinov2_od_tpu_torch.train import cli
-    from dinov2_od_tpu_torch.train.checkpoint import STATE_FILE
-    from dinov2_od_tpu_torch.train.state import tree_leaves, tree_map
 
     steps = MESH_TRAIN_IMAGES // MESH_BATCH
     val_batches = -(-MESH_VAL_IMAGES // MESH_BATCH)
@@ -5885,32 +6085,20 @@ def phase_pp(seed: int, kernels: dict):
             f"job on cuda:0 in a gloo group (activations and cotangents "
             f"between stages staged through the host: correctness, not a "
             f"pipeline speed); {list(PP_JOBS)} at once")
-        for name, flags in PP_JOBS.items():
-            jobs[name] = _MeshJob(name, work, common + flags + [
-                "--output_dir", out[name]])
-        one, wall_one = _one_process_cli(common + ["--output_dir",
-                                                   out["one"]])
-        runs = {name: job.wait() for name, job in jobs.items()}
-        for name, ranks in runs.items():
+
+        def want(name, r):
+            # Each rank's own blocks' B1, its own adapted blocks' B2.
             fwd_step, bwd_step, fwd_val = PP_WANT[name]
-            for r, res in enumerate(ranks):
-                want = {"flash_attn_fwd": (fwd_step[r] * steps
+            launches = {"flash_attn_fwd": (fwd_step[r] * steps
                                            + fwd_val[r] * val_batches)}
-                if bwd_step[r]:
-                    want["flash_attn_bwd"] = bwd_step[r] * steps
-                want_eval = {"flash_attn_fwd": fwd_val[r] * val_batches}
-                if res["launches"] != want or res["eval"] != want_eval:
-                    raise AssertionError(
-                        f"pp ({name}): rank {r} launches {res['launches']} "
-                        f"(validation {res['eval']}); expected {want} "
-                        f"(validation {want_eval})")
-            _mesh_compare_losses(f"pp {name}", _mesh_losses(out[name], 1),
-                                 _mesh_losses(out["one"], 1), 1)
-            _mesh_compare_metrics(f"pp {name}, validation",
-                                  _ap(out[name], 0), _ap(out["one"], 0),
-                                  _mesh_detections(out, (name, 0),
-                                                   ("one", 0)))
-            _pp_check_files(name, out[name], ranks)
+            if bwd_step[r]:
+                launches["flash_attn_bwd"] = bwd_step[r] * steps
+            return launches, {"flash_attn_fwd": fwd_val[r] * val_batches}
+
+        runs, one = _epoch_jobs(
+            "pp", work, out, common, PP_JOBS, {"one": []},
+            dict.fromkeys(PP_JOBS, "one"), want,
+            dict.fromkeys(PP_JOBS, "mesh: data 1 x stage"), jobs)
 
         # --only_evaluate under (a)'s stages from its checkpoint: 12 B1 a
         # val batch on every rank, beside one process's evaluation.
@@ -5923,44 +6111,21 @@ def phase_pp(seed: int, kernels: dict):
         one_ev, wall_ev_one = _one_process_cli(ev + ["--output_dir",
                                                      out["eval_one"]])
         evals = jobs["eval"].wait()
-        want = {"flash_attn_fwd": 12 * val_batches}
+        want_ev = {"flash_attn_fwd": 12 * val_batches}
         for r, res in enumerate(evals):
-            if res["launches"] != want or res["eval"] != want:
+            if res["launches"] != want_ev or res["eval"] != want_ev:
                 raise AssertionError(f"pp (eval): rank {r} launches "
-                                     f"{res['launches']}; expected {want}")
+                                     f"{res['launches']}; expected "
+                                     f"{want_ev}")
         # The checkpoint resumes at epoch 1, which names the files.
         _mesh_compare_metrics("pp --only_evaluate under (a)'s mesh",
                               _ap(out["eval"], 1), _ap(out["eval_one"], 1),
                               _mesh_detections(out, ("eval", 1),
                                                ("eval_one", 1)))
 
-        # (a)'s checkpoint served from one process: Predictor.from_checkpoint
-        # against a Predictor over the params the file holds.
-        det = cli.build_detector_config(cli.build_arg_parser().parse_args(
-            model))
-        served = Predictor.from_checkpoint(ckpt, detector_cfg=det,
-                                           batch_size=MESH_BATCH)
-        held = torch.load(os.path.join(ckpt, STATE_FILE),
-                          weights_only=True)["params"]
-        direct = Predictor(tree_map(lambda t: t.cuda(), held), det,
-                           batch_size=MESH_BATCH)
-        same = all(torch.equal(a, b) for a, b in zip(
-            tree_leaves(served.params), tree_leaves(direct.params)))
-        val = PackedDataset(splits["val"]).get_batch(range(MESH_BATCH))
-        images = list(val["images"].astype(np.float32) / 255.0)
-        _build.reset_launch_counts()
-        got = served.detect(images, score_threshold=0.0)
-        torch.cuda.synchronize()
-        served_counts = _launched()
-        ref = direct.detect(images, score_threshold=0.0)
-        log(f"pp: Predictor.from_checkpoint({legacy}'s checkpoint_epoch_0): "
-            f"params equal the file's {same}, {sum(map(len, got))} "
-            f"detections on {MESH_BATCH} val images equal {got == ref}, "
-            f"launches {served_counts}")
-        if not same or got != ref or served_counts != {"flash_attn_fwd": 12}:
-            raise AssertionError("pp: the checkpoint does not serve as the "
-                                 "params it holds")
-        del served, direct
+        # (a)'s checkpoint served from one process.
+        served_counts = _served_checkpoint("pp", ckpt, model, splits["val"],
+                                           {"flash_attn_fwd": 12})
 
         for kname, key in (("flash_attn_fwd", "flash_attn_fwd"),
                            ("flash_attn_bwd", "flash_attn_bwd")):
@@ -5980,35 +6145,16 @@ def phase_pp(seed: int, kernels: dict):
             "wall_s": {**{n: j.wall for n, j in jobs.items()}},
             "s_per_step": {n: MESH_BATCH / _epoch_logs(out[n], (0,))[0][
                 "images_per_sec"] for n in PP_JOBS},
-            "one_process_wall_s": {"train": wall_one, "eval": wall_ev_one},
-            "one_process_launches": {"train": one, "eval": one_ev},
+            "one_process_wall_s": {"train": one["one"]["wall_s"],
+                                   "eval": wall_ev_one},
+            "one_process_launches": {"train": one["one"]["launches"],
+                                     "eval": one_ev},
             "phase_s": time.perf_counter() - t_phase,
             "card": card_line()}))
     finally:
         for job in jobs.values():
             job.kill()
         shutil.rmtree(work, ignore_errors=True)
-
-
-def _fsdp_check_files(job: str, out_dir: str, ranks: list,
-                      mesh_line: str) -> None:
-    """One set of files, rank 0's, from a one-epoch run with validation
-    and a checkpoint; each rank logged its place on the mesh, with
-    "fsdp"."""
-    import os
-
-    names = sorted(os.listdir(out_dir))
-    logs = [n for n in names if n.endswith("_train.log")]
-    want = {"train_epoch_0.json", "metrics_epoch_0.json",
-            "predictions_epoch_0.json", "checkpoint_epoch_0", "final_model"}
-    plots = {"loss_plot.png", "ap_plot.png", "tensorboard"} & set(names)
-    if (len(logs) != 1 or set(names) != want | set(logs) | plots
-            or not all(f"[rank {r}]" in res["log"]
-                       for r, res in enumerate(ranks) if r)
-            or not all(mesh_line in res["log"] for res in ranks)):
-        raise AssertionError(f"fsdp ({job}): the run's files {names}: "
-                             f"expected rank 0's alone, and every rank's "
-                             f"log to hold {mesh_line!r}")
 
 
 def phase_fsdp(seed: int, kernels: dict):
@@ -6026,15 +6172,6 @@ def phase_fsdp(seed: int, kernels: dict):
     import os
     import shutil
     import tempfile
-
-    import torch
-
-    from dinov2_od_tpu_torch.data.packed import PackedDataset
-    from dinov2_od_tpu_torch.inference import Predictor
-    from dinov2_od_tpu_torch.ops import _build
-    from dinov2_od_tpu_torch.train import cli
-    from dinov2_od_tpu_torch.train.checkpoint import STATE_FILE
-    from dinov2_od_tpu_torch.train.state import tree_leaves, tree_map
 
     steps = MESH_TRAIN_IMAGES // MESH_BATCH
     val_batches = -(-MESH_VAL_IMAGES // MESH_BATCH)
@@ -6063,54 +6200,26 @@ def phase_fsdp(seed: int, kernels: dict):
             f"job on cuda:0 in a gloo group (each leaf's gather and its "
             f"gradient's reduce-scatter staged through the host: "
             f"correctness, not a ZeRO-3 speed); {list(FSDP_JOBS)} at once")
-        for name, flags in FSDP_JOBS.items():
-            jobs[name] = _MeshJob(name, work, common + flags + [
-                "--output_dir", out[name]])
-        one = {}
-        for name, flags in FSDP_JOBS.items():
-            torch.cuda.reset_peak_memory_stats()
-            launches, wall = _one_process_cli(common + flags[:2] + [
-                "--output_dir", out[f"{name}_one"]])
-            one[name] = {"launches": launches, "wall_s": wall,
-                         "max_memory_allocated": torch.cuda
-                         .max_memory_allocated()}
-            torch.cuda.empty_cache()
-        runs = {name: job.wait() for name, job in jobs.items()}
-        for name, ranks in runs.items():
+
+        def want(name, r):
+            # FSDP changes no launch count: every rank runs the whole
+            # model on its batch rows.
             fwd_step, bwd_step, fwd_val = FSDP_WANT[name]
-            want = {"flash_attn_fwd": fwd_step * steps + fwd_val * val_batches,
-                    "flash_attn_bwd": bwd_step * steps}
-            want_eval = {"flash_attn_fwd": fwd_val * val_batches}
-            params, moments = FSDP_ELEMENTS[name]
-            elements = {"params": params, "moments": moments}
-            for r, res in enumerate(ranks):
-                if res["launches"] != want or res["eval"] != want_eval:
-                    raise AssertionError(
-                        f"fsdp ({name}): rank {r} launches "
-                        f"{res['launches']} (validation {res['eval']}); "
-                        f"expected {want} (validation {want_eval})")
-                if res["elements"] != elements:
-                    raise AssertionError(
-                        f"fsdp ({name}): rank {r} holds {res['elements']} "
-                        f"elements of params and Adam moments; JAX's rule "
-                        f"gives each device {elements}")
-            log(f"fsdp ({name}): every rank holds {params} param and "
-                f"{moments} Adam-moment elements (JAX's per-device "
-                f"counts); peak allocated bytes a rank "
-                f"{[res['max_memory'] for res in ranks]}, one process "
-                f"{one[name]['max_memory_allocated']} (informational: the "
-                f"ranks share the card)")
-            _mesh_compare_losses(f"fsdp {name}", _mesh_losses(out[name], 1),
-                                 _mesh_losses(out[f"{name}_one"], 1), 1)
-            _mesh_compare_metrics(f"fsdp {name}, validation",
-                                  _ap(out[name], 0),
-                                  _ap(out[f"{name}_one"], 0),
-                                  _mesh_detections(out, (name, 0),
-                                                   (f"{name}_one", 0)))
+            return ({"flash_attn_fwd": fwd_step * steps
+                     + fwd_val * val_batches,
+                     "flash_attn_bwd": bwd_step * steps},
+                    {"flash_attn_fwd": fwd_val * val_batches})
+
+        def mesh_line(name):
             model = 2 if "--model_parallel" in FSDP_JOBS[name] else 1
-            _fsdp_check_files(name, out[name], ranks,
-                              f"mesh: data {MESH_WORLD // model} x context "
-                              f"1 x model {model}, fsdp")
+            return (f"mesh: data {MESH_WORLD // model} x context 1 x model "
+                    f"{model}, fsdp")
+
+        runs, one = _epoch_jobs(
+            "fsdp", work, out, common, FSDP_JOBS,
+            {f"{n}_one": f[:2] for n, f in FSDP_JOBS.items()},
+            {n: f"{n}_one" for n in FSDP_JOBS}, want,
+            {n: mesh_line(n) for n in FSDP_JOBS}, jobs, FSDP_ELEMENTS)
 
         # int8 under (a)'s mesh from its checkpoint: quantized whole, cut,
         # and each block's fc2 through B6 on its gathered kernel_q.
@@ -6125,15 +6234,16 @@ def phase_fsdp(seed: int, kernels: dict):
         one_ev, wall_ev_one = _one_process_cli(ev + ["--output_dir",
                                                      out["eval_one"]])
         evals = jobs["eval"].wait()
-        want = {"flash_attn_fwd": depth * val_batches,
-                "int8_gemm": depth * val_batches}
+        want_ev = {"flash_attn_fwd": depth * val_batches,
+                   "int8_gemm": depth * val_batches}
         for r, res in enumerate(evals):
-            if res["launches"] != want or res["eval"] != want:
+            if res["launches"] != want_ev or res["eval"] != want_ev:
                 raise AssertionError(f"fsdp (int8 eval): rank {r} launches "
-                                     f"{res['launches']}; expected {want}")
-        if one_ev != want:
+                                     f"{res['launches']}; expected "
+                                     f"{want_ev}")
+        if one_ev != want_ev:
             raise AssertionError(f"fsdp (int8 eval): one process launched "
-                                 f"{one_ev}; expected {want}")
+                                 f"{one_ev}; expected {want_ev}")
         # The checkpoint resumes at epoch 1, which names the files.
         _mesh_compare_metrics("fsdp --only_evaluate --quantize int8 under "
                               "(a)'s mesh", _ap(out["eval"], 1),
@@ -6142,33 +6252,9 @@ def phase_fsdp(seed: int, kernels: dict):
                                                ("eval_one", 1)))
 
         # (a)'s checkpoint served from one process.
-        det = cli.build_detector_config(cli.build_arg_parser().parse_args(
-            base + FSDP_JOBS[first][:2]))
-        served = Predictor.from_checkpoint(ckpt, detector_cfg=det,
-                                           batch_size=MESH_BATCH)
-        held = torch.load(os.path.join(ckpt, STATE_FILE),
-                          weights_only=True)["params"]
-        direct = Predictor(tree_map(lambda t: t.cuda(), held), det,
-                           batch_size=MESH_BATCH)
-        same = all(torch.equal(a, b) for a, b in zip(
-            tree_leaves(served.params), tree_leaves(direct.params)))
-        val = PackedDataset(splits["val"]).get_batch(range(MESH_BATCH))
-        images = list(val["images"].astype(np.float32) / 255.0)
-        _build.reset_launch_counts()
-        got = served.detect(images, score_threshold=0.0)
-        torch.cuda.synchronize()
-        served_counts = _launched()
-        ref = direct.detect(images, score_threshold=0.0)
-        log(f"fsdp: Predictor.from_checkpoint({first}'s checkpoint_epoch_0):"
-            f" params equal the file's {same}, {sum(map(len, got))} "
-            f"detections on {MESH_BATCH} val images equal {got == ref}, "
-            f"launches {served_counts}")
-        if (not same or got != ref
-                or served_counts != {"flash_attn_fwd": depth}):
-            raise AssertionError("fsdp: the checkpoint does not serve as "
-                                 "the params it holds")
-        del served, direct
-        torch.cuda.empty_cache()
+        served_counts = _served_checkpoint(
+            "fsdp", ckpt, base + FSDP_JOBS[first][:2], splits["val"],
+            {"flash_attn_fwd": depth})
 
         for kname in ("flash_attn_fwd", "flash_attn_bwd", "int8_gemm"):
             k = kernels[kname]
@@ -6189,18 +6275,417 @@ def phase_fsdp(seed: int, kernels: dict):
                 "images_per_sec"] for n in FSDP_JOBS},
             "max_memory_allocated": {
                 n: {"ranks": [res["max_memory"] for res in runs[n]],
-                    "one_process": one[n]["max_memory_allocated"]}
+                    "one_process": one[f"{n}_one"]["max_memory_allocated"]}
                 for n in FSDP_JOBS},
             "one_process_wall_s": {
-                **{n: one[n]["wall_s"] for n in FSDP_JOBS},
+                **{n: one[f"{n}_one"]["wall_s"] for n in FSDP_JOBS},
                 "int8_eval": wall_ev_one},
             "one_process_launches": {
-                **{n: one[n]["launches"] for n in FSDP_JOBS},
+                **{n: one[f"{n}_one"]["launches"] for n in FSDP_JOBS},
                 "int8_eval": one_ev},
             "phase_s": time.perf_counter() - t_phase,
             "card": card_line()}))
     finally:
         for job in jobs.values():
+            job.kill()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _without_prefix(local, mesh):
+    """`ring_counts` as the dropped-prefix control has it: no earlier
+    shard's claims, the row's total this shard's own."""
+    import torch
+
+    return torch.zeros_like(local), local
+
+
+def _moe_ring_rank(rank: int, world: int, port: int, work: str, seed: int):
+    """One rank of phase_moe_ep's ring routing check (MOE_RING_*): DP 1 x
+    CP 2 x EP 2 on cuda:0 in a gloo group, `moe_ffn` on its shard and on
+    the whole rows, then the control; writes its readings to
+    work/rank{r}.json."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from dinov2_od_tpu_torch.config import MeshConfig
+    from dinov2_od_tpu_torch.ops import moe
+    from dinov2_od_tpu_torch.parallel.sharding import (create_mesh,
+                                                       shard_params)
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    route, ring_counts = moe.route, moe.ring_counts
+    try:
+        mesh = create_mesh(2, MeshConfig(context_parallel_size=2))
+        g = torch.Generator().manual_seed(seed)
+        e, d, hid = len(MOE_RING_SKEW), 768, 3072
+        x = torch.randn((MESH_BATCH, S + 1, d), generator=g)
+        x[..., :e] += torch.tensor(MOE_RING_SKEW)
+        router = torch.zeros((d, e))
+        router[:e] = torch.eye(e)
+        mp = {"router_kernel": router}
+        for name, shape in (("fc1_kernel", (e, d, hid)),
+                            ("fc1_bias", (e, hid)),
+                            ("fc2_kernel", (e, hid, d)),
+                            ("fc2_bias", (e, d))):
+            mp[name] = 0.02 * torch.randn(shape, generator=g)
+        x = x.to("cuda", torch.bfloat16)
+        mp = {k: v.to("cuda", torch.bfloat16) for k, v in mp.items()}
+        combines = []
+
+        def recorded(*a, **k):
+            res = route(*a, **k)
+            combines.append(res[0])
+            return res
+
+        moe.route = recorded
+        kw = dict(top_k=2, capacity_factor=1.25, activation=F.gelu)
+        n = x.shape[1] // mesh.context_size
+        first = mesh.context_index * n
+        real = min(n, S - first)
+        with torch.no_grad():
+            whole, whole_aux = moe.moe_ffn(x[:, :S], mp, **kw)
+            ref = combines.pop()[:, first:first + real]
+            mine = x[:, first:first + n]
+            shard = shard_params({"moe": mp}, mesh)["moe"]
+            out = {"experts": shard["fc1_kernel"].shape[0],
+                   "choices": 2 * MESH_BATCH * real,
+                   "dropped": 2 * MESH_BATCH * real - int((ref > 0).sum())}
+            for name, counts in (("sound", ring_counts),
+                                 ("control", _without_prefix)):
+                moe.ring_counts = counts
+                y, aux = moe.moe_ffn(mine, shard, mesh=mesh, valid_len=S,
+                                     **kw)
+                comb = combines.pop()
+                ref_y = whole[:, first:first + real].float()
+                out[name] = {
+                    "slots_moved": int(((comb[:, :real] > 0)
+                                        != (ref > 0)).sum()),
+                    "gate_err": (comb[:, :real] - ref).abs().max().item(),
+                    "pad_slots": int((comb[:, real:] > 0).sum()),
+                    "pad_out": (y[:, real:].float().abs().max().item()
+                                if real < n else 0.0),
+                    "out_err": ((y[:, :real].float() - ref_y).abs().max()
+                                / whole.float().abs().max()).item(),
+                    "aux_err": abs(aux.item() - whole_aux.item())}
+        torch.cuda.synchronize()
+        with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        moe.route, moe.ring_counts = route, ring_counts
+        dist.destroy_process_group()
+
+
+def _moe_ring_check(ranks: list) -> dict:
+    """phase_moe_ep's ring routing readings held (MOE_RING_*); returns
+    them."""
+    sound = [r["sound"] for r in ranks]
+    control = [r["control"] for r in ranks]
+    worst = {k: max(r[k] for r in sound) for k in sound[0]}
+    moved = sum(r["slots_moved"] for r in control)
+    control_err = max(r["out_err"] for r in control)
+    dropped = [r["dropped"] for r in ranks]
+    log(f"moe ep: the ring's routing on the card (DP 1 x CP 2 x EP 2, "
+        f"moe_ffn on [{MESH_BATCH}, {S} + 1 pad, 768] bf16 shards, 8 "
+        f"experts, top-2, {[r['experts'] for r in ranks]} a rank) against "
+        f"moe_ffn on the whole rows: worst over the ranks {worst} "
+        f"(output tol {MOE_RING_OUT_TOL} of the largest |out|, aux and "
+        f"gates {MOE_ROUTING_TOL}); choices dropped in each rank's shard "
+        f"{dropped} of {[r['choices'] for r in ranks]}; control "
+        f"(no earlier shard's counts): {moved} slots moved, output error "
+        f"{control_err:.4g}")
+    if (worst["slots_moved"] or worst["pad_slots"] or worst["pad_out"]
+            or worst["gate_err"] > MOE_ROUTING_TOL
+            or worst["aux_err"] > MOE_ROUTING_TOL
+            or worst["out_err"] > MOE_RING_OUT_TOL
+            or any(r["experts"] != 4 for r in ranks)):
+        raise AssertionError("moe ep: the ring's routing is not the whole "
+                             "rows'")
+    if not dropped[-1] or not moved or control_err <= MOE_RING_OUT_TOL:
+        raise AssertionError("moe ep: the later shard dropped no choice, "
+                             "or the control did not fail")
+    return {"sound": worst, "dropped": dropped, "control_slots_moved": moved,
+            "control_out_err": control_err}
+
+
+@contextlib.contextmanager
+def _skewed_routers(routes: Optional[list] = None):
+    """Every detector the CLI initialises with its MoE routers times
+    MOE_EP_ROUTER_SCALE (models/detector.py `init_detector_params`
+    wrapped); with `routes`, each routing of this process appends (the
+    choices made, those kept, those kept in the row's later half, the
+    later half's choices)."""
+    from dinov2_od_tpu_torch.models import detector
+    from dinov2_od_tpu_torch.ops import moe
+
+    init, route = detector.init_detector_params, moe.route
+
+    def skewed(*a, **k):
+        params = init(*a, **k)
+        bb = params["backbone"]
+        if "moe_blocks" in bb:
+            bb["moe_blocks"]["moe"]["router_kernel"].mul_(
+                MOE_EP_ROUTER_SCALE)
+        return params
+
+    def recorded(logits, top_k, *a, **k):
+        res = route(logits, top_k, *a, **k)
+        kept = (res[0] > 0).sum(dim=(-1, -2))  # [B, N]
+        half = logits.shape[1] // 2
+        routes.append((top_k * kept.numel(), int(kept.sum()),
+                       int(kept[:, half:].sum()),
+                       top_k * kept[:, half:].numel()))
+        return res
+
+    detector.init_detector_params = skewed
+    if routes is not None:
+        moe.route = recorded
+    try:
+        yield
+    finally:
+        detector.init_detector_params, moe.route = init, route
+
+
+def _moe_ep_flags(seed: int, work: str) -> tuple:
+    """phase_moe_ep's packed splits in `work` and its CLI flags: (the
+    splits, the model's flags, the training run's)."""
+    splits = _cli_splits(seed, work, 224, MESH_TRAIN_IMAGES,
+                         MESH_VAL_IMAGES)
+    model = ["--dino_model", "facebook/dinov2-base", "--image_size", "224",
+             "--backbone_dtype", "bfloat16", "--batch_size", str(MESH_BATCH),
+             "--ffn_type", "moe"]
+    common = model + [
+        "--packed_train_data", splits["train"], "--packed_val_data",
+        splits["val"], "--num_epochs", "1", "--val_frequency", "1",
+        "--checkpoint_frequency", "1", "--log_frequency", "1",
+        "--num_workers", "2"]
+    return splits, model, common
+
+
+def _first_step_error(phase: str, got: str, want: str) -> float:
+    """The relative difference of two runs' first-step losses."""
+    a, b = _mesh_losses(got, 1)[0], _mesh_losses(want, 1)[0]
+    rel = abs(a - b) / abs(b)
+    log(f"{phase}: first-step loss {a} against one process's {b}: "
+        f"relative difference {rel:.4g} (limit "
+        f"{MOE_EP_RING_FIRST_LOSS_TOL})")
+    return rel
+
+
+def phase_moe_ep(seed: int, kernels: dict):
+    """The MoE FFN under a mesh through the training CLI, one process a
+    rank (MOE_EP_JOBS at bench.py's BENCH_FFN=moe model, its routers
+    skewed by MOE_EP_ROUTER_SCALE): (a) DP 2 x EP 2, (b) FSDP 2 x EP 2
+    and (c) DP 1 x CP 2 x EP 2, each for an epoch with validation and a
+    checkpoint, all at once beside one process's run; the per-rank
+    launches of B1, B2 and B3 held exactly to MOE_EP_WANT, the per-rank
+    param and Adam-moment elements to MOE_EP_ELEMENTS, the losses and
+    loss_moe_aux to one process's (MESH_*_TOL; (c)'s first step also to
+    MOE_EP_RING_FIRST_LOSS_TOL); only rank 0 writes; `--only_evaluate
+    --quantize int8` from (a)'s checkpoint on a DP 4 mesh (B6 on) and
+    under (a)'s mesh (B6 off) beside one process's; that checkpoint
+    through `Predictor.from_checkpoint` on one process, bit-equal to a
+    Predictor built from the params it holds. Beside the jobs, the ring's
+    routing on the card with its control (MOE_RING_*)."""
+    import os
+    import shutil
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    steps = MESH_TRAIN_IMAGES // MESH_BATCH
+    val_batches = -(-MESH_VAL_IMAGES // MESH_BATCH)
+    t_phase = time.perf_counter()
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build")
+    os.makedirs(build, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="moe_ep_", dir=build)
+    jobs, ring = {}, None
+    try:
+        ring_dir = os.path.join(work, "ring")
+        os.makedirs(ring_dir)
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        ring = mp.start_processes(
+            _moe_ring_rank, args=(MESH_WORLD, port, ring_dir, seed),
+            nprocs=MESH_WORLD, join=False, start_method="spawn")
+        splits, model, common = _moe_ep_flags(seed, work)
+        out = {k: os.path.join(work, k) for k in (
+            *MOE_EP_JOBS, "one", "int8_dp4", "int8_ep", "int8_one")}
+        log(f"moe ep: ViT-B/14 bf16 at 224 px, the MoE FFN (8 experts, "
+            f"top-2, capacity factor 1.25) in the 2 adapted blocks, its "
+            f"routers x{MOE_EP_ROUTER_SCALE}, {MESH_TRAIN_IMAGES} train and "
+            f"{MESH_VAL_IMAGES} val packed images, global batch "
+            f"{MESH_BATCH}, 100 GT slots, 1 epoch; {MESH_WORLD} ranks a "
+            f"job on cuda:0 in a gloo group (host-staged collectives on one "
+            f"shared card: correctness, not an expert-parallel speed); "
+            f"{list(MOE_EP_JOBS)} at once")
+
+        def want(name, r):
+            fs, bs, ls, fv, lv = MOE_EP_WANT[name]
+            launches = {"flash_attn_fwd": fs * steps + fv * val_batches,
+                        "flash_attn_bwd": bs * steps}
+            evals = {"flash_attn_fwd": fv * val_batches}
+            if ls:
+                launches["flash_attention_lse"] = (ls * steps
+                                                   + lv * val_batches)
+                evals["flash_attention_lse"] = lv * val_batches
+            return launches, evals
+
+        lines = {"a_dp2_ep2": "mesh: data 2 x context 1 x model 2",
+                 "b_fsdp2_ep2": "mesh: data 2 x context 1 x model 2, fsdp",
+                 "c_cp2_ep2": "mesh: data 1 x context 2 x model 2"}
+        routes = []
+        with _skewed_routers(routes):
+            runs, one = _epoch_jobs(
+                "moe ep", work, out, common, MOE_EP_JOBS, {"one": []},
+                dict.fromkeys(MOE_EP_JOBS, "one"), want, lines, jobs,
+                MOE_EP_ELEMENTS, env={"CHIP_SMOKE_MOE_SKEW": "1"})
+        while not ring.join():
+            pass
+        ring_readings = _moe_ring_check([
+            json.load(open(os.path.join(ring_dir, f"rank{r}.json")))
+            for r in range(MESH_WORLD)])
+        chosen, kept, kept_later, later = routes[0]
+        log(f"moe ep: one process's first routing keeps {kept} of {chosen} "
+            f"choices, {kept_later} of the later half's {later}")
+        if kept_later == later:
+            raise AssertionError("moe ep: the skewed routers drop no choice "
+                                 "in the row's later half")
+        aux_one = _epoch_logs(out["one"], (0,))[0]["loss_moe_aux"]
+        for name in MOE_EP_JOBS:
+            _mesh_compare_losses(
+                f"moe ep {name} loss_moe_aux",
+                _epoch_logs(out[name], (0,))[0]["loss_moe_aux"], aux_one, 1)
+        ring_first = _first_step_error("moe ep c_cp2_ep2", out["c_cp2_ep2"],
+                                       out["one"])
+        if ring_first > MOE_EP_RING_FIRST_LOSS_TOL:
+            raise AssertionError("moe ep (c_cp2_ep2): the first step parts "
+                                 "from one process's")
+
+        # (d) int8 evaluation from (a)'s checkpoint: on a DP 4 mesh, B6 on
+        # the dense prefix's fc2s; under (a)'s mesh, B6 off. Both at once
+        # beside one process's.
+        first = "a_dp2_ep2"
+        ckpt = os.path.join(out[first], "checkpoint_epoch_0")
+        ev = model + ["--packed_val_data", splits["val"], "--only_evaluate",
+                      "--quantize", "int8", "--checkpoint", ckpt]
+        jobs["int8_dp4"] = _MeshJob("moe_int8_dp4", work, ev + [
+            "--output_dir", out["int8_dp4"]])
+        jobs["int8_ep"] = _MeshJob("moe_int8_ep", work, ev + MOE_EP_JOBS[
+            first] + ["--output_dir", out["int8_ep"]])
+        one_ev, wall_ev_one = _one_process_cli(ev + ["--output_dir",
+                                                     out["int8_one"]])
+        evals = {"int8_dp4": jobs["int8_dp4"].wait(),
+                 "int8_ep": jobs["int8_ep"].wait()}
+        want_ev = {"int8_dp4": {"flash_attn_fwd": 12 * val_batches,
+                                "int8_gemm": MOE_EP_INT8_FC2 * val_batches},
+                   "int8_ep": {"flash_attn_fwd": 12 * val_batches}}
+        for name, ranks in evals.items():
+            for r, res in enumerate(ranks):
+                if (res["launches"] != want_ev[name]
+                        or res["eval"] != want_ev[name]):
+                    raise AssertionError(
+                        f"moe ep ({name}): rank {r} launches "
+                        f"{res['launches']}; expected {want_ev[name]}")
+            # The checkpoint resumes at epoch 1, which names the files.
+            _mesh_compare_metrics(f"moe ep --only_evaluate --quantize int8 "
+                                  f"({name})", _ap(out[name], 1),
+                                  _ap(out["int8_one"], 1),
+                                  _mesh_detections(out, (name, 1),
+                                                   ("int8_one", 1)))
+        if one_ev != want_ev["int8_dp4"]:
+            raise AssertionError(f"moe ep (int8 eval): one process launched "
+                                 f"{one_ev}; expected {want_ev['int8_dp4']}")
+
+        # (a)'s checkpoint served from one process.
+        served_counts = _served_checkpoint("moe ep", ckpt, model,
+                                           splits["val"],
+                                           {"flash_attn_fwd": 12})
+
+        every = (*runs.items(), *evals.items())
+        for kname in ("flash_attn_fwd", "flash_attn_bwd",
+                      "flash_attention_lse", "int8_gemm"):
+            k = kernels[kname]
+            for job, ranks in every:
+                per_rank = [res["launches"].get(kname, 0) for res in ranks]
+                k["launches"] += sum(per_rank)
+                k.setdefault("launches_moe_ep", {})[job] = per_rank
+        kernels["flash_attn_fwd"]["launches"] += served_counts[
+            "flash_attn_fwd"]
+        log("moe ep: " + json.dumps({
+            "metric": "wall seconds of each job and host seconds a step "
+                      "(rank 0's epoch record) with the ranks sharing one "
+                      "card over host-staged gloo collectives: not an "
+                      "expert-parallel speed",
+            "jobs_at_once": list(MOE_EP_JOBS),
+            "wall_s": {n: j.wall for n, j in jobs.items()},
+            "s_per_step": {n: MESH_BATCH / _epoch_logs(out[n], (0,))[0][
+                "images_per_sec"] for n in MOE_EP_JOBS},
+            "max_memory_allocated": {
+                **{n: [res["max_memory"] for res in ranks]
+                   for n, ranks in every},
+                "one_process": one["one"]["max_memory_allocated"]},
+            "one_process_wall_s": {"train": one["one"]["wall_s"],
+                                   "int8_eval": wall_ev_one},
+            "one_process_launches": {"train": one["one"]["launches"],
+                                     "int8_eval": one_ev},
+            "one_process_first_routing": routes[0],
+            "c_first_step_error": ring_first,
+            "ring_routing": ring_readings,
+            "phase_s": time.perf_counter() - t_phase,
+            "card": card_line()}))
+    finally:
+        for job in jobs.values():
+            job.kill()
+        if ring is not None:
+            for p in ring.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def moe_ring_fault_control(seed: int) -> None:
+    """The dropped-prefix control of phase_moe_ep's job (c), on its own
+    (`python3 chip_smoke.py --moe-ring-fault`): (c)'s flags with every
+    rank's `ring_counts` replaced (`_without_prefix`), beside one
+    process's run, both at the skewed routers; its first step must part
+    from one process's by more than MOE_EP_RING_FIRST_LOSS_TOL."""
+    import os
+    import shutil
+    import tempfile
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build")
+    os.makedirs(build, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="moe_fault_", dir=build)
+    t0 = time.perf_counter()
+    job = None
+    try:
+        _, _, common = _moe_ep_flags(seed, work)
+        out = {k: os.path.join(work, k) for k in ("fault", "one")}
+        job = _MeshJob("moe_fault", work, common + MOE_EP_JOBS["c_cp2_ep2"]
+                       + ["--output_dir", out["fault"]],
+                       env={"CHIP_SMOKE_MOE_SKEW": "1",
+                            "CHIP_SMOKE_MOE_RING_FAULT": "1"})
+        with _skewed_routers():
+            _one_process_cli(common + ["--output_dir", out["one"]])
+        job.wait()
+        if _first_step_error("moe ring fault control (c)", out["fault"],
+                             out["one"]) <= MOE_EP_RING_FIRST_LOSS_TOL:
+            raise AssertionError("moe ring fault control: the dropped "
+                                 "prefix passes (c)'s first-step limit")
+        log(f"moe ring fault control: fails as it should, "
+            f"{time.perf_counter() - t0:.1f} s; {card_line()}")
+    finally:
+        if job is not None:
             job.kill()
         shutil.rmtree(work, ignore_errors=True)
 
@@ -6961,6 +7446,10 @@ def main(argv=None) -> int:
                     help="also break the serving forward's and the train "
                          "step's device time down by kernel with "
                          "torch.profiler")
+    ap.add_argument("--moe-ring-fault", action="store_true",
+                    help="run only phase_moe_ep's dropped-prefix control "
+                         "(moe_ring_fault_control) and exit 0 when it "
+                         "fails as it should")
     args = ap.parse_args(argv)
 
     import torch
@@ -6972,6 +7461,9 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__}, cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     phase_build()
+    if args.moe_ring_fault:
+        moe_ring_fault_control(args.seed)
+        return 0
     kernels = {}
     for entry in (phase_kernels(args.seed), phase_bwd_kernel(args.seed),
                   phase_int8_kernel(args.seed)):
@@ -6997,6 +7489,7 @@ def main(argv=None) -> int:
     phase_mesh_cli(args.seed, kernels)
     phase_pp(args.seed, kernels)
     phase_fsdp(args.seed, kernels)
+    phase_moe_ep(args.seed, kernels)
     phase_roofline_tool(kernels)
     phase_bench()
     phase_trace()

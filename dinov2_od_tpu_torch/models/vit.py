@@ -54,8 +54,14 @@ HWIO `[p, p, 3, D]` kernel used as a `(py, px, c)`-ordered patch GEMM.
   and E experts in params["moe_blocks"] (`moe_boundary`; full-depth MoE
   has no "blocks"). `backbone_apply` then returns (features, moe_aux),
   the router's load-balance loss summed in fp32 over the MoE blocks and
-  divided by their number. MoE under a mesh or the ring raises: expert
-  parallelism is ROADMAP.md Queue A item 7.
+  divided by their number. Under a mesh the MoE blocks run as the dense
+  ones do (their attention split over the model axis, their tokens over
+  the ring), and the FFN puts E / M experts on each model rank (expert
+  parallelism, ops/moe.py `moe_ffn`, which takes the mesh, the ring and
+  `valid_len`: the ring's pad rows claim no expert slot); moe_aux is then
+  this data rank's share of the global batch's loss. Under FSDP the MoE
+  blocks' cut leaves, experts and router included, are gathered at the
+  block as the dense blocks' are.
 
 - FSDP (ZeRO-3 over the data axis, parallel/sharding.py `fsdp_dim`): each
   leaf cut over the data axis is gathered where it is used, not the whole
@@ -121,13 +127,11 @@ from .quantize import (
 Params = Dict[str, Any]
 
 
-def check_backbone_supported(cfg: BackboneConfig, mesh=None,
-                             attn_impl: str = "auto",
+def check_backbone_supported(cfg: BackboneConfig,
                              pipe_axis: Optional[str] = None) -> None:
-    """Raise for an FFN type the port does not know; for the MoE FFN or
-    the int8 prefix under a pipeline (JAX's ValueErrors, which its
-    backbone raises); and for the MoE FFN under another mesh or ring
-    attention."""
+    """Raise for an FFN type the port does not know, and for the MoE FFN
+    or the int8 prefix under a pipeline (JAX's ValueErrors, which its
+    backbone raises)."""
     if cfg.ffn_type not in ("mlp", "swiglu", "moe"):
         raise ValueError(f"unknown ffn_type {cfg.ffn_type!r}")
     if pipe_axis is not None:
@@ -140,11 +144,6 @@ def check_backbone_supported(cfg: BackboneConfig, mesh=None,
             raise ValueError(
                 "prefix_int8 is not supported under pipeline parallelism "
                 "(the depth stack is not split at the LoRA boundary there)")
-    if cfg.ffn_type == "moe" and (mesh is not None or attn_impl == "ring"):
-        raise NotImplementedError(
-            "ffn_type='moe' under a mesh or ring attention (expert "
-            "parallelism) is not ported yet (ROADMAP.md Queue A item 7, "
-            "MoE x EP)")
 
 
 def moe_boundary(cfg: BackboneConfig) -> int:
@@ -343,6 +342,7 @@ def _block_apply_moe(x, bp: Params, cfg: BackboneConfig, attn_impl: str,
         capacity_factor=cfg.moe_capacity_factor,
         activation=lambda h: F.gelu(
             h, approximate="tanh" if cfg.gelu_approximate else "none"),
+        mesh=mesh, valid_len=valid_len,
     )
     return x + bp["ls2"].to(x.dtype) * ffn_out, aux
 
@@ -406,7 +406,7 @@ def backbone_apply(
       projection to target_dim. Under ffn_type 'moe', (features,
       moe_aux): the MoE blocks' mean load-balance loss, fp32.
     """
-    check_backbone_supported(cfg, mesh, attn_impl, pipe_axis)
+    check_backbone_supported(cfg, pipe_axis)
     ring = attn_impl == "ring"
     if ring and (mesh is None or seq_axis is None):
         raise ValueError("attn_impl='ring' requires mesh and seq_axis")
@@ -453,16 +453,16 @@ def backbone_apply(
             return fn
         return lambda *a, **kw: checkpoint(fn, *a, **kw, use_reentrant=False)
 
-    # FSDP: the stack's depth-cut leaves whole once; every other cut leaf
+    # FSDP: a stack's depth-cut leaves whole once; every other cut leaf
     # gathered at its block (`gathered`), under remat inside the
     # checkpointed function.
     stack = ("backbone", "blocks")
     blocks = (fsdp_gather_stack(params["blocks"], stack, mesh)
               if "blocks" in params else None)
 
-    def gathered(fn):
+    def gathered(fn, path=stack):
         return lambda h, bp, *a, **kw: fn(
-            h, fsdp_gather_tree(bp, stack, mesh, stacked=True), *a, **kw)
+            h, fsdp_gather_tree(bp, path, mesh, stacked=True), *a, **kw)
 
     adapted = adapted_fn(gathered(_block_apply))
     moe = cfg.ffn_type == "moe"
@@ -501,11 +501,14 @@ def backbone_apply(
                         bp = quantize_blocks(bp, mesh)
                     x = _block_apply(x, bp, cfg, attn_impl, False, **blk)
         if moe:
-            moe_block = adapted_fn(_block_apply_moe)
+            moe_stack = ("backbone", "moe_blocks")
+            moe_blocks = fsdp_gather_stack(params["moe_blocks"], moe_stack,
+                                           mesh)
+            moe_block = adapted_fn(gathered(_block_apply_moe, moe_stack))
             moe_aux = torch.zeros((), dtype=torch.float32, device=x.device)
             for i in range(cfg.depth - k):
-                x, aux = moe_block(x, index_params(params["moe_blocks"], i),
-                                   cfg, attn_impl, True, **blk)
+                x, aux = moe_block(x, index_params(moe_blocks, i), cfg,
+                                   attn_impl, True, **blk)
                 moe_aux = moe_aux + aux
             moe_aux = moe_aux / (cfg.depth - k)
         else:

@@ -24,6 +24,13 @@
   `Mesh.fsdp_layout`); the gather's backward reduce-scatters (sums) the
   cotangent over the same group, so this rank gets its shard of the
   data-summed gradient.
+- The MoE FFN's routing under a mesh (ops/moe.py): `ring_counts`, a
+  shard's [B, E] slot claims of one top-k round gathered over the
+  context ring (the claims of the ranks before this one and the row's
+  total); `sum_over_batch`, the top-1 counts summed over the data group
+  and the ring, which split the global batch's tokens (no gradient);
+  `reduce_from_ring`, the router probabilities' sums over the ring,
+  identity backward (each rank's gradient its own tokens').
 - `reduce_gradients`: after the backward, the context group's sum of the
   gradients of the leaves its ranks each saw a share of the tokens of
   (parallel/sharding.py `backbone_partial`), the stage group's sum of
@@ -215,6 +222,43 @@ def reduce_from_model(x: torch.Tensor, mesh) -> torch.Tensor:
     if sharding.model_size(mesh) == 1:
         return x
     return _ReduceFromModel.apply(x, mesh)
+
+
+class _ReduceFromRing(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return all_reduce(x, mesh.context_group, mesh.backend)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def reduce_from_ring(x: torch.Tensor, mesh) -> torch.Tensor:
+    """x summed over the context ring; its gradient as it is."""
+    if sharding.context_size(mesh) == 1:
+        return x
+    return _ReduceFromRing.apply(x, mesh)
+
+
+def sum_over_batch(t: torch.Tensor, mesh) -> torch.Tensor:
+    """t (no gradient) summed over the data group and the context ring:
+    the ranks that hold the global batch's tokens between them."""
+    t = t.detach()
+    if sharding.data_place(mesh)[0] > 1:
+        t = all_reduce(t, mesh.data_group, mesh.backend)
+    if sharding.context_size(mesh) > 1:
+        t = all_reduce(t, mesh.context_group, mesh.backend)
+    return t
+
+
+def ring_counts(local: torch.Tensor, mesh):
+    """(the sum of `local` over the ring ranks before this one, its sum
+    over the whole ring): one all-gather over the context group. For the
+    MoE routing's [B, E] slot claims of a round (gloo carries them as
+    int64)."""
+    parts = torch.stack(all_gather(local, mesh.context_group, mesh.backend))
+    return parts[:mesh.context_index].sum(0), parts.sum(0)
 
 
 def ring_shift(t: torch.Tensor, mesh, offset: int = 1) -> torch.Tensor:

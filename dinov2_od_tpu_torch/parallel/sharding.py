@@ -21,6 +21,13 @@ by leaf name:
 - int8 trees (models/quantize.py): `kernel_q` shards as `kernel` does,
   and stays K-major in its shard; `w_scale` shards with the output dim of
   a column-parallel linear and stays replicated on a row-parallel one;
+- expert parallelism (parent "moe", the MoE FFN's leaves): the experts'
+  `fc1_kernel` / `fc2_kernel` [depth, E, ., .] shard their E (dim -3),
+  `fc1_bias` / `fc2_bias` [depth, E, .] theirs (dim -2), so each model
+  rank holds and multiplies E / M experts (ops/moe.py); the
+  `router_kernel` stays replicated (every token needs all E logits), its
+  gradient partial (`partial_grad`: the combine's path reaches it
+  through this rank's experts only);
 - everything else replicated, among them the LoRA factors on the other
   side of each split, the row-parallel biases, the deformable offset and
   weight projections, LayerNorm and LayerScale vectors and the embeddings.
@@ -281,6 +288,10 @@ def shard_dim(path: Tuple[str, ...]) -> Optional[int]:
     at `path` shards over the model axis; None when it is replicated."""
     parent = path[-2] if len(path) >= 2 else ""
     name = path[-1]
+    if parent == "moe":
+        if name in ("fc1_kernel", "fc2_kernel"):
+            return -3
+        return -2 if name in ("fc1_bias", "fc2_bias") else None
     if parent == "deform":
         if name in _DEFORM_COL:
             return -1
@@ -335,10 +346,13 @@ def fsdp(mesh: Optional[Mesh]) -> bool:
 def partial_grad(path: Tuple[str, ...]) -> bool:
     """A replicated leaf whose gradient each rank holds only its share of:
     the LoRA factor on the replicated side of a split linear (its product
-    runs over this rank's columns or rows only) and the deformable offset
-    and weight projections (each rank takes its heads' columns)."""
+    runs over this rank's columns or rows only), the deformable offset
+    and weight projections (each rank takes its heads' columns) and the
+    MoE router (its combine weights reach this rank's experts only)."""
     parent = path[-2] if len(path) >= 2 else ""
     name = path[-1]
+    if parent == "moe":
+        return name == "router_kernel"
     if parent in _COL_PARALLEL:
         return name == "lora_A"
     if parent in _ROW_PARALLEL:
@@ -504,8 +518,8 @@ def gather_params(shards: Params, mesh: Mesh) -> Params:
 
 
 def check_tp_compatible(detector_cfg, model_parallel_size: int) -> None:
-    """Head counts and sharded dims must divide the model axis, as the JAX
-    package requires."""
+    """Head counts, sharded dims and the MoE FFN's experts must divide the
+    model axis, as the JAX package requires."""
     if model_parallel_size <= 1:
         return
     tp = model_parallel_size
@@ -524,6 +538,11 @@ def check_tp_compatible(detector_cfg, model_parallel_size: int) -> None:
         if dim % tp != 0:
             raise ValueError(
                 f"{what}={dim} not divisible by model_parallel_size={tp}")
+    if bb.ffn_type == "moe" and bb.moe_num_experts % tp != 0:
+        raise ValueError(
+            f"backbone moe_num_experts={bb.moe_num_experts} not divisible "
+            f"by model_parallel_size={tp} (experts shard over the model "
+            f"axis)")
 
 
 def batch_sharding(batch: Dict[str, torch.Tensor],

@@ -235,13 +235,14 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--n_points", type=int, default=2)
     p.add_argument("--dino_model", type=str, default="facebook/dinov2-base")
     # MoE backbone FFN (beyond reference; ops/moe.py), in the adapted
-    # blocks. Expert parallelism is ROADMAP.md Queue A item 7.
+    # blocks; under --model_parallel its experts shard over the model
+    # axis (EP).
     p.add_argument("--ffn_type", type=str, default=None,
                    choices=["mlp", "swiglu", "moe"],
                    help="override the backbone FFN type (default: the "
                         "ViT variant's — mlp, swiglu for giant); 'moe' "
                         "swaps in a mixture-of-experts FFN in the adapted "
-                        "blocks")
+                        "blocks with expert-parallel sharding")
     p.add_argument("--moe_experts", type=int,
                    default=8,
                    help="experts per MoE layer (with --ffn_type moe)")

@@ -299,7 +299,7 @@ def make_train_step(cfg: TrainConfig, mesh=None):
     _cp_kwargs(cfg, mesh)
     check_pipeline(cfg)
     check_tp_compatible(cfg.detector, tp)
-    check_backbone_supported(cfg.detector.backbone, mesh)
+    check_backbone_supported(cfg.detector.backbone)
     det_cfg = cfg.detector
     k_acc = cfg.optim.gradient_accumulation_steps
     if k_acc < 1:

@@ -378,20 +378,25 @@ def test_cast_frozen_weights_bf16_matches_jax():
 
 
 def test_unported_options_raise(monkeypatch):
-    """MoE runs on one process; under a mesh (expert parallelism) it
-    raises naming ROADMAP.md Queue A item 7. Entry points want CUDA
-    unless asked for the CPU."""
-    from dinov2_od_tpu_torch.parallel.sharding import Mesh
+    """MoE runs under a mesh (expert parallelism); under a pipeline it
+    raises JAX's ValueError, and experts that do not divide the model
+    axis raise `check_tp_compatible`'s. Entry points want CUDA unless
+    asked for the CPU."""
+    from dinov2_od_tpu_torch.parallel.sharding import check_tp_compatible
 
     _, _, pc = _trees()
     moe = dataclasses.replace(
         pc, backbone=dataclasses.replace(pc.backbone,
                                          ffn_type_override="moe"))
     params = init_detector_params(torch.Generator(), moe, device="cpu")
-    mesh = Mesh(data_size=1, model_size=2, data_index=0, model_index=0,
-                data_group=None, model_group=None, backend="gloo")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        detector_apply(params, moe, torch.from_numpy(_images()), mesh=mesh)
+    with pytest.raises(ValueError, match="not supported under pipeline"):
+        detector_apply(params, moe, torch.from_numpy(_images()),
+                       pipe_axis="stage")
+    check_tp_compatible(moe, 2)  # 8 experts, 4 a rank
+    three = dataclasses.replace(
+        moe, backbone=dataclasses.replace(moe.backbone, moe_num_experts=3))
+    with pytest.raises(ValueError, match="moe_num_experts=3 not divisible"):
+        check_tp_compatible(three, 2)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         init_detector_params(torch.Generator(), pc)

@@ -574,23 +574,35 @@ def test_router_and_expert_gradients_match_jax(jax_step, remat):
 
 
 def test_moe_under_a_mesh_or_the_ring_raises():
-    """Expert parallelism is ROADMAP.md Queue A item 7: MoE under a mesh
-    (the backbone, the train step) or ring attention raises and names
-    it."""
+    """MoE runs under a mesh and the ring now (tests/test_torch_moe_ep.py,
+    tests/test_torch_mesh_moe.py); what still raises: MoE under a pipeline
+    (the backbone and the train step, JAX's ValueError), experts that do
+    not divide the model axis (JAX's `check_tp_compatible` message, word
+    for word) and MoE without adapted blocks."""
+    from dinov2_od_tpu.parallel.sharding import (
+        check_tp_compatible as jax_check_tp)
+
     _, pc = _cfgs()
     params = init_detector_params(torch.Generator().manual_seed(0), pc,
                                   device="cpu")
+    x = torch.from_numpy(_images())
+    with pytest.raises(ValueError, match="not supported under pipeline"):
+        backbone_apply(params["backbone"], pc.backbone, x, pipe_axis="stage")
+    piped = pcfg.TrainConfig(detector=pc, mesh=pcfg.MeshConfig(
+        pipeline_parallel_size=2))
+    with pytest.raises(ValueError, match="not supported under pipeline"):
+        make_train_step(piped)
+    jc3, pc3 = _cfgs(moe_num_experts=3)
+    with pytest.raises(ValueError) as want:
+        jax_check_tp(jc3, 2)
     mesh = Mesh(data_size=1, model_size=2, data_index=0, model_index=0,
                 data_group=None, model_group=None, backend="gloo")
-    x = torch.from_numpy(_images())
-    with pytest.raises(NotImplementedError, match="item 7"):
-        backbone_apply(params["backbone"], pc.backbone, x, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        detector_apply(params, pc, x, attn_impl="ring", seq_axis="model")
-    cfg = pcfg.TrainConfig(detector=pc,
+    cfg = pcfg.TrainConfig(detector=pc3,
                            mesh=pcfg.MeshConfig(model_parallel_size=2))
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError) as got:
         make_train_step(cfg, mesh)
+    assert str(got.value) == str(want.value)
+    assert "moe_num_experts=3" in str(got.value)
     with pytest.raises(ValueError, match="lora_last_n_blocks > 0"):
         init_detector_params(torch.Generator(), dataclasses.replace(
             pc, backbone=dataclasses.replace(pc.backbone,
