@@ -30,13 +30,16 @@ JAX package's:
   from a seeded `torch.Generator`, so the two may park a leftover bidder
   on different pad columns (never a different real pairing cost).
 - `rounds_per_step` rounds between convergence checks: the check is the
-  one host sync, so the loop syncs once per `rounds_per_step` rounds.
-  Rounds after an image converged place no bids (no-ops).
+  one host sync, so the loop syncs once per `rounds_per_step` rounds,
+  and once more as a phase ends. Rounds after an image converged place
+  no bids (no-ops). In a profiled run each check is an `auction.check`
+  span, so the trace counts the syncs where they happen.
 - On a CUDA device the `rounds_per_step` rounds run as one CUDA graph
   replay: a round is ~25 tiny tensor ops, which issued eagerly cost their
   launches, not their work (~0.5 ms a round on an H100, PERF.md). The
-  graph is captured once per (shape, eps, rounds_per_step) and kept, its
-  state in static buffers that the rounds update in place; the same ops
+  graph is captured once per (shape, eps, rounds_per_step) and kept
+  (an `auction.capture` span in a profiled run), its state in static
+  buffers that the rounds update in place; the same ops
   run eagerly on the CPU. One auction at a time uses a graph (the train
   step's matcher calls them one after another).
 - `round_cap` rounds at most per image, then a greedy completion keeps
@@ -51,6 +54,8 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from ..utils.profiling import annotate
 
 # Bid and price sentinel; fp32 like the costs it is compared with.
 _NEG = -1e9
@@ -143,7 +148,8 @@ def _rounds(shape, k: int, e: float, device):
         return _EagerRounds(k, e)
     key = (*shape, k, e, device)
     if key not in _graphs:
-        _graphs[key] = _GraphedRounds(*shape, k, e, device)
+        with annotate("auction.capture"):
+            _graphs[key] = _GraphedRounds(*shape, k, e, device)
     return _graphs[key]
 
 
@@ -240,7 +246,9 @@ def auction_assign(
         while True:
             active = ((row_valid & (runner.col_of_row < 0)).any(dim=1)
                       & (budget > 0))
-            if not bool(active.any()):  # the one host sync per step
+            with annotate("auction.check"):  # the one host sync per step
+                converged = not bool(active.any())
+            if converged:
                 break
             runner.run(active)
             budget = budget - rounds_per_step * active

@@ -16,6 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate
+
 
 def hungarian_assign_batched(cost: torch.Tensor,
                              gt_valid: torch.Tensor) -> torch.Tensor:
@@ -32,7 +34,7 @@ def hungarian_assign_batched(cost: torch.Tensor,
     """
     from scipy.optimize import linear_sum_assignment
 
-    with torch.profiler.record_function("matcher_host_solve"):
+    with annotate("matcher_host_solve"):
         cost_np = cost.detach().float().cpu().numpy()
         valid_np = gt_valid.detach().cpu().numpy().astype(bool)
         out = np.full(valid_np.shape, -1, np.int64)

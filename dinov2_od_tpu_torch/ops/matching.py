@@ -16,6 +16,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import MatcherConfig
+from ..utils.profiling import annotate
 from .auction import auction_assign
 from .boxes import box_cxcywh_to_xyxy, generalized_box_iou
 from .hungarian import hungarian_assign_batched
@@ -98,34 +99,37 @@ def hungarian_match(
     gt_valid: torch.Tensor,
     cfg: MatcherConfig = MatcherConfig(),
 ) -> MatchResult:
-    """Batched optimal matching; no gradient flows through it.
+    """Batched optimal matching; no gradient flows through it. The call is
+    the `step.match` span of a profiled run (the train step's matcher
+    phase, inside its `step.criterion`).
 
     Args:
       pred_logits: [B, Q, C]; pred_boxes: [B, Q, 4] cxcywh.
       gt_labels: [B, G]; gt_boxes: [B, G, 4]; gt_valid: [B, G] bool.
     """
-    num_queries, num_gt = pred_logits.shape[1], gt_labels.shape[1]
-    solver = cfg.assignment
-    if solver == "auto":
-        # Threshold on the padded GT count (the augmenting paths JV may
-        # need), not max(Q, G): at sparse GT the exact solve is cheap.
-        solver = "auction" if num_gt >= cfg.auction_threshold else "jv"
-    if solver not in ("jv", "auction"):
-        raise ValueError(f"unknown assignment {cfg.assignment!r}")
-    if cfg.replicate_batch0_bug:
-        # The original matcher sliced its batch-flattened cost matrix
-        # C[:num_queries], i.e. image 0's rows, for every image.
-        pred_logits = pred_logits[:1].expand_as(pred_logits)
-        pred_boxes = pred_boxes[:1].expand_as(pred_boxes)
-    cost = matching_cost_matrix(pred_logits, pred_boxes, gt_labels, gt_boxes,
-                                gt_valid, cfg)
-    solver_stats[solver] += 1
-    if solver == "auction":
-        query_of_gt = _auction_match(cost, gt_valid, num_queries, num_gt)
-    else:
-        query_of_gt = hungarian_assign_batched(cost, gt_valid)
-    return MatchResult(query_of_gt=query_of_gt,
-                       match_valid=(query_of_gt >= 0) & gt_valid)
+    with annotate("step.match"):
+        num_queries, num_gt = pred_logits.shape[1], gt_labels.shape[1]
+        solver = cfg.assignment
+        if solver == "auto":
+            # Threshold on the padded GT count (the augmenting paths JV may
+            # need), not max(Q, G): at sparse GT the exact solve is cheap.
+            solver = "auction" if num_gt >= cfg.auction_threshold else "jv"
+        if solver not in ("jv", "auction"):
+            raise ValueError(f"unknown assignment {cfg.assignment!r}")
+        if cfg.replicate_batch0_bug:
+            # The original matcher sliced its batch-flattened cost matrix
+            # C[:num_queries], i.e. image 0's rows, for every image.
+            pred_logits = pred_logits[:1].expand_as(pred_logits)
+            pred_boxes = pred_boxes[:1].expand_as(pred_boxes)
+        cost = matching_cost_matrix(pred_logits, pred_boxes, gt_labels,
+                                    gt_boxes, gt_valid, cfg)
+        solver_stats[solver] += 1
+        if solver == "auction":
+            query_of_gt = _auction_match(cost, gt_valid, num_queries, num_gt)
+        else:
+            query_of_gt = hungarian_assign_batched(cost, gt_valid)
+        return MatchResult(query_of_gt=query_of_gt,
+                           match_valid=(query_of_gt >= 0) & gt_valid)
 
 
 def _auction_match(cost_qg: torch.Tensor, gt_valid: torch.Tensor,

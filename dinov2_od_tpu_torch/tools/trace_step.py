@@ -6,7 +6,9 @@ Builds the bench's configuration from the same environment knobs
 BENCH_MODE=eval with BENCH_QUANT=int8, ...), runs one untraced step, then
 `--steps` steps under `utils.profiling.trace`, and sums the Chrome trace's
 CUDA kernel events (not the host's op events, which would count the same
-work twice) by kernel family.
+work twice) by kernel family. Then it splits the card's busy and idle
+time by the train step's phases (`phase_split`: the `step.*` spans of
+train/step.py and ops/matching.py).
 
 Usage:
   BENCH_MODEL=large BENCH_IMAGE_SIZE=560 BENCH_BATCH=8 BENCH_MODE=eval \\
@@ -14,7 +16,8 @@ Usage:
 
 Prints one JSON line with the device ms and kernels per step, one per
 group with its ms and share, sorted by time, then the `--top` kernels
-with their ms and launches per step.
+with their ms and launches per step, then one line a phase with its busy
+and idle ms per step.
 """
 
 from __future__ import annotations
@@ -53,6 +56,14 @@ GROUPS = [
         re.I)),
 ]
 OTHER = "other"
+
+# The traced steps' span, the phases' prefix, and the trace's categories
+# of the card's operations and of the host calls that launched them.
+WINDOW = "trace_step.window"
+PHASE_PREFIX = "step."
+NO_PHASE = "none"
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 
 
 @functools.lru_cache(maxsize=None)
@@ -111,6 +122,72 @@ def summarize(trace_path: str, steps: int) -> dict:
             "by_source": by_source, "by_name": by_name, "calls": calls}
 
 
+def phase_split(events: List[dict], window: str = WINDOW) -> dict:
+    """The card's busy and idle seconds inside the `window` span of a
+    Chrome trace's events (times in us), by the train step's phase.
+
+    An operation (kernel, copy, set) belongs to the narrowest `step.*`
+    span open on the host when the call that launched it ran, found
+    through the trace's `correlation` id (a CUDA graph's kernels share
+    their `cudaGraphLaunch`'s); where operations overlap, the time goes to
+    the one that started first, so the phases' busy seconds sum to the
+    union of the operations' intervals. An idle gap belongs to the
+    narrowest `step.*` span open at its start. Time outside every phase
+    is under "none"; a phase that ran and got nothing reads 0.0.
+
+    Returns {"window_s", "busy_s", "phase_busy_s", "phase_idle_s",
+    "phase_counts"}."""
+    win = [e for e in events if e.get("ph") == "X"
+           and e.get("name") == window]
+    if not win:
+        raise ValueError(f"the trace holds no {window} span")
+    w0 = float(win[0]["ts"])
+    w1 = w0 + float(win[0]["dur"])
+    phases, launched, ops = [], {}, []
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        s, cat = float(e.get("ts", 0.0)), e.get("cat", "")
+        corr = (e.get("args") or {}).get("correlation")
+        if cat == "user_annotation" and \
+                e.get("name", "").startswith(PHASE_PREFIX):
+            phases.append((s, s + float(e.get("dur", 0.0)), e["name"]))
+        elif cat in LAUNCH_CATS and corr is not None:
+            launched[corr] = s
+        elif cat in DEVICE_CATS:
+            s0 = max(s, w0)
+            s1 = min(s + float(e.get("dur", 0.0)), w1)
+            if s1 > s0:
+                ops.append((s0, s1, corr))
+
+    def phase_at(t: float) -> str:
+        open_ = [(e - s, n) for s, e, n in phases if s <= t < e]
+        return min(open_)[1] if open_ else NO_PHASE
+
+    busy = collections.Counter({n: 0.0 for _, _, n in phases})
+    idle = collections.Counter({n: 0.0 for _, _, n in phases})
+    counts = collections.Counter(n for _, _, n in phases)
+    # Each op's time past the end of what earlier-starting ops covered.
+    cursor, gaps = w0, []
+    for s0, s1, corr in sorted(ops, key=lambda o: (o[0], o[1])):
+        if s0 > cursor:
+            gaps.append((cursor, s0))
+        if s1 > cursor:
+            t = launched.get(corr)
+            phase = NO_PHASE if t is None else phase_at(t)
+            busy[phase] += (s1 - max(s0, cursor)) / 1e6
+            cursor = s1
+    if w1 > cursor:
+        gaps.append((cursor, w1))
+    for g0, g1 in gaps:
+        idle[phase_at(g0)] += (g1 - g0) / 1e6
+    busy.setdefault(NO_PHASE, 0.0)
+    idle.setdefault(NO_PHASE, 0.0)
+    return {"window_s": (w1 - w0) / 1e6, "busy_s": sum(busy.values()),
+            "phase_busy_s": dict(busy), "phase_idle_s": dict(idle),
+            "phase_counts": dict(counts)}
+
+
 def build_step(env: Mapping[str, str]):
     """(step, state, batch, generator) of the bench's configuration; under
     BENCH_MODE=eval the step is the serving forward on the folded (and,
@@ -165,22 +242,39 @@ def report(summary: dict, top: int, out: TextIO = sys.stdout) -> None:
     out.flush()
 
 
+def report_phases(split: dict, steps: int, out: TextIO = sys.stdout) -> None:
+    """One JSON line a phase: busy and idle ms and spans per step."""
+    for p in sorted(split["phase_busy_s"],
+                    key=lambda p: -(split["phase_busy_s"][p]
+                                    + split["phase_idle_s"][p])):
+        print(json.dumps({
+            "phase": p,
+            "busy_ms": round(1e3 * split["phase_busy_s"][p] / steps, 3),
+            "idle_ms": round(1e3 * split["phase_idle_s"][p] / steps, 3),
+            "spans": split["phase_counts"].get(p, 0) / steps}), file=out)
+    out.flush()
+
+
 def run(args: argparse.Namespace, env: Mapping[str, str],
         out: TextIO = sys.stdout) -> dict:
     """Trace `args.steps` steps, print the report, return the summary."""
-    from ..utils.profiling import TRACE_FILE, trace
+    from ..utils.profiling import TRACE_FILE, annotate, trace
 
     step, state, batch, gen = build_step(env)
     state, _ = step(state, batch, gen)  # warm-up, outside the trace
     torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         logdir = args.logdir or tmp
-        with trace(logdir):
+        with trace(logdir), annotate(WINDOW):
             for _ in range(args.steps):
                 state, _ = step(state, batch, gen)
             torch.cuda.synchronize()
-        summary = summarize(os.path.join(logdir, TRACE_FILE), args.steps)
+        path = os.path.join(logdir, TRACE_FILE)
+        summary = summarize(path, args.steps)
+        with open(path) as f:
+            split = phase_split(json.load(f).get("traceEvents", []))
     report(summary, args.top, out)
+    report_phases(split, args.steps, out)
     return summary
 
 

@@ -56,6 +56,7 @@ from ..parallel.collectives import (
 )
 from ..parallel.pipeline import check_schedule
 from ..parallel.sharding import check_tp_compatible, fsdp, leaf_paths
+from ..utils.profiling import annotate
 from .state import (
     AdamTable,
     TrainState,
@@ -155,21 +156,25 @@ def train_loss(cfg: TrainConfig, params, batch: Batch,
     shard and the batch its slice: the loss is its share of the global
     one."""
     det_cfg = cfg.detector
-    images = prep_images(batch["images"], cfg.data.normalize)
     kw = {"attn_impl": attn_impl, **_cp_kwargs(cfg, mesh)}
-    out = detector_apply(params, det_cfg, images, generator=generator,
-                         deterministic=False, mesh=mesh,
-                         use_remat=cfg.use_remat, **kw)
+    with annotate("step.forward"):
+        images = prep_images(batch["images"], cfg.data.normalize)
+        out = detector_apply(params, det_cfg, images, generator=generator,
+                             deterministic=False, mesh=mesh,
+                             use_remat=cfg.use_remat, **kw)
     kw = dict(matcher_cfg=cfg.matcher, loss_cfg=cfg.loss,
               num_classes=det_cfg.decoder.num_classes, mesh=mesh)
     gt = (batch["labels"], batch["boxes"], batch["valid"])
-    losses, final_match = set_criterion(out["pred_logits"], out["pred_boxes"],
-                                        *gt, return_match=True, **kw)
+    with annotate("step.criterion"):
+        losses, final_match = set_criterion(
+            out["pred_logits"], out["pred_boxes"], *gt, return_match=True,
+            **kw)
     total = losses["loss"]
     for i, aux in enumerate(out.get("aux_outputs", [])):
-        aux_losses = set_criterion(
-            aux["pred_logits"], aux["pred_boxes"], *gt,
-            match=final_match if cfg.share_aux_match else None, **kw)
+        with annotate("step.criterion"):
+            aux_losses = set_criterion(
+                aux["pred_logits"], aux["pred_boxes"], *gt,
+                match=final_match if cfg.share_aux_match else None, **kw)
         total = total + aux_losses["loss"]
         losses[f"loss_aux_{i}"] = aux_losses["loss"]
     if "moe_aux" in out:
@@ -191,19 +196,20 @@ def train_grads(cfg: TrainConfig, state: TrainState, batch: Batch,
     params = state.params
     total, losses = train_loss(cfg, params, batch, generator,
                                attn_impl=attn_impl, mesh=mesh)
-    grads = list(torch.autograd.grad(
-        total, trainable_leaves(params, state.opt_state),
-        materialize_grads=True))
-    losses = {k: v.detach() for k, v in losses.items()}
-    if mesh is not None:
-        reduce_gradients(grads, leaf_paths(state.opt_state.mu), mesh)
-        if mesh.data_size > 1:
-            # Each rank's terms are its share of the global sums; the box
-            # count is global already.
-            terms = [v for k, v in losses.items() if k != "num_boxes"]
-            all_reduce_coalesced_(terms, mesh.data_group, mesh.backend)
-    grads = tree_unflatten(state.opt_state.mu, grads)
-    return losses, mask_gradients(grads, params, cfg.detector)
+    with annotate("step.backward"):
+        grads = list(torch.autograd.grad(
+            total, trainable_leaves(params, state.opt_state),
+            materialize_grads=True))
+        losses = {k: v.detach() for k, v in losses.items()}
+        if mesh is not None:
+            reduce_gradients(grads, leaf_paths(state.opt_state.mu), mesh)
+            if mesh.data_size > 1:
+                # Each rank's terms are its share of the global sums; the
+                # box count is global already.
+                terms = [v for k, v in losses.items() if k != "num_boxes"]
+                all_reduce_coalesced_(terms, mesh.data_group, mesh.backend)
+        grads = tree_unflatten(state.opt_state.mu, grads)
+        return losses, mask_gradients(grads, params, cfg.detector)
 
 
 def _unit_interval_images(images: torch.Tensor,
@@ -291,7 +297,13 @@ def make_train_step(cfg: TrainConfig, mesh=None):
     Under `mesh` (parallel/sharding.py `create_mesh` from cfg.mesh) every
     rank calls the step with its state of param shards (`shard_params`),
     its batch slice (`batch_sharding`) and a generator seeded as every
-    other rank's; the metrics are the global batch's."""
+    other rank's; the metrics are the global batch's.
+
+    Under a profiler the step's phases are spans that do not overlap
+    (utils/profiling.py `annotate`): step.augment, step.forward, one
+    step.criterion a decoder layer matched (each holding the matcher's
+    step.match), step.backward (with the mesh's reductions) and
+    step.update (the clip's norm, the update, the EMA)."""
     tp = cfg.mesh.tensor_parallel_size
     if (mesh.model_size if mesh is not None else 1) != tp:
         raise ValueError(f"cfg.mesh's tensor-parallel size {tp} needs a "
@@ -356,18 +368,14 @@ def make_train_step(cfg: TrainConfig, mesh=None):
         state.opt_state = opt._replace(count=opt.count + emit.long(),
                                        mini_step=ms)
 
-    def step(state: TrainState, batch: Batch,
-             generator: Optional[torch.Generator] = None):
-        if cfg.augment.enabled:
-            batch = augment_step_batch(cfg, batch, generator, mesh)
-        params = state.params
-        metrics, grads = train_grads(cfg, state, batch, generator, mesh=mesh)
-        leaves = trainable_leaves(params, state.opt_state)
+    def update(state: TrainState, grads, metrics) -> None:
+        """The clip's norm, then the update (accumulated, guarded or
+        plain), the EMA and the new optimizer state, into `state`."""
+        leaves = trainable_leaves(state.params, state.opt_state)
         metrics["grad_norm"] = global_norm(grads, mesh)
         if cfg.optim.skip_nonfinite:
             guarded(state, grads, metrics)
-            state.step += 1
-            return state, metrics
+            return
         opt_state = state.opt_state
         if k_acc > 1:
             ms = opt_state.mini_step
@@ -377,21 +385,29 @@ def make_train_step(cfg: TrainConfig, mesh=None):
                 state.opt_state = opt_state._replace(mini_step=ms + 1)
                 with torch.no_grad():
                     ema_step(state)
-                state.step += 1
-                return state, metrics
+                return
             grads = tree_unflatten(opt_state.mu, acc)
             torch._foreach_zero_(tree_leaves(opt_state.acc))
             opt_state = opt_state._replace(mini_step=0)
-        updates, opt_state = optimizer_update(grads, opt_state, params,
+        updates, opt_state = optimizer_update(grads, opt_state, state.params,
                                               cfg.optim, mesh)
         # Masked again: weight decay re-adds wd * param where the gradient
         # was zeroed, which would move the non-adapted blocks' LoRA rows.
-        updates = mask_gradients(updates, params, det_cfg)
+        updates = mask_gradients(updates, state.params, det_cfg)
         with torch.no_grad():
             torch._foreach_add_(leaves, tree_leaves(updates))
             ema_step(state)
-        state.step += 1
         state.opt_state = opt_state
+
+    def step(state: TrainState, batch: Batch,
+             generator: Optional[torch.Generator] = None):
+        if cfg.augment.enabled:
+            with annotate("step.augment"):
+                batch = augment_step_batch(cfg, batch, generator, mesh)
+        metrics, grads = train_grads(cfg, state, batch, generator, mesh=mesh)
+        with annotate("step.update"):
+            update(state, grads, metrics)
+        state.step += 1
         return state, metrics
 
     return step

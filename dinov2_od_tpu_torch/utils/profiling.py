@@ -3,22 +3,24 @@
 - `trace(logdir)`: a torch.profiler context over the host's ops and the
   card's kernels that writes a Chrome trace, `<logdir>/trace.json`
   (chrome://tracing or Perfetto; `tools/trace_step.py` summarises it).
-- `annotate(name)`: a named region in that trace.
-- `StepTimer`: rolling wall-clock stats for train loops.
+- `annotate(name)`: a named region in that trace, on the profiler's own
+  clock beside the card's kernels, copies and sets; one flag check when
+  no profiler runs.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from collections import deque
-from typing import Iterator, Optional
+from typing import Iterator
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 from torch.profiler import ProfilerActivity, profile, record_function
 
 TRACE_FILE = "trace.json"
+# What `annotate` returns while no profiler runs: reusable and reentrant.
+_NO_SPAN = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -34,35 +36,13 @@ def trace(logdir: str) -> Iterator[profile]:
 
 
 def annotate(name: str):
-    """Named trace region: `with annotate('matcher'): ...`."""
-    return record_function(name)
+    """Named trace region: `with annotate('step.match'): ...`. A
+    `record_function` span only while a profiler is active; otherwise a
+    shared no-op context, so the span costs the program one flag check
+    (a `record_function` costs its ops even with no profiler to see it)."""
+    if _autograd_profiler._is_profiler_enabled:
+        return record_function(name)
+    return _NO_SPAN
 
 
-class StepTimer:
-    """Rolling throughput stats for a training loop."""
-
-    def __init__(self, window: int = 50):
-        self.times = deque(maxlen=window)
-        self._last: Optional[float] = None
-
-    def tick(self) -> Optional[float]:
-        now = time.perf_counter()
-        dt = None
-        if self._last is not None:
-            dt = now - self._last
-            self.times.append(dt)
-        self._last = now
-        return dt
-
-    @property
-    def mean_sec(self) -> float:
-        if not self.times:
-            return float("nan")
-        return sum(self.times) / len(self.times)
-
-    def images_per_sec(self, batch_size: int) -> float:
-        m = self.mean_sec
-        return batch_size / m if m == m and m > 0 else float("nan")
-
-
-__all__ = ["StepTimer", "TRACE_FILE", "annotate", "trace"]
+__all__ = ["TRACE_FILE", "annotate", "trace"]

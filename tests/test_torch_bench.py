@@ -1,7 +1,8 @@
 """The port's measurement path on the CPU: the bench's configuration
 against the one the repo's bench.py builds from the same knobs, the bench
-refusing to run without a card, the timing helpers with device="cpu", and
-trace_step's grouping of kernel names and its Chrome-trace parser.
+refusing to run without a card, the timing helpers with device="cpu",
+trace_step's grouping of kernel names, its Chrome-trace parser and its
+split of the card's time by the train step's phases, and the span helper.
 
 bench.py builds its TrainConfig inside `main()`, so the test runs the
 statements of `main` up to that `cfg = TrainConfig(...)` assignment, taken
@@ -9,6 +10,7 @@ out of its source with `ast`; bench.py itself is not edited."""
 
 import ast
 import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -22,8 +24,8 @@ import torch
 from dinov2_od_tpu_torch.bench import bench_config
 from dinov2_od_tpu_torch.tools import trace_step
 from dinov2_od_tpu_torch.utils.benchmark import measure_steps_per_sec, time_fn
-from dinov2_od_tpu_torch.utils.profiling import (TRACE_FILE, StepTimer,
-                                                 annotate, trace)
+from dinov2_od_tpu_torch.utils import profiling
+from dinov2_od_tpu_torch.utils.profiling import TRACE_FILE, annotate, trace
 
 REPO = Path(__file__).resolve().parent.parent
 KNOBS = ("BENCH_BATCH", "BENCH_MODEL", "BENCH_IMAGE_SIZE", "BENCH_MODE",
@@ -284,11 +286,109 @@ def test_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):
     assert s["device_ms_per_step"] == 0 and s["kernels_per_step"] == 0
 
 
-def test_step_timer_rolls_over_its_window():
-    timer = StepTimer(window=2)
-    assert timer.tick() is None and timer.mean_sec != timer.mean_sec  # nan
-    for _ in range(3):
-        time.sleep(0.001)
-        assert timer.tick() > 0
-    assert len(timer.times) == 2
-    assert timer.images_per_sec(8) == pytest.approx(8 / timer.mean_sec)
+def test_annotate_records_only_under_a_profiler(monkeypatch):
+    made = []
+    monkeypatch.setattr(profiling, "record_function",
+                        lambda name: made.append(name) or
+                        torch.profiler.record_function(name))
+    assert annotate("a") is annotate("b")  # the shared no-op
+    with annotate("a"), annotate("b"):
+        pass
+    assert made == []
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with annotate("inside"):
+            torch.ones(2) + 1
+    assert made == ["inside"]
+    assert "inside" in {e.name for e in prof.events()}
+    with annotate("after"):
+        pass
+    assert made == ["inside"]
+
+
+def _x(name, cat, ts, dur, corr=None):
+    ev = {"ph": "X", "name": name, "cat": cat, "ts": ts, "dur": dur}
+    if corr is not None:
+        ev["args"] = {"correlation": corr}
+    return ev
+
+
+def hand_phase_trace():
+    """A 100 us window (at 1000 us). The host: step.forward over [0, 30),
+    step.criterion over [30, 60) holding step.match over [35, 55) and its
+    auction.check over [40, 50), step.backward over [60, 90), nothing
+    after. Launches (correlation id: time): 1 at 1 (forward), 2 at 36
+    (match), a cudaGraphLaunch 3 at 41 (match: three kernels), 4 at 58
+    (criterion), 5 at 61 (backward), 6 at 95 (no phase), and 7 at 20 in
+    the forward whose kernel runs past the window's end."""
+    k = "kernel"
+    return [
+        _x("trace_step.window", "user_annotation", 1000, 100),
+        _x("step.forward", "user_annotation", 1000, 30),
+        _x("step.criterion", "user_annotation", 1030, 30),
+        _x("step.match", "user_annotation", 1035, 20),
+        _x("auction.check", "user_annotation", 1040, 10),
+        _x("step.backward", "user_annotation", 1060, 30),
+        _x("cudaLaunchKernel", "cuda_runtime", 1001, 2, corr=1),
+        _x("cudaLaunchKernel", "cuda_runtime", 1020, 2, corr=7),
+        _x("cudaMemcpyAsync", "cuda_runtime", 1036, 2, corr=2),
+        _x("cudaGraphLaunch", "cuda_runtime", 1041, 2, corr=3),
+        _x("cuLaunchKernel", "cuda_driver", 1058, 1, corr=4),
+        _x("cudaLaunchKernel", "cuda_runtime", 1061, 2, corr=5),
+        _x("cudaLaunchKernel", "cuda_runtime", 1095, 2, corr=6),
+        # Device: [5, 25) forward; [25, 30) forward too (overlapping the
+        # first, which started earlier); a copy [36, 38) from the match;
+        # the graph's kernels [42, 44), [44, 47), [50, 52); [58, 60) the
+        # criterion; [62, 88) the backward; [96, 120) with no phase,
+        # clipped to [96, 100).
+        _x("gemm_a", k, 1005, 20, corr=1),
+        _x("gemm_b", k, 1022, 8, corr=7),
+        _x("Memcpy DtoH", "gpu_memcpy", 1036, 2, corr=2),
+        _x("round_a", k, 1042, 2, corr=3),
+        _x("round_b", k, 1044, 3, corr=3),
+        _x("round_c", k, 1050, 2, corr=3),
+        _x("loss", k, 1058, 2, corr=4),
+        _x("gemm_bwd", k, 1062, 26, corr=5),
+        _x("tail", k, 1096, 24, corr=6),
+        _x("outside", k, 1200, 10, corr=8),
+    ]
+
+
+def test_phase_split_of_a_hand_made_trace():
+    split = trace_step.phase_split(hand_phase_trace())
+    us = 1e-6
+    assert split["window_s"] == pytest.approx(100 * us)
+    assert split["phase_busy_s"] == pytest.approx({
+        "step.forward": 25 * us, "step.match": 9 * us,
+        "step.criterion": 2 * us, "step.backward": 26 * us,
+        "none": 4 * us})
+    # Gaps [0, 5) forward, [30, 36) criterion, [38, 42) match (under the
+    # auction's check, a deeper span but no phase), [47, 50) match,
+    # [52, 58) match (closed at 55: the gap's start decides), [60, 62)
+    # backward, [88, 96) backward (then no phase).
+    assert split["phase_idle_s"] == pytest.approx({
+        "step.forward": 5 * us, "step.criterion": 6 * us,
+        "step.match": 13 * us, "step.backward": 10 * us, "none": 0.0})
+    assert split["busy_s"] == pytest.approx(66 * us)
+    assert sum(split["phase_idle_s"].values()) == pytest.approx(
+        split["window_s"] - split["busy_s"])
+    assert split["phase_counts"] == {"step.forward": 1, "step.criterion": 1,
+                                     "step.match": 1, "step.backward": 1}
+    out = io.StringIO()
+    trace_step.report_phases(split, steps=2, out=out)
+    lines = [json.loads(line) for line in out.getvalue().splitlines()]
+    # By busy plus idle time, in ms a step.
+    assert lines[0] == {"phase": "step.backward", "busy_ms": 0.013,
+                        "idle_ms": 0.005, "spans": 0.5}
+    assert {line["phase"] for line in lines} == set(split["phase_busy_s"])
+
+
+def test_phase_split_reads_zero_for_a_phase_that_got_nothing():
+    events = [_x("bench.window", "user_annotation", 0, 10),
+              _x("step.update", "user_annotation", 2, 3),
+              _x("k", "kernel", 0, 10, corr=1)]
+    split = trace_step.phase_split(events, window="bench.window")
+    assert split["phase_busy_s"] == {"step.update": 0.0, "none": 10e-6}
+    assert split["phase_idle_s"] == {"step.update": 0.0, "none": 0.0}
+    with pytest.raises(ValueError, match="no trace_step.window span"):
+        trace_step.phase_split(events)

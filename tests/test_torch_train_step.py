@@ -8,6 +8,7 @@ every lora_B to small nonzero values, so every LoRA leaf has a gradient.
 """
 
 import dataclasses
+import json
 
 import numpy as np
 import jax
@@ -38,6 +39,7 @@ from dinov2_od_tpu_torch.models.detector import (
     lora_block_multiplier,
     trainable_mask,
 )
+from dinov2_od_tpu_torch.ops.matching import solver_stats
 from dinov2_od_tpu_torch.ops.attention import multi_head_attention
 from dinov2_od_tpu_torch.params import params_from_numpy, params_to_numpy
 from dinov2_od_tpu_torch.train import state as pstate
@@ -46,6 +48,7 @@ from dinov2_od_tpu_torch.train.step import (
     prep_images,
     train_loss,
 )
+from dinov2_od_tpu_torch.utils import profiling
 
 BACKBONE = dict(variant="small", image_size=56, hidden_dim_override=128,
                 num_heads_override=2, depth_override=3, lora_r=2,
@@ -486,3 +489,129 @@ def test_train_state_lives_on_the_params_device(tree):
     assert all(t.device.type == "cpu"
                for t in _flat(state.opt_state.mu).values())
     assert dataclasses.is_dataclass(state) and state.ema is None
+
+
+# ---- phase spans under a profiler ------------------------------------------
+
+# The step's phases that do not overlap; step.match nests in step.criterion.
+TOP_PHASES = ("step.augment", "step.forward", "step.criterion",
+              "step.backward", "step.update")
+# Chrome-trace times are whole ns in us: a child's end may round 1 ns past
+# its parent's.
+NS = 2e-3
+
+
+def _profiled_spans(tmp_path, fn):
+    """fn() under a CPU profiler; its trace's spans as (name, start, end)
+    in us."""
+    with profiling.trace(str(tmp_path)):
+        fn()
+    events = json.loads((tmp_path / profiling.TRACE_FILE).read_text())
+    return [(e["name"], e["ts"], e["ts"] + e["dur"])
+            for e in events["traceEvents"]
+            if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+
+
+def _named(spans, name):
+    return [sp for sp in spans if sp[0] == name]
+
+
+def _inside(span, outer):
+    return any(o[1] - NS <= span[1] and span[2] <= o[2] + NS for o in outer)
+
+
+def _match_cfg(pc, assignment):
+    return dataclasses.replace(
+        pc, matcher=dataclasses.replace(pc.matcher, assignment=assignment))
+
+
+@pytest.mark.filterwarnings("ignore:CUDA is not available")
+@pytest.mark.parametrize("case", [
+    dict(),
+    dict(optim=dict(gradient_accumulation_steps=2)),
+    dict(optim=dict(skip_nonfinite=True, ema_decay=0.9)),
+    dict(augment=pcfg.AugmentConfig(hflip_prob=0.5, scale_jitter=0.2)),
+], ids=["plain", "accumulate", "skip_nonfinite", "augment"])
+def test_train_step_records_its_phases(tree, batch_np, tmp_path, case):
+    """One span a phase a step (one step.criterion a decoder layer, each
+    holding its step.match), on every path of the step; the phases other
+    than step.match do not overlap."""
+    case = dict(case)
+    augment = case.pop("augment", None)
+    _, pc = _cfgs(decoder=dict(aux_loss=True), **case)
+    if augment is not None:
+        pc = dataclasses.replace(pc, augment=augment)
+    state = _port_state(tree, pc)
+    step = make_train_step(pc)
+    gen = torch.Generator().manual_seed(0)
+    spans = _profiled_spans(
+        tmp_path, lambda: step(state, _torch_batch(batch_np), gen))
+    counts = {n: len(_named(spans, n)) for n in TOP_PHASES + ("step.match",)}
+    layers = DECODER["num_layers"]
+    assert counts == {"step.augment": int(augment is not None),
+                      "step.forward": 1, "step.criterion": layers,
+                      "step.match": layers, "step.backward": 1,
+                      "step.update": 1}
+    top = sorted((sp for sp in spans if sp[0] in TOP_PHASES),
+                 key=lambda sp: sp[1])
+    assert all(a[2] <= b[1] + NS for a, b in zip(top, top[1:])), top
+    criterion = _named(spans, "step.criterion")
+    assert all(_inside(m, criterion) for m in _named(spans, "step.match"))
+    assert [sp[0] for sp in top][-2:] == ["step.backward", "step.update"]
+
+
+@pytest.mark.filterwarnings("ignore:CUDA is not available")
+@pytest.mark.parametrize("max_boxes,phases", [(12, 1), (6, 5)],
+                         ids=["rectangular", "square"])
+def test_auction_checks_are_spans_inside_the_match(tree, tmp_path,
+                                                   max_boxes, phases):
+    """One auction.check a convergence test, each inside a step.match:
+    the rounds / 8 tests that ran rounds and one more a phase, so
+    rounds / 8 + calls where the queries are fewer than the GT slots (one
+    phase, as at 50 queries and 100 slots) and rounds / 8 + 5 calls at 8
+    of each (eps-scaling: 0.1, 0.025, 0.00625, 0.0015625 and 1e-3)."""
+    _, pc = _cfgs(decoder=dict(aux_loss=True))
+    pc = _match_cfg(pc, "auction")
+    batch = make_batch(np.random.default_rng(1), 4, image_size=56,
+                       max_boxes=max_boxes, max_objects=max_boxes)
+    state = _port_state(tree, pc)
+    step = make_train_step(pc)
+    before = dict(solver_stats)
+    spans = _profiled_spans(tmp_path,
+                            lambda: step(state, _torch_batch(batch)))
+    calls = solver_stats["auction"] - before["auction"]
+    rounds = solver_stats["auction_rounds"] - before["auction_rounds"]
+    assert calls == DECODER["num_layers"] and rounds > 0
+    checks = _named(spans, "auction.check")
+    assert len(checks) == rounds // 8 + calls * phases
+    assert all(_inside(c, _named(spans, "step.match")) for c in checks)
+
+
+@pytest.mark.filterwarnings("ignore:CUDA is not available")
+def test_exact_host_solve_is_inside_the_match(tree, batch_np, tmp_path):
+    _, pc = _cfgs(decoder=dict(aux_loss=True))
+    pc = _match_cfg(pc, "jv")
+    state = _port_state(tree, pc)
+    before = solver_stats["jv"]
+    spans = _profiled_spans(
+        tmp_path, lambda: make_train_step(pc)(state, _torch_batch(batch_np)))
+    solves = _named(spans, "matcher_host_solve")
+    assert len(solves) == solver_stats["jv"] - before == 2
+    assert all(_inside(sp, _named(spans, "step.match")) for sp in solves)
+
+
+def test_no_span_is_recorded_without_a_profiler(tree, batch_np,
+                                                monkeypatch):
+    """With no profiler running, `annotate` never builds a
+    record_function, on the auction's route too, and the step runs."""
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) with no profiler")
+
+    monkeypatch.setattr(profiling, "record_function", refuse)
+    _, pc = _cfgs(decoder=dict(aux_loss=True),
+                  augment=pcfg.AugmentConfig(hflip_prob=0.5))
+    pc = _match_cfg(pc, "auction")
+    state = _port_state(tree, pc)
+    state, metrics = make_train_step(pc)(state, _torch_batch(batch_np),
+                                         torch.Generator().manual_seed(0))
+    assert state.step == 1 and torch.isfinite(metrics["loss"])
