@@ -85,7 +85,8 @@ non-zero and prints no result:
              epochs of 20 ViT-B/14 bf16 steps at batch 32 through the
              auction matcher with validation (COCO AP) and a checkpoint
              each epoch; exactly 12 B1 + 2 B2 a step and 12 B1 a val
-             batch, the auction once a step, finite losses whose last
+             batch, the auction once a step (one launch of its kernel
+             each, csrc/auction.cu), finite losses whose last
              epoch's mean is below the first's; the auction on the card
              against its eager CPU run on the matcher's inputs, timed
              beside scipy's JV on the same costs; a checkpoint's save and
@@ -1348,11 +1349,28 @@ def _requests(seed: int, image_size: int, sizes=REQUEST_SIZES):
              for _ in range(n)] for n in sizes]
 
 
-def _counts(**launches) -> dict:
-    """Launch counts of every kernel: the given ones, 0 for the rest."""
+# The matcher's kernel: one auction launch a match at 40 or more GT
+# slots, wherever a step or a loss evaluation meets them. The launch
+# checks of the phases are of the model's kernels; phase_train_cli holds
+# the auction's launches to the matcher's calls.
+MATCHER_KERNEL = "auction"
+
+
+def _launches() -> dict:
+    """The launch counts of the model's kernels (all but the matcher's)."""
     from dinov2_od_tpu_torch.ops import _build
 
-    return {name: launches.get(name, 0) for name in _build.SOURCES}
+    return {name: n for name, n in _build.launch_counts.items()
+            if name != MATCHER_KERNEL}
+
+
+def _counts(**launches) -> dict:
+    """Launch counts of every model kernel: the given ones, 0 for the
+    rest."""
+    from dinov2_od_tpu_torch.ops import _build
+
+    return {name: launches.get(name, 0) for name in _build.SOURCES
+            if name != MATCHER_KERNEL}
 
 
 def _serve(predictor, requests, phase: str):
@@ -1383,7 +1401,7 @@ def _serve(predictor, requests, phase: str):
         t.join(timeout=600)
     wall = time.perf_counter() - t0
     batcher.close()
-    counts = dict(_build.launch_counts)
+    counts = _launches()
     device_batches = predictor.device_batches
     if errors or any(t.is_alive() for t in threads):
         raise AssertionError(f"requests failed: {errors}")
@@ -2008,7 +2026,7 @@ def phase_lse_kernel(seed: int):
                                         kv_len=kv_len)
         got = torch.autograd.grad((o, lse), (qq, kk, vv), (do, dlse))
         torch.cuda.synchronize()
-        launched = ({n: c for n, c in _build.launch_counts.items() if c},
+        launched = ({n: c for n, c in _launches().items() if c},
                     dict(_build.route_counts))
         o_ref, lse_ref, ref = _lse_plain(q, k, v, do, dlse, kv_len)
         _, _, ctl = _lse_plain(q, k, v, do, dlse, kv_len, False)
@@ -2397,7 +2415,7 @@ def _drive_train(seed: int, det, steps: int, want_per_step: dict,
         state, metrics = step(state, batch, gen)
         losses.append(metrics["loss"])
     torch.cuda.synchronize()
-    counts = dict(_build.launch_counts)
+    counts = _launches()
     _check_steps(phase, torch.stack(losses).tolist(), metrics, counts,
                  want_per_step, steps, snap)
     if experts:
@@ -2689,7 +2707,7 @@ def _cli_serve(final: str, seed: int, image_size: int):
             c.join(timeout=300)
         with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
             metrics = r.read().decode()
-    counts = dict(_build.launch_counts)
+    counts = _launches()
     if errors:
         raise AssertionError(f"serve.main: {errors}")
     if health.get("status") != "ok" or any(
@@ -2770,7 +2788,7 @@ def phase_train_cli(seed: int, kernels: dict, bare_ips: float) -> float:
             loop.run_training = real_run
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = dict(_build.launch_counts)
+        counts = _launches()
         solver = dict(matching.solver_stats)
         want = _counts(flash_attn_fwd=12 * (steps + CLI_EPOCHS * val_batches),
                        flash_attn_bwd=2 * steps)
@@ -2786,9 +2804,12 @@ def phase_train_cli(seed: int, kernels: dict, bare_ips: float) -> float:
             raise AssertionError(f"train cli launches {counts}; expected "
                                  f"{want} (12 B1 + 2 B2 a step, 12 B1 a val "
                                  f"batch)")
-        if solver["auction"] != steps or solver["jv"]:
-            raise AssertionError(f"train cli matcher {solver}: expected the "
-                                 f"auction once a step")
+        if (solver["auction"] != steps or solver["jv"]
+                or _build.launch_counts["auction"] != steps):
+            raise AssertionError(f"train cli matcher {solver}, auction "
+                                 f"launches {_build.launch_counts['auction']}"
+                                 f": expected the auction once a step, one "
+                                 f"kernel launch each")
         if len(losses) != steps or not np.isfinite(losses).all():
             raise AssertionError(f"train cli losses: {losses}")
         if not logs[CLI_EPOCHS - 1]["mean_loss"] < logs[0]["mean_loss"]:
@@ -2833,9 +2854,9 @@ def phase_train_cli(seed: int, kernels: dict, bare_ips: float) -> float:
         args = (pred["pred_logits"], pred["pred_boxes"], *gt)
         auction_cfg, jv_cfg = MatcherConfig(), MatcherConfig(assignment="jv")
         cost = matching.matching_cost_matrix(*args, auction_cfg)
-        # The auction on the card (its rounds replayed as a CUDA graph)
-        # against its eager run on the CPU, on the inputs the matcher
-        # gives it: the same assignment bit for bit, in as many rounds.
+        # The auction on the card (one kernel launch a solve) against its
+        # eager run on the CPU, on the inputs the matcher gives it: the
+        # same assignment bit for bit, in as many rounds.
         seen, real_auction = [], matching.auction_assign
         matching.auction_assign = (
             lambda *a, **k: seen.append((a, k)) or real_auction(*a, **k))
@@ -2931,7 +2952,7 @@ def phase_train_cli(seed: int, kernels: dict, bare_ips: float) -> float:
             rc = cli.main(common + ["--only_evaluate", "--checkpoint", final,
                                     "--output_dir", ev_out] + extra)
             torch.cuda.synchronize()
-            ev_counts = dict(_build.launch_counts)
+            ev_counts = _launches()
             aps[quant] = _ap(ev_out, 0)
             want = _counts(flash_attn_fwd=12 * val_batches,
                            int8_gemm=12 * val_batches if extra else 0)
@@ -3100,7 +3121,7 @@ def _bundle_checks(model, predictor, pixel, sizes, quantize, bb):
     got3 = model.call_packed(pixel[:3], sizes[:3])
     got1 = model.call_packed(pixel[:1], sizes[:1])
     torch.cuda.synchronize()
-    counts = dict(_build.launch_counts)
+    counts = _launches()
     batches = model.device_batches
     chunks = [model._chunks(n) for n in (32, 41, 8, 3, 1)]
     want_chunks = [[(0, 32)], [(0, 32), (32, 32)], [(0, 8)], [(0, 8)],
@@ -3169,7 +3190,7 @@ def _bundle_serve(bundle: str, model, images_u8,
         with urllib.request.urlopen(req, timeout=300) as r:
             answer = json.load(r)["detections"]
         served_batches = server.RequestHandlerClass.model.device_batches
-    counts = dict(_build.launch_counts)
+    counts = _launches()
     want = model.detect([a.astype(np.float32) / 255.0 for a in images_u8],
                         score_threshold=0.0)
     want_counts = _counts(flash_attn_fwd=12 * served_batches)
@@ -3270,7 +3291,7 @@ def phase_import_export(seed: int, kernels: dict) -> None:
             runs = {"kernel": detector_apply(params, cfg, x,
                                              attn_impl="auto")}
             torch.cuda.synchronize()
-            fwd_counts = dict(_build.launch_counts)
+            fwd_counts = _launches()
             for kv_len in CONTROLS:
                 with _keys_dropped(kv_len):
                     runs[f"control kv_len={kv_len}"] = detector_apply(
@@ -3301,7 +3322,7 @@ def phase_import_export(seed: int, kernels: dict) -> None:
                                 "--output_dir", out])
         torch.cuda.synchronize()
         timings["cli_pretrained_s"] = time.perf_counter() - t0
-        counts = dict(_build.launch_counts)
+        counts = _launches()
         want = _counts(flash_attn_fwd=bb.depth * (steps + val_batches),
                        flash_attn_bwd=2 * steps)
         logs = _epoch_logs(out, [0])[0]
@@ -3331,7 +3352,7 @@ def phase_import_export(seed: int, kernels: dict) -> None:
                                 "--import_reference_checkpoint", ref_file,
                                 "--output_dir", ev_out])
         torch.cuda.synchronize()
-        counts = dict(_build.launch_counts)
+        counts = _launches()
         migrated = _ap(ev_out, 0)
         log(f"import export: the run's final params through "
             f"save_reference_checkpoint ({os.path.getsize(ref_file)} bytes "
@@ -3512,7 +3533,7 @@ def _moe_forward_check(seed: int, kernels: dict) -> None:
             with _routing_recorded(kernel_routes):
                 runs = {"kernel": detector_apply(p, c, x, attn_impl="auto")}
             torch.cuda.synchronize()
-            counts = dict(_build.launch_counts)
+            counts = _launches()
             runs["control top-1"] = detector_apply(p, top1, x,
                                                    attn_impl="auto")
         aux = runs["kernel"]["moe_aux"].item()
@@ -3567,7 +3588,7 @@ def _moe_serving(seed: int, kernels: dict, dense_ips: dict) -> None:
         _build.reset_launch_counts()
         dets = predictor.detect(images, score_threshold=0.0)
         torch.cuda.synchronize()
-        counts = dict(_build.launch_counts)
+        counts = _launches()
         n = predictor.device_batches
         want = _counts(flash_attn_fwd=bb.depth * n,
                        int8_gemm=prefix * n if quantize else 0)
@@ -3648,7 +3669,7 @@ def _moe_cli(seed: int, kernels: dict) -> None:
             loop.run_training = real_run
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = dict(_build.launch_counts)
+        counts = _launches()
         want = _counts(flash_attn_fwd=12 * (steps + val_batches),
                        flash_attn_bwd=2 * steps)
         rec = _epoch_logs(out, [0])[0]
@@ -3671,7 +3692,7 @@ def _moe_cli(seed: int, kernels: dict) -> None:
         rc = cli.main(common + ["--only_evaluate", "--checkpoint", final,
                                 "--output_dir", ev_out])
         torch.cuda.synchronize()
-        counts = dict(_build.launch_counts)
+        counts = _launches()
         log(f"moe: --only_evaluate on final_model: rc {rc}, AP "
             f"{_ap(ev_out, 0)['AP']} (the run's last validation "
             f"{_ap(out, 0)['AP']}), launches {counts}")
@@ -3690,7 +3711,7 @@ def _moe_cli(seed: int, kernels: dict) -> None:
         _build.reset_launch_counts()
         got = served.detect(images, score_threshold=0.0)
         torch.cuda.synchronize()
-        counts = dict(_build.launch_counts)
+        counts = _launches()
         ref = direct.detect(images, score_threshold=0.0)
         log(f"moe: Predictor.from_checkpoint(final_model): params equal "
             f"the loop's {same}, detections on {B} val images equal "
@@ -3816,7 +3837,7 @@ def _recipe_remat(seed, kernels, cfg, det, batch):
             gen.manual_seed(seed)
             state, m = step(state, batch, gen)
         torch.cuda.synchronize()
-        counts = dict(_build.launch_counts)
+        counts = _launches()
         peak = torch.cuda.max_memory_allocated() / 1e9
         want = _counts(flash_attn_fwd=(depth + adapted * remat) * RECIPE_STEPS,
                        flash_attn_bwd=adapted * RECIPE_STEPS)
@@ -3919,7 +3940,7 @@ def _recipe_accumulation(seed, kernels, cfg, det, batch):
             finally:
                 step_mod.accumulate = real
             out[name] = dict(
-                counts=dict(_build.launch_counts), untouched=untouched,
+                counts=_launches(), untouched=untouched,
                 update=[(a - b).detach() for a, b in zip(trainable_leaves(
                     state.params, state.opt_state), before)],
                 mu=[t.clone() for t in tree_leaves(state.opt_state.mu)],
@@ -4145,7 +4166,7 @@ def phase_train_recipes(seed: int, kernels: dict, bare_ips: float,
         rc = cli.main(common + ["--output_dir", out])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = dict(_build.launch_counts)
+        counts = _launches()
         logs = _epoch_logs(out, range(CLI_EPOCHS))
         losses = [x for e in range(CLI_EPOCHS) for x in logs[e]["losses"]]
         want = _counts(flash_attn_fwd=12 * (steps + CLI_EPOCHS * val_batches),
@@ -4234,7 +4255,7 @@ def phase_train_recipes(seed: int, kernels: dict, bare_ips: float,
             torch.cuda.synchronize()
         finally:
             torch.use_deterministic_algorithms(False)
-        counts_r = dict(_build.launch_counts)
+        counts_r = _launches()
         last = CLI_EPOCHS - 1
         again = _epoch_logs(out_p, [last])[last]
         ref = _epoch_logs(out_u, [last])[last]
@@ -4762,7 +4783,7 @@ def _tp_rank(rank: int, world: int, port: int, work: str, seed: int):
             state, metrics = step(state, batch, gen)
             losses.append(metrics["loss"])
         torch.cuda.synchronize()
-        counts = dict(_build.launch_counts)
+        counts = _launches()
         _check_steps(f"tp rank {rank}", torch.stack(losses).tolist(),
                      metrics, counts,
                      _counts(flash_attn_allheads_fwd=det.backbone.depth,
@@ -5012,7 +5033,7 @@ def _ring_shift_timed(into: list):
 def _launched():
     from dinov2_od_tpu_torch.ops import _build
 
-    return {**{n: c for n, c in _build.launch_counts.items() if c},
+    return {**{n: c for n, c in _launches().items() if c},
             **{n: c for n, c in _build.route_counts.items() if c}}
 
 
@@ -6817,7 +6838,7 @@ def phase_roofline_tool(kernels: dict):
     _build.reset_launch_counts()
     calls = tool.run(tool.parse_args([]), out=out)
     torch.cuda.synchronize()
-    counts = dict(_build.launch_counts)
+    counts = _launches()
     lines = out.getvalue().splitlines()
     for line in lines:
         log("roofline tool: " + line)
@@ -6867,10 +6888,10 @@ def phase_bench():
         _build.reset_launch_counts()
         rec = bench.run(env)
         torch.cuda.synchronize()
-        launched = {k: int(n > 0) for k, n in _build.launch_counts.items()}
+        launched = {k: int(n > 0) for k, n in _launches().items()}
         log("bench: " + json.dumps(rec))
         log(f"bench: {env or 'default'}: {time.perf_counter() - t0:.1f} s, "
-            f"launches {dict(_build.launch_counts)}; {card_line()}")
+            f"launches {_launches()}; {card_line()}")
         problems = []
         if list(rec) != ["metric", "value", "unit", "vs_baseline"]:
             problems.append(f"keys {list(rec)}")
@@ -7080,7 +7101,7 @@ def _check_detect(predictor, n: int, seed: int, want: dict, tag: str,
             res, busy, span = _device_busy(
                 lambda: predictor.detect(images, score_threshold=0.0))
             wall = (time.perf_counter() - t0) * 1e3
-            counts = dict(_build.launch_counts)
+            counts = _launches()
             if counts != want or predictor.device_batches != chunks:
                 raise AssertionError(f"detect {tag} {name}: launches "
                                      f"{counts}, expected {want}")
@@ -7229,7 +7250,7 @@ def phase_measurement_tools(seed: int, kernels: dict):
         _build.reset_launch_counts()
         rec = bench_serving.run(bench_serving.parse_args(argv), out=out)
         torch.cuda.synchronize()
-        counts = dict(_build.launch_counts)
+        counts = _launches()
         for line in out.getvalue().splitlines():
             log(f"measurement tools: bench_serving {quant or 'bf16'}: {line}")
         launches = {"flash_attn_fwd": depth * forwards}
@@ -7284,7 +7305,7 @@ def phase_measurement_tools(seed: int, kernels: dict):
     _build.reset_launch_counts()
     recs = bench_attn_scaling.run(args, out=out, target_seconds=0.2)
     torch.cuda.synchronize()
-    add(dict(_build.launch_counts), "bench_attn_scaling")
+    add(_launches(), "bench_attn_scaling")
     for line in out.getvalue().splitlines():
         log(f"measurement tools: bench_attn_scaling: {line}")
     problems = _scaling_problems(recs, SCALING_BATCHES, args.variants)
@@ -7313,9 +7334,9 @@ def phase_measurement_tools(seed: int, kernels: dict):
     keys = ["metric", "prefused_ms", "per_step_concat_ms", "delta_ms_per_fwd"]
     if (list(rec) != keys or not rec["prefused_ms"] > 0
             or not rec["per_step_concat_ms"] > 0 or card not in rec["metric"]
-            or any(_build.launch_counts.values())):
+            or any(_launches().values())):
         raise AssertionError(f"bench_qkv_layout: {rec}, launches "
-                             f"{dict(_build.launch_counts)}")
+                             f"{_launches()}")
     log(f"measurement tools: bench_qkv_layout: "
         f"{time.perf_counter() - t0:.1f} s; {card_line()}")
 
@@ -7353,7 +7374,7 @@ def phase_measurement_tools(seed: int, kernels: dict):
         torch.cuda.synchronize()
     finally:
         shutil.rmtree(INPUT_DIR, ignore_errors=True)
-    counts = dict(_build.launch_counts)
+    counts = _launches()
     for line in out.getvalue().splitlines():
         log(f"measurement tools: bench_input: {line}")
     launched = sorted(k for k, n in counts.items() if n)

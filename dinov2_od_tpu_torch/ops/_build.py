@@ -28,7 +28,8 @@ SOURCES = {"flash_attn_fwd": "flash_attn_fwd.cu",
            "flash_attn_allheads_fwd": "flash_attn_allheads_fwd.cu",
            "flash_attn_allheads_bwd": "flash_attn_allheads_bwd.cu",
            "int8_gemm": "int8_gemm.cu",
-           "attn_roofline": "attn_roofline.cu"}
+           "attn_roofline": "attn_roofline.cu",
+           "auction": "auction.cu"}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -3,10 +3,9 @@
 
 The exact solver (ops/hungarian.py) copies the cost to the host and
 solves each image with scipy. The auction algorithm (Bertsekas) stays on
-the params' device: each *round* is a handful of batched [B, M, N] tensor
-ops in which every unassigned row of every image bids at once (Jacobi
-style), and a few hundred rounds finish the assignment. The design is the
-JAX package's:
+the params' device: in each *round* every unassigned row of an image
+bids at once (Jacobi style), and a few hundred rounds finish the
+assignment. The design is the JAX package's:
 
 - Rectangular, bidders = the smaller side. The matcher orients the
   problem so queries (rows, all real) bid for GT-slot columns. With 50
@@ -29,19 +28,20 @@ JAX package's:
   JAX draws its table from `jax.random.key(17)`; the port draws its own
   from a seeded `torch.Generator`, so the two may park a leftover bidder
   on different pad columns (never a different real pairing cost).
-- `rounds_per_step` rounds between convergence checks: the check is the
-  one host sync, so the loop syncs once per `rounds_per_step` rounds,
-  and once more as a phase ends. Rounds after an image converged place
-  no bids (no-ops). In a profiled run each check is an `auction.check`
-  span, so the trace counts the syncs where they happen.
-- On a CUDA device the `rounds_per_step` rounds run as one CUDA graph
-  replay: a round is ~25 tiny tensor ops, which issued eagerly cost their
-  launches, not their work (~0.5 ms a round on an H100, PERF.md). The
-  graph is captured once per (shape, eps, rounds_per_step) and kept
-  (an `auction.capture` span in a profiled run), its state in static
-  buffers that the rounds update in place; the same ops
-  run eagerly on the CPU. One auction at a time uses a graph (the train
-  step's matcher calls them one after another).
+- `rounds_per_step` rounds a chunk: an image still unassigned with
+  budget left runs `rounds_per_step` more rounds and is charged for all
+  of them. Rounds after an image converged place no bids (no-ops), so
+  each image's state is what it gets alone, and the rounds reported are,
+  over the phases, `rounds_per_step` times the most chunks any image ran.
+- On a CUDA device the whole solve is one launch of a hand-written
+  kernel (csrc/auction.cu): one block an image runs its rounds on the
+  card until it converges or spends its budget, with the image's
+  benefit and state in shared memory when they fit (else the benefit is
+  read from device memory). The host reads each image's chunks back
+  once, in an `auction.check` span of a profiled run: one host sync a
+  solve. On the CPU the same rounds run as batched tensor ops
+  (`_solve_eager`, the kernel's plain version), with a convergence check
+  a chunk, each in an `auction.check` span.
 - `round_cap` rounds at most per image, then a greedy completion keeps
   the output a valid partial assignment.
 
@@ -51,106 +51,31 @@ cannot feel; tests compare total cost, not indices.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import ctypes
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from ..utils.profiling import annotate
+from . import _build
 
 # Bid and price sentinel; fp32 like the costs it is compared with.
 _NEG = -1e9
 _TIE_SEED = 17
+_KERNEL = "auction"
+_MAX_PHASES = 32  # csrc/auction.cu kMaxPhases
+
+# The pad tie-break table by (rows, columns, device), made once.
+_tie_tables: Dict[tuple, torch.Tensor] = {}
 
 
 def _tie_table(m: int, n: int, device) -> torch.Tensor:
-    gen = torch.Generator().manual_seed(_TIE_SEED)
-    return torch.rand((m, n), generator=gen, dtype=torch.float32).to(device)
-
-
-class _EagerRounds:
-    """`k` rounds at eps `e` as eager tensor ops. `load` takes a problem
-    and its state (p, col_of_row, row_of_col); `run(active)` advances the
-    state by `k` rounds."""
-
-    def __init__(self, k: int, e: float):
-        self.k, self.e = k, e
-
-    def load(self, benefit, row_valid, p, col_of_row, row_of_col):
-        self.benefit, self.row_valid = benefit, row_valid
-        self.p, self.col_of_row, self.row_of_col = p, col_of_row, row_of_col
-
-    def run(self, active):
-        b, m, n = self.benefit.shape
-        rows = torch.arange(m, device=self.benefit.device)
-        cols = torch.arange(n, device=self.benefit.device)
-        state = (self.p, self.col_of_row, self.row_of_col)
-        for _ in range(self.k):
-            state = _one_round(self.benefit, cols, rows, self.row_valid,
-                               active, self.e, state)
-        self.p, self.col_of_row, self.row_of_col = state
-
-
-class _GraphedRounds:
-    """The same `k` rounds captured once as a CUDA graph over static
-    buffers: `load` copies a problem and its state in, `run` replays the
-    graph, which updates the state buffers in place."""
-
-    def __init__(self, b: int, m: int, n: int, k: int, e: float, device):
-        def full(shape, value, dtype):
-            return torch.full(shape, value, dtype=dtype, device=device)
-
-        self.benefit = full((b, m, n), 0.0, torch.float32)
-        self.row_valid = full((b, m), False, torch.bool)
-        self.active = full((b,), False, torch.bool)
-        self.p = full((b, n), 0.0, torch.float32)
-        self.col_of_row = full((b, m), -1, torch.int64)
-        self.row_of_col = full((b, n), -1, torch.int64)
-        eager = _EagerRounds(k, e)
-
-        def rounds():
-            eager.load(self.benefit, self.row_valid, self.p,
-                       self.col_of_row, self.row_of_col)
-            eager.run(self.active)
-            return eager.p, eager.col_of_row, eager.row_of_col
-
-        # Warm up on a side stream (no active image: no bids), then
-        # capture. Other threads may use the card meanwhile (the loader's
-        # copies), so only this thread's calls are checked.
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            rounds()
-        torch.cuda.current_stream(device).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-            for buf, new in zip((self.p, self.col_of_row, self.row_of_col),
-                                rounds()):
-                buf.copy_(new)
-
-    def load(self, benefit, row_valid, p, col_of_row, row_of_col):
-        for buf, src in ((self.benefit, benefit), (self.row_valid, row_valid),
-                         (self.p, p), (self.col_of_row, col_of_row),
-                         (self.row_of_col, row_of_col)):
-            buf.copy_(src)
-
-    def run(self, active):
-        self.active.copy_(active)
-        self.graph.replay()
-
-
-# Captured graphs by (batch, rows, columns, rounds, eps, device).
-_graphs: Dict[tuple, _GraphedRounds] = {}
-
-
-def _rounds(shape, k: int, e: float, device):
-    """The round runner for a problem of `shape` on `device`."""
-    if device.type != "cuda":
-        return _EagerRounds(k, e)
-    key = (*shape, k, e, device)
-    if key not in _graphs:
-        with annotate("auction.capture"):
-            _graphs[key] = _GraphedRounds(*shape, k, e, device)
-    return _graphs[key]
+    key = (m, n, torch.device(device))
+    if key not in _tie_tables:
+        gen = torch.Generator().manual_seed(_TIE_SEED)
+        _tie_tables[key] = torch.rand(
+            (m, n), generator=gen, dtype=torch.float32).to(device)
+    return _tie_tables[key]
 
 
 def _one_round(benefit, cols, rows, row_valid, active, e, state):
@@ -176,6 +101,133 @@ def _one_round(benefit, cols, rows, row_valid, active, e, state):
     own = row_of_col[:, None, :] == rows[:, None]  # [B, M, N]
     col_of_row = torch.where(own.any(dim=2), own.byte().argmax(dim=2), -1)
     return p, col_of_row, row_of_col
+
+
+def _benefit(cost, col_pad, delta):
+    """Benefits in [0, 1] per image (higher is better), plus the pad
+    columns' tie-break."""
+    b, m, n = cost.shape
+    cmax = cost.amax(dim=(1, 2), keepdim=True)
+    cmin = cost.amin(dim=(1, 2), keepdim=True)
+    benefit = (cmax - cost) / torch.clamp(cmax - cmin, min=1e-12)
+    if col_pad is not None:
+        benefit = benefit + torch.where(
+            col_pad[:, None, :], delta, 0.0) * _tie_table(m, n, cost.device)
+    return benefit
+
+
+def _eps_phases(eps, scale_phases, eps0, theta) -> List[float]:
+    phases = []
+    if scale_phases:
+        e = eps0
+        while e > eps:
+            phases.append(e)
+            e /= theta
+    return phases + [eps]
+
+
+def _solve_eager(benefit, row_valid, eps_phases, rounds_per_step,
+                 round_cap):
+    """The solve as batched tensor-op rounds, the kernel's plain version:
+    every image runs chunks of `rounds_per_step` rounds while it has an
+    unassigned valid row and budget left; a phase starts from no
+    assignment while budget remains (an image that spent its budget
+    keeps its earlier result) and from the last phase's prices.
+
+    Returns (prices [B, N], col_of_row [B, M], row_of_col [B, N], the
+    rounds run)."""
+    b, m, n = benefit.shape
+    dev = benefit.device
+    rows = torch.arange(m, device=dev)
+    cols = torch.arange(n, device=dev)
+    p = torch.zeros((b, n), device=dev)
+    budget = torch.full((b,), round_cap, device=dev, dtype=torch.int64)
+    col_of_row = torch.full((b, m), -1, device=dev, dtype=torch.int64)
+    row_of_col = torch.full((b, n), -1, device=dev, dtype=torch.int64)
+    rounds = 0
+    for e in eps_phases:
+        fresh = (budget > 0)[:, None]
+        col_of_row = torch.where(fresh, -1, col_of_row)
+        row_of_col = torch.where(fresh, -1, row_of_col)
+        while True:
+            active = ((row_valid & (col_of_row < 0)).any(dim=1)
+                      & (budget > 0))
+            with annotate("auction.check"):  # a host sync a chunk
+                converged = not bool(active.any())
+            if converged:
+                break
+            for _ in range(rounds_per_step):
+                p, col_of_row, row_of_col = _one_round(
+                    benefit, cols, rows, row_valid, active, e,
+                    (p, col_of_row, row_of_col))
+            budget = budget - rounds_per_step * active
+            rounds += rounds_per_step
+    return p, col_of_row, row_of_col, rounds
+
+
+def _kernel_lib() -> ctypes.CDLL:
+    lib = _build.load(_KERNEL)
+    if lib.auction_solve.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.auction_solve.argtypes = [p] * 6 + [i] * 3 + [p] + [i] * 3 + [p]
+        lib.auction_solve.restype = i
+        lib.auction_staged.argtypes = [i, i]
+        lib.auction_staged.restype = i
+        lib.auction_error_string.argtypes = [i]
+        lib.auction_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _solve_kernel(benefit, row_valid, eps_phases, rounds_per_step,
+                  round_cap):
+    """`_solve_eager` as one launch of csrc/auction.cu on a CUDA device;
+    the same results, bit for bit, read back with one host sync."""
+    if benefit.dtype != torch.float32 or benefit.dim() != 3:
+        raise ValueError(f"benefit must be float32 [B, M, N]; got "
+                         f"{benefit.dtype} {tuple(benefit.shape)}")
+    b, m, n = benefit.shape
+    if (row_valid.dtype != torch.bool or tuple(row_valid.shape) != (b, m)
+            or row_valid.device != benefit.device):
+        raise ValueError(f"row_valid must be bool [{b}, {m}] on "
+                         f"{benefit.device}; got {row_valid.dtype} "
+                         f"{tuple(row_valid.shape)} on {row_valid.device}")
+    if not (benefit.is_contiguous() and row_valid.is_contiguous()):
+        raise ValueError("the auction kernel reads contiguous benefit and "
+                         "row_valid")
+    if b < 1 or not 1 <= len(eps_phases) <= _MAX_PHASES:
+        raise ValueError(f"the auction kernel takes 1 or more images and 1 "
+                         f"to {_MAX_PHASES} eps phases; got {b} and "
+                         f"{len(eps_phases)}")
+    if rounds_per_step < 1 or not -2**31 <= round_cap < 2**31:
+        raise ValueError(f"rounds_per_step must be >= 1 and round_cap a "
+                         f"32-bit int; got {rounds_per_step}, {round_cap}")
+    if benefit.device.type != "cuda":
+        raise ValueError(f"the auction kernel runs on CUDA tensors; got "
+                         f"{benefit.device}")
+    lib = _kernel_lib()
+    dev = benefit.device
+    prices = torch.empty((b, n), dtype=torch.float32, device=dev)
+    col_of_row = torch.empty((b, m), dtype=torch.int64, device=dev)
+    row_of_col = torch.empty((b, n), dtype=torch.int64, device=dev)
+    chunks = torch.empty((b, len(eps_phases)), dtype=torch.int32, device=dev)
+    eps_c = (ctypes.c_float * len(eps_phases))(*eps_phases)
+    with torch.cuda.device(dev):
+        if lib.auction_staged(m, n) < 0:
+            raise ValueError(f"an auction image of [{m}, {n}] does not fit "
+                             f"a block's shared memory")
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.auction_solve(
+            benefit.data_ptr(), row_valid.data_ptr(), prices.data_ptr(),
+            col_of_row.data_ptr(), row_of_col.data_ptr(), chunks.data_ptr(),
+            b, m, n, ctypes.addressof(eps_c), len(eps_phases),
+            rounds_per_step, round_cap, stream)
+    if rc != 0:
+        msg = lib.auction_error_string(rc).decode()
+        raise RuntimeError(f"auction launch failed: {msg} ({rc})")
+    _build.launch_counts[_KERNEL] += 1
+    with annotate("auction.check"):  # the solve's one host sync
+        most = chunks.amax(dim=0).tolist()
+    return prices, col_of_row, row_of_col, rounds_per_step * sum(most)
 
 
 @torch.no_grad()
@@ -212,50 +264,13 @@ def auction_assign(
       if none; the number of rounds run, a multiple of rounds_per_step).
     """
     b, m, n = cost.shape
-    cost = cost.float()
-    # Benefits in [0, 1] per image (higher is better).
-    cmax = cost.amax(dim=(1, 2), keepdim=True)
-    cmin = cost.amin(dim=(1, 2), keepdim=True)
-    benefit = (cmax - cost) / torch.clamp(cmax - cmin, min=1e-12)
-    if col_pad is not None:
-        benefit = benefit + torch.where(
-            col_pad[:, None, :], delta, 0.0) * _tie_table(m, n, cost.device)
+    benefit = _benefit(cost.float(), col_pad, delta).contiguous()
+    solve = _solve_eager if cost.device.type == "cpu" else _solve_kernel
+    _, col_of_row, row_of_col, rounds = solve(
+        benefit, row_valid.contiguous(),
+        _eps_phases(eps, scale_phases, eps0, theta),
+        rounds_per_step, round_cap)
     dev = cost.device
-
-    eps_phases = []
-    if scale_phases:
-        e = eps0
-        while e > eps:
-            eps_phases.append(e)
-            e /= theta
-    eps_phases.append(eps)
-
-    prices = torch.zeros((b, n), device=dev)
-    budget = torch.full((b,), round_cap, device=dev, dtype=torch.int64)
-    col_of_row = torch.full((b, m), -1, device=dev, dtype=torch.int64)
-    row_of_col = torch.full((b, n), -1, device=dev, dtype=torch.int64)
-    rounds = 0
-    for phase_eps in eps_phases:
-        # A phase starts from no assignment while round budget remains;
-        # an image that spent its budget keeps its earlier result.
-        fresh = (budget > 0)[:, None]
-        runner = _rounds((b, m, n), rounds_per_step, phase_eps, dev)
-        runner.load(benefit, row_valid, prices,
-                    torch.where(fresh, -1, col_of_row),
-                    torch.where(fresh, -1, row_of_col))
-        while True:
-            active = ((row_valid & (runner.col_of_row < 0)).any(dim=1)
-                      & (budget > 0))
-            with annotate("auction.check"):  # the one host sync per step
-                converged = not bool(active.any())
-            if converged:
-                break
-            runner.run(active)
-            budget = budget - rounds_per_step * active
-            rounds += rounds_per_step
-        prices, col_of_row, row_of_col = (
-            runner.p.clone(), runner.col_of_row.clone(),
-            runner.row_of_col.clone())
     rows = torch.arange(m, device=dev)
 
     # Greedy completion if the budget ran out: the r-th leftover valid

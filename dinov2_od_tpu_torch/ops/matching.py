@@ -132,11 +132,14 @@ def hungarian_match(
                            match_valid=(query_of_gt >= 0) & gt_valid)
 
 
-def _auction_match(cost_qg: torch.Tensor, gt_valid: torch.Tensor,
-                   num_queries: int, num_gt: int) -> torch.Tensor:
-    """query_of_gt [B, G] from the auction, queries (all real) bidding for
-    GT-slot columns: the smaller, all-valid side bidding into spare
-    columns keeps contention low (ops/auction.py)."""
+def auction_problem(cost_qg: torch.Tensor, gt_valid: torch.Tensor,
+                    num_queries: int, num_gt: int):
+    """The auction's problem from the matching cost [B, Q, G]: queries
+    (all real) bid for GT-slot columns, the smaller, all-valid side
+    bidding into spare columns keeps contention low (ops/auction.py).
+
+    Returns (cost [B, Q, max(Q, G)], row_valid [B, Q], col_pad
+    [B, max(Q, G)], scale_phases): `auction_assign`'s arguments."""
     b = cost_qg.shape[0]
     n = max(num_queries, num_gt)
     cost_qn = torch.full((b, num_queries, n), PAD_COST,
@@ -151,15 +154,21 @@ def _auction_match(cost_qg: torch.Tensor, gt_valid: torch.Tensor,
     real_max = torch.where(torch.isfinite(real_max), real_max, 0.0)
     col_pad = torch.ones((b, n), dtype=torch.bool, device=cost_qg.device)
     col_pad[:, :num_gt] = ~gt_valid
-    query_of_col, rounds = auction_assign(
-        torch.minimum(cost_qn, real_max[:, None, None] + 1.0),
-        torch.ones((b, num_queries), dtype=torch.bool,
-                   device=cost_qg.device),
-        col_pad,
-        # Square with all rows valid has maximal contention; eps-scaling
-        # is sound there. Q < G keeps the provable single phase.
-        scale_phases=(num_queries == n),
-    )
+    # Square with all rows valid has maximal contention; eps-scaling is
+    # sound there. Q < G keeps the provable single phase.
+    return (torch.minimum(cost_qn, real_max[:, None, None] + 1.0),
+            torch.ones((b, num_queries), dtype=torch.bool,
+                       device=cost_qg.device),
+            col_pad, num_queries == n)
+
+
+def _auction_match(cost_qg: torch.Tensor, gt_valid: torch.Tensor,
+                   num_queries: int, num_gt: int) -> torch.Tensor:
+    """query_of_gt [B, G] from the auction."""
+    cost, row_valid, col_pad, square = auction_problem(
+        cost_qg, gt_valid, num_queries, num_gt)
+    query_of_col, rounds = auction_assign(cost, row_valid, col_pad,
+                                          scale_phases=square)
     solver_stats["auction_rounds"] += rounds
     # A query parked on an invalid slot's column is no match.
     return torch.where(gt_valid, query_of_col[:, :num_gt], -1)
